@@ -1,0 +1,48 @@
+"""Dense LD operator (PyTorch port of sgvamp_tpu/core/operators.py::DenseLD).
+
+Every operator has the batched matvec contract x (S*K, M) -> (S*K, M):
+row s*K + k is multiplied by cohort k's matrix, so one pass over the
+matrix serves S right-hand sides. The (1-s) R + s I regularization is
+folded into the matvec. The banded int8 operator that the main path runs
+is ops/band_kernel.py::SymBandedLD.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+from torch import Tensor
+
+
+def _regularize(y: Tensor, x: Tensor, s: float) -> Tensor:
+    # Rused @ x = (1-s) * (R @ x) + s * x
+    if s == 0.0:
+        return y
+    return (1.0 - s) * y + s * x
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseLD:
+    """Dense stacked LD operator: mats (K, M, M), one matrix per cohort."""
+
+    mats: Tensor
+    s: float = 0.0
+
+    @property
+    def K(self) -> int:
+        return self.mats.shape[0]
+
+    @property
+    def M(self) -> int:
+        return self.mats.shape[-1]
+
+    def bytes_per_pass(self) -> int:
+        """Bytes of LD data read by one matvec (roofline accounting)."""
+        return self.mats.numel() * self.mats.element_size()
+
+    def matvec(self, x: Tensor) -> Tensor:
+        S = x.shape[0] // self.K
+        xs = x.reshape(S, self.K, self.M).to(self.mats.dtype)
+        y = torch.einsum("kij,skj->ski", self.mats, xs)
+        return _regularize(y.reshape(x.shape).to(x.dtype), x, self.s)

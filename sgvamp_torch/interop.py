@@ -1,0 +1,72 @@
+"""Build the port's objects from numpy arrays.
+
+The JAX package's values, handed over as numpy arrays (np.asarray of its
+arrays), become the port's operator, inputs, prior and state, so that both
+engines can start from the same packed blocks and the same iterate. This
+module takes numpy only and never sees a JAX type.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from sgvamp_torch.core.prior import PriorState
+from sgvamp_torch.core.vamp import VampInputs, VampState
+from sgvamp_torch.ops.band_kernel import SymBandedLD
+
+
+def _t(v, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    # a copy: arrays handed over from JAX are read-only
+    return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+
+
+def operator_from_numpy(upper: np.ndarray, scales: np.ndarray, s: float = 0.0,
+                        device: torch.device | str = "cpu") -> SymBandedLD:
+    """SymBandedLD from int8 upper blocks (K, nb, hb+1, B, B) and their
+    (K, nb, hb+1) f32 scales."""
+    return SymBandedLD(upper=_t(upper, device, torch.int8).contiguous(),
+                       scales=_t(scales, device, torch.float32).contiguous(),
+                       s=s)
+
+
+def inputs_from_numpy(op, r: np.ndarray, a: np.ndarray, N: np.ndarray,
+                      mask: Optional[np.ndarray] = None,
+                      dtype: torch.dtype = torch.float32,
+                      device: torch.device | str = "cpu") -> VampInputs:
+    """VampInputs with r, a, N (and mask) as `dtype` tensors on `device`."""
+    return VampInputs(op=op, r=_t(r, device, dtype), a=_t(a, device, dtype),
+                      N=_t(N, device, dtype),
+                      mask=None if mask is None else _t(mask, device, dtype))
+
+
+def prior_from_numpy(lam, omegas, sigmas, dtype: torch.dtype = torch.float64,
+                     device: torch.device | str = "cpu",
+                     mle_gam=1.0, mle_gam_valid=False,
+                     mle_last_ok=True) -> PriorState:
+    """PriorState from its fields' values."""
+    return PriorState(
+        lam=_t(lam, device, dtype), omegas=_t(omegas, device, dtype),
+        sigmas=_t(sigmas, device, dtype), mle_gam=_t(mle_gam, device, dtype),
+        mle_gam_valid=_t(mle_gam_valid, device, torch.bool),
+        mle_last_ok=_t(mle_last_ok, device, torch.bool))
+
+
+def state_from_numpy(arrays: Mapping[str, np.ndarray],
+                     device: torch.device | str = "cpu",
+                     seed: int = 0) -> VampState:
+    """VampState from a dict of its fields as arrays: it, xhat1, alpha1, r1,
+    gam1, xhat2, r2, alpha2, gam2, gamw, sigma2_u, and the prior's lam,
+    omegas, sigmas. Tensors keep the arrays' dtypes. The probe generator
+    is seeded from `seed`: the JAX PRNG key has no counterpart."""
+    names = ("xhat1", "alpha1", "r1", "gam1", "xhat2", "r2", "alpha2",
+             "gam2", "gamw", "sigma2_u")
+    dtype = _t(arrays["xhat1"], "cpu").dtype
+    return VampState(
+        it=int(arrays["it"]),
+        prior=prior_from_numpy(arrays["lam"], arrays["omegas"],
+                               arrays["sigmas"], dtype=dtype, device=device),
+        gen=torch.Generator(device=device).manual_seed(seed),
+        **{n: _t(arrays[n], device) for n in names})

@@ -1,0 +1,88 @@
+"""The port's kernels on the card, against their plain PyTorch versions.
+
+Every test here needs a CUDA device and skips without one. This file
+imports no jax, so it also runs where the JAX package is not installed;
+there the JAX settings in conftest.py must be skipped:
+
+    python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sgvamp_torch.data.simulate import simulate_ld_band
+from sgvamp_torch.ops.band_kernel import (SymBandedLD, sym_band_matvec_int8,
+                                          sym_band_matvec_int8_ref)
+from sgvamp_torch.ops.membench import measure_read_gbps, read_max, read_max_ref
+
+pytestmark = pytest.mark.gpu
+
+# max|kernel - plain| / max|plain|: both sum exact bf16*int8 products in
+# f32, in different orders
+SCALED_TOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda:0")
+
+
+@pytest.mark.parametrize("B,bw,M,K,S", [
+    (128, 300, 1000, 2, 2),   # ragged M, hb=3
+    (128, 256, 4096, 1, 2),   # the bench's hb=2
+    (64, 100, 777, 1, 1),
+    (64, 10, 640, 3, 3),      # hb=1, K=3
+    (256, 600, 3000, 1, 4),   # over 48 KB of shared memory
+])
+def test_band_kernel_matches_plain(cuda, B, bw, M, K, S):
+    rng = np.random.default_rng(B + bw + M)
+    band, _, _ = simulate_ld_band(10000, M, bw, rng=rng)
+    op = SymBandedLD.from_band(band, block_size=B, K=K, device=cuda)
+    x = torch.from_numpy(rng.normal(size=(K, S, op.M))).to(cuda, torch.bfloat16)
+    before = sym_band_matvec_int8.launches
+    y = sym_band_matvec_int8(op.upper, op.scales, x)
+    torch.cuda.synchronize()
+    assert sym_band_matvec_int8.launches == before + 1
+    want = sym_band_matvec_int8_ref(op.upper, op.scales, x)
+    assert y.dtype == torch.float32 and y.shape == want.shape
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= SCALED_TOL, err
+    # the gather design writes every output once, with no atomics: the
+    # same bits on every run
+    assert torch.equal(y, sym_band_matvec_int8(op.upper, op.scales, x))
+
+
+def test_band_kernel_rejects_bad_input(cuda):
+    band, _, _ = simulate_ld_band(10000, 512, 64, rng=np.random.default_rng(0))
+    op = SymBandedLD.from_band(band, block_size=128, device=cuda)
+    x = torch.zeros((1, 2, op.M), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        sym_band_matvec_int8(op.upper, op.scales, x.float())
+    with pytest.raises(ValueError):
+        sym_band_matvec_int8(op.upper, op.scales, torch.zeros_like(x).repeat(1, 5, 1))
+    with pytest.raises(ValueError):
+        sym_band_matvec_int8(op.upper, op.scales.cpu(), x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
+def test_read_probe_matches_plain(cuda, dtype):
+    pytest.importorskip("triton")
+    g = torch.Generator(cuda).manual_seed(0)
+    if dtype == torch.int8:
+        u = torch.randint(-127, 128, (3 << 20,), generator=g, device=cuda).to(dtype)
+    else:
+        u = torch.randn(3 << 20, generator=g, device=cuda).to(dtype)
+        u[123457] = 1e6
+    assert torch.equal(read_max(u), read_max_ref(u))
+
+
+def test_read_probe_rate_is_finite(cuda):
+    pytest.importorskip("triton")
+    u = torch.randn(64 << 20, device=cuda)
+    gbps, per_pass = measure_read_gbps(u, n=4, reps=2)
+    assert np.isfinite(gbps) and gbps > 0 and per_pass > 0
