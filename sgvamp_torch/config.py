@@ -86,11 +86,13 @@ class VampConfig:
         if self.prior_update == "mle":
             raise NotImplementedError(
                 "prior_update='mle' is not ported yet (ROADMAP A11)")
-        if self.cg_precond_block > 0:
-            raise NotImplementedError(
-                "block-Jacobi preconditioning (cg_precond_block > 0) is not "
-                "ported yet (ROADMAP A10)")
+        if self.cg_precond_dtype not in _DTYPES:
+            raise ValueError(f"unsupported cg_precond_dtype: {self.cg_precond_dtype!r}")
 
     @property
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
+
+    @property
+    def precond_torch_dtype(self) -> torch.dtype:
+        return _DTYPES[self.cg_precond_dtype]

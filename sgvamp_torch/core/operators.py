@@ -3,8 +3,8 @@
 Every operator has the batched matvec contract x (S*K, M) -> (S*K, M):
 row s*K + k is multiplied by cohort k's matrix, so one pass over the
 matrix serves S right-hand sides. The (1-s) R + s I regularization is
-folded into the matvec. The banded int8 operator that the main path runs
-is ops/band_kernel.py::SymBandedLD.
+folded into the matvec. The banded operator that the main path runs is
+ops/band_kernel.py::SymBandedLD.
 """
 
 from __future__ import annotations
@@ -46,3 +46,19 @@ class DenseLD:
         xs = x.reshape(S, self.K, self.M).to(self.mats.dtype)
         y = torch.einsum("kij,skj->ski", self.mats, xs)
         return _regularize(y.reshape(x.shape).to(x.dtype), x, self.s)
+
+    def diag_blocks(self, block_size: int = 0) -> Tensor:
+        """(K, nb, B, B) f32 regularized diagonal blocks of Rused (for the
+        block-Jacobi preconditioner, core/precond.py). Default block: the
+        largest divisor of M at most 256."""
+        B = block_size or max(b for b in range(1, min(256, self.M) + 1)
+                              if self.M % b == 0)
+        if self.M % B:
+            raise ValueError(f"M={self.M} not a multiple of block {B}")
+        nb = self.M // B
+        Dv = self.mats.reshape(self.K, nb, B, nb, B)
+        D = torch.diagonal(Dv, dim1=1, dim2=3).movedim(-1, 1).float()
+        if self.s != 0.0:
+            eye = torch.eye(B, dtype=D.dtype, device=D.device)
+            D = (1.0 - self.s) * D + self.s * eye
+        return D

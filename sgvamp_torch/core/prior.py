@@ -15,6 +15,8 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from sgvamp_torch import resolve_device
+
 
 @dataclasses.dataclass(frozen=True)
 class PriorState:
@@ -36,7 +38,10 @@ class PriorState:
 
     @staticmethod
     def create(lam: float, omegas, sigmas, dtype: torch.dtype = torch.float64,
-               device: torch.device | str = "cpu") -> "PriorState":
+               device=None) -> "PriorState":
+        """The fields on `device` (None: the default CUDA device)."""
+        device = resolve_device(device)
+
         def f(v):
             return torch.as_tensor(v, dtype=dtype, device=device)
         return PriorState(

@@ -23,6 +23,9 @@ from torch import Tensor
 from sgvamp_torch.config import VampConfig
 from sgvamp_torch.core.cg import cg_batched, rowdot
 from sgvamp_torch.core.denoiser import combine_cohorts, posterior_mean_and_slope
+from sgvamp_torch.core.precond import (apply_block_jacobi, block_jacobi_eig,
+                                       block_jacobi_from_eig,
+                                       block_jacobi_inverse)
 from sgvamp_torch.core.prior import PriorState, em_loop
 
 logger = logging.getLogger("sgvamp")
@@ -40,6 +43,11 @@ class VampInputs:
     mask: optional (M,) 0/1 marker-validity mask; padded markers carry 0
         and are left out of every marker mean and trace, so a padded run
         equals the unpadded one.
+    precond_q, precond_lam: optional one-time block-Jacobi factorization
+        (core/precond.py block_jacobi_eig): eigenvectors (K, M/P, P, P) and
+        eigenvalues (K, M/P, P) of the diagonal sub-blocks of Rused. When
+        present, each step rebuilds the preconditioner with two batched
+        matmuls instead of a batched inversion.
     """
 
     op: Any
@@ -47,6 +55,8 @@ class VampInputs:
     a: Tensor
     N: Tensor
     mask: Optional[Tensor] = None
+    precond_q: Optional[Tensor] = None
+    precond_lam: Optional[Tensor] = None
 
     @property
     def M_active(self):
@@ -59,9 +69,12 @@ class VampInputs:
 class VampState:
     """Complete VAMP iteration state.
 
-    `it` is a host int. `gen` draws the Rademacher probes when none are
-    injected; it is a torch.Generator on the state's device and advances
-    in place, so a state shares it with the states that follow it.
+    `it` is a host int. `gen` seeds the Rademacher probes when none are
+    injected: a CPU torch.Generator that gives each step one seed for that
+    step's draw on the state's device. It advances in place, by the same
+    amount whatever M is, so a state shares it with the states that follow
+    it and a run over padded markers draws the probes of the unpadded run
+    (on the CPU, where a draw's first values do not depend on its length).
     """
 
     it: int
@@ -177,7 +190,7 @@ def init_state(inputs: VampInputs, cfg: VampConfig, prior: PriorState,
         gamw=torch.full((K,), gamw, dtype=dtype, device=dev),
         sigma2_u=z,
         prior=prior.to(dtype, dev),
-        gen=torch.Generator(device=dev).manual_seed(seed),
+        gen=torch.Generator().manual_seed(seed),
     )
 
 
@@ -240,8 +253,11 @@ def vamp_step(
     mu2 = gamw[:, None] * inputs.r + gam2[:, None] * r2
 
     if u is None:
-        u = torch.randint(0, 2, (K, M), generator=state.gen,
-                          device=r1s.device).to(dtype) * 2 - 1
+        step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.gen))
+        gen = torch.Generator(device=r1s.device).manual_seed(step_seed)
+        # drawn marker-major, so that padding M only appends to each row
+        u = torch.randint(0, 2, (M, K), generator=gen,
+                          device=r1s.device).T.to(dtype) * 2 - 1
     else:
         u = u.to(dtype)
     if mask is not None:
@@ -254,11 +270,33 @@ def vamp_step(
         # A @ x = gamw * (R @ x) + gam2 * x, never materializing A
         return gamw2[:, None] * inputs.op.matvec(x) + gam22[:, None] * x
 
+    precond = None
+    if cfg.cg_precond_block:
+        # Block-Jacobi M^{-1} from this iteration's (gamw, gam2), built once
+        # and used by every CG iteration. Both lane groups share per-cohort
+        # systems, so one (K, ...) inverse serves the 2K-lane solve. With
+        # the engine's cached eigendecomposition the rebuild is two batched
+        # matmuls; without it (vamp_step called directly) the blocks are
+        # inverted here.
+        if inputs.precond_q is not None:
+            pinv = block_jacobi_from_eig(
+                inputs.precond_q, inputs.precond_lam, gamw, gam2,
+                dtype=cfg.precond_torch_dtype)
+        else:
+            pinv = block_jacobi_inverse(inputs.op, gamw, gam2,
+                                        cfg.cg_precond_block,
+                                        dtype=cfg.precond_torch_dtype)
+        # the values keep their storage rounding; the cast to the apply's
+        # compute type is hoisted out of the CG loop
+        pinv = pinv.to(torch.promote_types(dtype, torch.float32))
+        precond = lambda v: apply_block_jacobi(pinv, v)  # noqa: E731
+
     cg = cg_batched(
         amatvec2,
         torch.cat([mu2, u], dim=0),
         torch.cat([state.xhat2, state.sigma2_u], dim=0),
         cfg.cg_maxit, cfg.cg_rtol, cfg.cg_atol, cfg.cg_force_maxiter,
+        precond=precond,
     )
     xhat2, sigma2_u = cg.x[:K], cg.x[K:]
     if cfg.lmmse_damp:
@@ -318,6 +356,13 @@ class VampEngine:
 
     def __init__(self, inputs: VampInputs, cfg: VampConfig, prior: PriorState,
                  gamw: float = 5.0, gam1: float = 1e-6) -> None:
+        if (cfg.cg_precond_block and cfg.cg_precond_eig
+                and inputs.precond_q is None):
+            # one-time factorization of the diagonal sub-blocks; every step
+            # then rebuilds the shifted inverse from it
+            Q, lam = block_jacobi_eig(inputs.op, cfg.cg_precond_block, 2048,
+                                      cfg.precond_torch_dtype)
+            inputs = dataclasses.replace(inputs, precond_q=Q, precond_lam=lam)
         self.inputs = inputs
         self.cfg = cfg
         self.prior = prior

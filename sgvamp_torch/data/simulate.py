@@ -1,15 +1,25 @@
-"""Banded LD panel simulator, numpy only.
+"""Data simulators, numpy only.
 
-A copy of sgvamp_tpu/data/simulate.py::simulate_ld_band, band_matvec and
-band_to_dense: importing anything under sgvamp_tpu imports jax, which the
-port does not use. The same seed gives the same arrays in both packages.
+A copy of sgvamp_tpu/data/simulate.py::simulate_single, simulate_ld_band,
+band_matvec and band_to_dense: importing anything under sgvamp_tpu imports
+jax, which the port does not use. The same seed gives the same arrays in
+both packages.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class SimData:
+    y: np.ndarray              # (N,)
+    beta: np.ndarray           # (M,)
+    r: np.ndarray              # (M,)
+    R: Optional[np.ndarray]    # (M, M) or None
 
 
 def _sparse_beta(rng: np.random.Generator, M: int, lam: float, var: float) -> np.ndarray:
@@ -18,6 +28,24 @@ def _sparse_beta(rng: np.random.Generator, M: int, lam: float, var: float) -> np
     idx = rng.choice(M, size=cm, replace=False)
     beta[idx] = rng.normal(0.0, np.sqrt(var), size=cm)
     return beta
+
+
+def simulate_single(
+    N: int, M: int, h2: float = 0.8, lam: float = 0.5,
+    rng: Optional[np.random.Generator] = None,
+) -> SimData:
+    """Single-cohort generator: binomial genotypes, beta variance 1/cm,
+    noise sd sqrt(1/h2 - 1), y standardized, dense R = X^T X."""
+    rng = rng or np.random.default_rng()
+    X = rng.binomial(2, 0.4, size=(N, M)).astype(np.float64)
+    X = (X - X.mean(axis=0)) / X.std(axis=0)
+    beta = _sparse_beta(rng, M, lam, var=1.0 / int(M * lam))
+    g = X @ beta
+    w = rng.normal(0.0, np.sqrt(1.0 / h2 - 1.0), size=N)
+    y = g + w
+    y = (y - y.mean()) / y.std()
+    X /= np.sqrt(N)
+    return SimData(y=y, beta=beta, r=X.T @ y, R=X.T @ X)
 
 
 def simulate_ld_band(

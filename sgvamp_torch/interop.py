@@ -13,6 +13,7 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
+from sgvamp_torch import resolve_device
 from sgvamp_torch.core.prior import PriorState
 from sgvamp_torch.core.vamp import VampInputs, VampState
 from sgvamp_torch.ops.band_kernel import SymBandedLD
@@ -20,22 +21,33 @@ from sgvamp_torch.ops.band_kernel import SymBandedLD
 
 def _t(v, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     # a copy: arrays handed over from JAX are read-only
-    return torch.tensor(np.asarray(v), dtype=dtype, device=device)
+    return torch.tensor(np.asarray(v), dtype=dtype, device=resolve_device(device))
 
 
-def operator_from_numpy(upper: np.ndarray, scales: np.ndarray, s: float = 0.0,
-                        device: torch.device | str = "cpu") -> SymBandedLD:
-    """SymBandedLD from int8 upper blocks (K, nb, hb+1, B, B) and their
-    (K, nb, hb+1) f32 scales."""
-    return SymBandedLD(upper=_t(upper, device, torch.int8).contiguous(),
-                       scales=_t(scales, device, torch.float32).contiguous(),
-                       s=s)
+def operator_from_numpy(upper: np.ndarray, scales: Optional[np.ndarray] = None,
+                        s: float = 0.0, packed: bool = False,
+                        hybrid: bool = False,
+                        dtype: Optional[torch.dtype] = None,
+                        device=None) -> SymBandedLD:
+    """SymBandedLD from the JAX operator's fields as numpy arrays.
+
+    int8, int4 (`packed`) and hybrid storage: `upper` int8 and its f32
+    `scales`, unchanged. Float blocks: `scales` None and `upper` a float32
+    or float64 array; bf16 blocks cross as float32 values (exact) with
+    dtype=torch.bfloat16. Tensors go to `device` (None: the default CUDA
+    device)."""
+    if scales is not None:
+        dtype = torch.int8
+    return SymBandedLD(
+        upper=_t(upper, device, dtype).contiguous(),
+        scales=None if scales is None else _t(scales, device, torch.float32).contiguous(),
+        packed=packed, hybrid=hybrid, s=s)
 
 
 def inputs_from_numpy(op, r: np.ndarray, a: np.ndarray, N: np.ndarray,
                       mask: Optional[np.ndarray] = None,
                       dtype: torch.dtype = torch.float32,
-                      device: torch.device | str = "cpu") -> VampInputs:
+                      device=None) -> VampInputs:
     """VampInputs with r, a, N (and mask) as `dtype` tensors on `device`."""
     return VampInputs(op=op, r=_t(r, device, dtype), a=_t(a, device, dtype),
                       N=_t(N, device, dtype),
@@ -43,7 +55,7 @@ def inputs_from_numpy(op, r: np.ndarray, a: np.ndarray, N: np.ndarray,
 
 
 def prior_from_numpy(lam, omegas, sigmas, dtype: torch.dtype = torch.float64,
-                     device: torch.device | str = "cpu",
+                     device=None,
                      mle_gam=1.0, mle_gam_valid=False,
                      mle_last_ok=True) -> PriorState:
     """PriorState from its fields' values."""
@@ -55,7 +67,7 @@ def prior_from_numpy(lam, omegas, sigmas, dtype: torch.dtype = torch.float64,
 
 
 def state_from_numpy(arrays: Mapping[str, np.ndarray],
-                     device: torch.device | str = "cpu",
+                     device=None,
                      seed: int = 0) -> VampState:
     """VampState from a dict of its fields as arrays: it, xhat1, alpha1, r1,
     gam1, xhat2, r2, alpha2, gam2, gamw, sigma2_u, and the prior's lam,
@@ -64,9 +76,10 @@ def state_from_numpy(arrays: Mapping[str, np.ndarray],
     names = ("xhat1", "alpha1", "r1", "gam1", "xhat2", "r2", "alpha2",
              "gam2", "gamw", "sigma2_u")
     dtype = _t(arrays["xhat1"], "cpu").dtype
+    device = resolve_device(device)
     return VampState(
         it=int(arrays["it"]),
         prior=prior_from_numpy(arrays["lam"], arrays["omegas"],
                                arrays["sigmas"], dtype=dtype, device=device),
-        gen=torch.Generator(device=device).manual_seed(seed),
+        gen=torch.Generator().manual_seed(seed),
         **{n: _t(arrays[n], device) for n in names})

@@ -44,7 +44,7 @@ def test_simulator_copy_matches():
 def test_from_band_bit_identical(B, bw, M, K, dtype):
     band = _band(M, bw, seed=B + M, dtype=dtype)
     want = JaxSymBandedLD.from_band(band, block_size=B, K=K, dtype="int8")
-    got = SymBandedLD.from_band(band, block_size=B, K=K)
+    got = SymBandedLD.from_band(band, block_size=B, K=K, device="cpu")
     assert got.upper.dtype == torch.int8 and got.scales.dtype == torch.float32
     np.testing.assert_array_equal(got.upper.numpy(), np.asarray(want.upper))
     np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
@@ -57,7 +57,8 @@ def test_from_band_bit_identical(B, bw, M, K, dtype):
 def test_matvec_matches_jax_and_dense(B, bw, M, K):
     band = _band(M, bw, seed=7 + K)
     jop = JaxSymBandedLD.from_band(band, block_size=B, K=K, dtype="int8", s=0.1)
-    op = operator_from_numpy(np.asarray(jop.upper), np.asarray(jop.scales), s=0.1)
+    op = operator_from_numpy(np.asarray(jop.upper), np.asarray(jop.scales), s=0.1,
+                             device="cpu")
     assert op.hb >= 2 and M % B  # ragged M, two off-diagonal block bands
     x = np.random.default_rng(1).normal(size=(2 * K, op.M)).astype(np.float32)
     y = op.matvec(torch.from_numpy(x)).numpy().astype(np.float64)
@@ -77,7 +78,7 @@ def test_matvec_matches_jax_and_dense(B, bw, M, K):
 
 def test_cpu_wrapper_takes_the_plain_version():
     band = _band(300, 100, seed=3)
-    op = SymBandedLD.from_band(band, block_size=64)
+    op = SymBandedLD.from_band(band, block_size=64, device="cpu")
     x = torch.randn(1, 2, op.M, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     before = sym_band_matvec_int8.launches
     y = sym_band_matvec_int8(op.upper, op.scales, x)
@@ -89,7 +90,6 @@ def test_cpu_wrapper_takes_the_plain_version():
 
 def test_unported_flavors_raise():
     band = _band(300, 100, seed=3)
-    for kw in ({"dtype": "int4"}, {"dtype": None}, {"layout": "slab"},
-               {"mesh": object()}):
+    for kw in ({"layout": "slab"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SymBandedLD.from_band(band, block_size=64, **kw)
+            SymBandedLD.from_band(band, block_size=64, device="cpu", **kw)

@@ -166,6 +166,9 @@ def test_config_matches_jax():
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         VampConfig(prior_update="mle")
-    with pytest.raises(NotImplementedError, match="A10"):
-        VampConfig(cg_precond_block=32)
+    # the block-Jacobi preconditioner is ported: its options construct
+    cfg = VampConfig(cg_precond_block=32, cg_precond_dtype="bfloat16")
+    assert cfg.precond_torch_dtype == torch.bfloat16
+    with pytest.raises(ValueError, match="cg_precond_dtype"):
+        VampConfig(cg_precond_dtype="int8")
     assert VampConfig(dtype="float32").torch_dtype == torch.float32

@@ -12,7 +12,11 @@ import pytest
 import torch
 
 from sgvamp_torch.data.simulate import simulate_ld_band
-from sgvamp_torch.ops.band_kernel import (SymBandedLD, sym_band_matvec_int8,
+from sgvamp_torch.ops.band_kernel import (SymBandedLD, band_kernel_of,
+                                          sym_band_matvec,
+                                          sym_band_matvec_hybrid,
+                                          sym_band_matvec_int4,
+                                          sym_band_matvec_int8,
                                           sym_band_matvec_int8_ref)
 from sgvamp_torch.ops.membench import measure_read_gbps, read_max, read_max_ref
 
@@ -67,6 +71,85 @@ def test_band_kernel_rejects_bad_input(cuda):
         sym_band_matvec_int8(op.upper, op.scales, torch.zeros_like(x).repeat(1, 5, 1))
     with pytest.raises(ValueError):
         sym_band_matvec_int8(op.upper, op.scales.cpu(), x)
+
+
+# Products of a bf16 x with bf16, int4 or int8 values are exact in f32, so
+# only the order of the f32 sums differs: scaled 1e-5. f32 blocks round
+# each product too (same bound); f64 blocks sum in f64.
+@pytest.mark.parametrize("B,bw,M,K,S", [
+    (128, 300, 1000, 2, 2),   # ragged M, hb=3
+    (128, 100, 1024, 1, 1),   # hb=1
+    (128, 0, 512, 2, 4),      # hb=0: diagonal blocks only
+    (64, 150, 777, 1, 2),     # hb=3
+    (64, 60, 640, 2, 4),      # hb=1
+    (64, 0, 256, 1, 1),       # hb=0
+    (256, 700, 3000, 1, 4),   # hb=3
+    (256, 200, 2048, 2, 1),   # hb=1
+    (256, 0, 1024, 1, 2),     # hb=0
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64", "int4", "hybrid"])
+def test_new_band_kernels_match_plain(cuda, dtype, B, bw, M, K, S):
+    rng = np.random.default_rng(B + bw + M)
+    if bw:
+        band, _, _ = simulate_ld_band(10000, M, bw, rng=rng)
+    else:
+        band = np.ones((M, 1), np.float32)   # bandwidth 0: the unit diagonal
+    op = SymBandedLD.from_band(band, block_size=B, K=K, dtype=dtype, device=cuda)
+    assert op.hb == -(-bw // B)
+    if not bw:  # identity blocks exercise nothing: randomize the storage
+        g = torch.Generator(cuda).manual_seed(M)
+        if op.upper.dtype == torch.int8:
+            up = torch.randint(-128, 128, op.upper.shape, generator=g, device=cuda).to(torch.int8)
+            sc = torch.rand(op.scales.shape, generator=g, device=cuda) / 100
+            op = SymBandedLD(upper=up, scales=sc, packed=op.packed, hybrid=op.hybrid)
+        else:
+            op = SymBandedLD(upper=torch.randn(op.upper.shape, generator=g, device=cuda,
+                                               dtype=torch.float32).to(op.upper.dtype))
+    kernel, plain, args, xdt = band_kernel_of(op)
+    x = torch.from_numpy(rng.normal(size=(K, S, op.M))).to(cuda, xdt)
+    before = kernel.launches
+    y = kernel(*args, x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(*args, x)
+    assert y.dtype == want.dtype and y.shape == want.shape
+    assert y.dtype == (torch.float64 if dtype == "float64" else torch.float32)
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= (1e-12 if dtype == "float64" else SCALED_TOL), err
+    assert torch.equal(y, kernel(*args, x))  # no atomics: reproducible bits
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "int4", "hybrid", "int8"])
+def test_operator_matvec_on_gpu_matches_cpu(cuda, dtype):
+    rng = np.random.default_rng(5)
+    band, _, _ = simulate_ld_band(10000, 900, 200, rng=rng)
+    kw = dict(block_size=128, K=2, dtype=dtype, s=0.05)
+    gpu = SymBandedLD.from_band(band, device=cuda, **kw)
+    cpu = SymBandedLD.from_band(band, device="cpu", **kw)
+    x = torch.from_numpy(rng.normal(size=(4, gpu.M)).astype(np.float32))
+    y, want = gpu.matvec(x.to(cuda)).cpu(), cpu.matvec(x)
+    assert float((y - want).abs().max() / want.abs().max()) <= SCALED_TOL
+
+
+def test_new_band_kernels_reject_bad_input(cuda):
+    band, _, _ = simulate_ld_band(10000, 512, 64, rng=np.random.default_rng(0))
+    for dtype, kernel in (("int4", sym_band_matvec_int4), ("hybrid", sym_band_matvec_hybrid)):
+        op = SymBandedLD.from_band(band, block_size=128, dtype=dtype, device=cuda)
+        x = torch.zeros((1, 2, op.M), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError):
+            kernel(op.upper, op.scales, x.float())
+        with pytest.raises(ValueError):
+            kernel(op.upper, op.scales[:, :, :1], x)
+        with pytest.raises(ValueError):
+            kernel(op.upper, op.scales, x.repeat(1, 3, 1))  # S = 6
+    op = SymBandedLD.from_band(band, block_size=128, dtype="float32", device=cuda)
+    with pytest.raises(ValueError):   # x must be in the block dtype
+        sym_band_matvec(op.upper, torch.zeros((1, 2, op.M), dtype=torch.bfloat16, device=cuda))
+    with pytest.raises(ValueError):
+        sym_band_matvec(op.upper, torch.zeros((1, 2, op.M), device="cpu"))
+    op32 = SymBandedLD.from_band(band, block_size=32, dtype="float32", device=cuda)
+    with pytest.raises(ValueError, match="B in"):
+        sym_band_matvec(op32.upper, torch.zeros((1, 2, op32.M), device=cuda))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])

@@ -66,7 +66,7 @@ def _dense_engines(K, dtype="float64", seed=0):
         tvamp.VampInputs(op=TDenseLD(mats=torch.from_numpy(R), s=0.05),
                          r=torch.from_numpy(r), a=torch.from_numpy(a),
                          N=torch.from_numpy(Nk)),
-        TConfig(**cfg), TPrior.create(*_prior_args(M)))
+        TConfig(**cfg), TPrior.create(*_prior_args(M), device="cpu"))
     return jeng, teng, x0, M
 
 
@@ -106,7 +106,7 @@ def test_f32_int8_banded_trajectory_matches(K):
     band, r, x0 = _problem(M, bw, K, seed=10 + K, n=n)
     jop = JSym.from_band(band, block_size=B, K=K, dtype="int8", s=0.02)
     top = interop.operator_from_numpy(np.asarray(jop.upper), np.asarray(jop.scales),
-                                      s=0.02)
+                                      s=0.02, device="cpu")
     assert top.hb >= 2 and top.M > M
     Mp = top.M
     mask = (np.arange(Mp) < M).astype(np.float32)
@@ -120,8 +120,8 @@ def test_f32_int8_banded_trajectory_matches(K):
                          N=jnp.asarray(Nk), mask=jnp.asarray(mask)),
         JConfig(**cfg), JPrior.create(*_prior_args(M, n)))
     teng = tvamp.VampEngine(
-        interop.inputs_from_numpy(top, rp, a, Nk, mask=mask),
-        TConfig(**cfg), TPrior.create(*_prior_args(M, n)))
+        interop.inputs_from_numpy(top, rp, a, Nk, mask=mask, device="cpu"),
+        TConfig(**cfg), TPrior.create(*_prior_args(M, n), device="cpu"))
     u = _probes(iters, K, Mp, seed=20 + K)
     hj = jeng.run(iters, fixed_u=u, M_out=M, x0=x0)
     ht = teng.run(iters, fixed_u=u, M_out=M, x0=x0)
@@ -179,7 +179,7 @@ def test_step_from_a_jax_state_matches():
     state = jeng.run(2, fixed_u=u)["state"]
     assert int(state.it) == 2
     jnext, jaux = jvamp.vamp_step(state, jeng.inputs, jeng.cfg, jnp.asarray(u[2]))
-    tstate = interop.state_from_numpy(_jax_state_arrays(state))
+    tstate = interop.state_from_numpy(_jax_state_arrays(state), device="cpu")
     assert tstate.it == 2 and tstate.xhat1.dtype == torch.float64
     tnext, taux = tvamp.vamp_step(tstate, teng.inputs, teng.cfg, torch.from_numpy(u[2]))
     assert tnext.it == 3
