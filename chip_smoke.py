@@ -6,17 +6,20 @@
 Phases, a few lines of output each (and fail on the first that fails):
   0. device: needs CUDA (there is no CPU fallback); prints the card's name
      and power limit as nvidia-smi reports them.
-  1. build: compiles sgvamp_torch/csrc/*.cu with nvcc (sm_90a), one process
-     per source, all started together.
+  1. build: compiles the seven sgvamp_torch/csrc/*.cu with nvcc (sm_90a),
+     one process per source, all started together.
   2. kernels against their plain PyTorch versions on the card: the five
-     storages of the symmetric banded matvec (int8, float blocks in
-     bfloat16 / float32 / float64, int4, hybrid) on a small ragged operator
-     (M=1000, bandwidth 300, K=2, S=2) at B = 64, 128, 256, and at the full
-     bench shape (M=524288, bandwidth 256, B=128, K=1, S=2), scaled error
-     <= 1e-5 (1e-12 for float64); ms/pass of kernel and plain version at
-     the full shape. The Triton read probe against its plain version,
-     exactly. A small engine run on the GPU against the same run on the
-     CPU (plain versions).
+     storages of the streamed diag matvec (int8, float blocks in bfloat16 /
+     float32 / float64, int4, hybrid) and, for the three float types, the
+     streamed slab, resident diag (with and without `window`) and resident
+     slab kernels, on a small ragged operator (M=1000, bandwidth 300, K=2,
+     S=2) at B = 64, 128, 256, and at the full bench shape (M=524288,
+     bandwidth 256, B=128, K=1, S=2; bfloat16 and float32 for the float
+     kernels), scaled error <= 1e-5 (1e-12 for float64); ms/pass of kernel
+     and plain version at the full shape, and of BandedLD.matvec (one
+     einsum over full-band storage) on the same band. The Triton read probe
+     against its plain version, exactly. A small engine run on the GPU
+     against the same run on the CPU (plain versions).
   3. the engine's library path: with the kernels' launch counts at zero,
      the bench's sequence at its geometry - the read-probe ceiling over the
      int8 LD blocks, then VampEngine.run (EM prior, fused 2K-lane CG with a
@@ -28,13 +31,22 @@ Phases, a few lines of output each (and fail on the first that fails):
      panel files, sgvamp_torch.cli.main ingests them and runs the
      production solve (CG to rtol 1e-5, block-Jacobi preconditioner,
      divergence stop) with --ld-dtype hybrid at M=524288, then with
-     --ld-dtype bfloat16 and int4 at M=65536. Each run starts with the
-     launch counts at zero and must launch its own storage's kernel once
-     per LD pass and no other band kernel, write the reference-format
-     files and reach a best-iterate alignment >= 0.9.
+     --ld-dtype bfloat16 (mode "auto": the resident kernel) and int4, and
+     with --operator banded --ld-dtype bfloat16 (no band kernel), at
+     M=65536. Each run starts with the launch counts at zero and must
+     launch its own kernel once per LD pass and no other band kernel, write
+     the reference-format files and reach a best-iterate alignment >= 0.9.
+  5. the operator-flavor path at the bench shape, over the band of phase 2:
+     with the launch counts at zero, sgvamp_torch.utils.kernel_bench.main
+     over einsum, streamed, resident, window, slab, slabstreamed and
+     slabresident in bfloat16, each variant launching its own kernel and no
+     other; then VampEngine.run (EM prior, fixed 100-iteration CG budget, 4
+     iterations) over the bfloat16 slab-streamed operator and over the
+     bfloat16 resident operator, with phase 3's checks on each.
 Then a JSON line of the kernels' numbers, and the result line last.
 """
 
+import dataclasses
 import json
 import logging
 import os
@@ -53,10 +65,26 @@ N_SAMPLES, LAM, H2 = 300000, 0.01, 0.7
 SCALED_TOL = 1e-5     # kernel vs plain version: max|dy| / max|y|
 F64_TOL = 1e-12
 ITERATIONS = 6        # engine library path (fixed CG budget)
+FLAVOR_ITERATIONS = 4 # the same over the slab-streamed and the resident operator
 CLI_ITERATIONS = 10
 CG_MAXIT = 100
 MIN_ALIGNMENT = 0.9
 STORAGES = ("int8", "bfloat16", "float32", "int4", "hybrid")
+# the kernels of the slab layout and the resident mode: (layout, mode, window),
+# the wrapper each must take, and the kernel_bench variants that name it
+FLAVORS = {"slab-streamed": ("slab", "streamed", False),
+           "resident": ("diag", "resident", False),
+           "window": ("diag", "resident", True),
+           "slab-resident": ("slab", "resident", False)}
+FLAVOR_WRAPPER = {"slab-streamed": "sym_slab_matvec_streamed",
+                  "resident": "sym_band_matvec_resident",
+                  "window": "sym_band_matvec_window",
+                  "slab-resident": "sym_slab_matvec_resident"}
+BENCH_VARIANTS = {"einsum": None, "streamed": "sym_band_matvec",
+                  "resident": "sym_band_matvec_resident", "window": "sym_band_matvec_window",
+                  "slab": "sym_slab_matvec_resident", "slabstreamed": "sym_slab_matvec_streamed",
+                  "slabresident": "sym_slab_matvec_resident"}
+BENCH_PASSES = 20
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense operations/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -105,7 +133,7 @@ def kernel_vs_plain(op, S: int, seed: int, what: str, tol: float = SCALED_TOL) -
 
     from sgvamp_torch.ops.band_kernel import band_kernel_of
 
-    kernel, plain, args, xdt = band_kernel_of(op)
+    kernel, plain, args, xdt = band_kernel_of(op, S)
     x = torch.randn((op.K, S, op.M), generator=torch.Generator(op.upper.device).manual_seed(seed),
                     device=op.upper.device).to(xdt)
     y = kernel(*args, x)
@@ -122,13 +150,45 @@ def bound_ms(op, S: int, storage: str) -> tuple:
     scales and x read once, y written once, over the HBM rate; operations:
     two per stored element and lane for each block product the band holds
     (row and mirror), over the peak rate of the storage's type."""
-    xb = 4 if storage == "float32" else 2
-    nbytes = op.bytes_per_pass() + op.K * S * op.M * (xb + 4)
+    xb, yb = {"float32": (4, 4), "float64": (8, 8)}.get(storage, (2, 4))
+    nbytes = op.bytes_per_pass() + op.K * S * op.M * (xb + yb)
     blocks = op.nb + 2 * sum(op.nb - d for d in range(1, op.hb + 1))
     ops = 2.0 * S * op.K * blocks * op.B * op.B
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
+
+
+def block_bytes_read(op, S: int) -> int:
+    """Bytes of blocks the operator's kernel reads a pass (all cohorts). The
+    streamed kernels gather: every off-diagonal block twice. The resident
+    kernels read every block once, and at each run boundary the blocks of
+    the previous run's last hb rows whose mirror terms cross it once more."""
+    from sgvamp_torch.ops.band_kernel import _resident_rows
+
+    nb, hb = op.nb, op.hb
+    off = sum(nb - d for d in range(1, hb + 1))      # stored off-diagonal blocks
+    if op._use_resident(S):
+        G = _resident_rows(op.upper, S, op.rows_per_step)
+        off += sum(1 for r0 in range(G, nb, G) for a in range(1, min(hb, r0) + 1)
+                   for d in range(a, hb + 1) if d - a < G and r0 + d - a < nb)
+    else:
+        off *= 2
+    full_block = op.B * op.B * op.upper.element_size()
+    far_block = full_block // 2 if op.packed or op.hybrid else full_block
+    d0_block = far_block if op.packed else full_block
+    return op.K * (nb * d0_block + off * far_block)
+
+
+def with_flavor(op, flavor: str):
+    """A float diag-layout operator on the card as the operator of `flavor`
+    over the same blocks (slab storage by transposing them there)."""
+    layout, mode, window = FLAVORS[flavor]
+    upper = op.upper
+    if layout == "slab":
+        K, nb, nslot, B, _ = upper.shape
+        upper = upper.transpose(-1, -2).reshape(K, nb, nslot * B, B).contiguous()
+    return dataclasses.replace(op, upper=upper, layout=layout, mode=mode, window=window)
 
 
 def reset_launches() -> None:
@@ -203,7 +263,7 @@ def small_engine(device, seed=3):
     M = 16384
     band, r, _ = simulate_ld_band(N_SAMPLES, M, 256, h2=H2, lam=LAM,
                                   rng=np.random.default_rng(seed))
-    op = SymBandedLD.from_band(band, block_size=128, device=device)
+    op = SymBandedLD.from_band(band, block_size=128, dtype="int8", device=device)
     return engine_over(op, r, M, device, cg_maxit=20)
 
 
@@ -229,24 +289,26 @@ class LogCapture(logging.Handler):
                 for m in [re.search(pattern, ln)] if m]
 
 
-def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own: str, extra=()) -> dict:
+def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
+            operator: str = "sym") -> dict:
     """One production-mode run of sgvamp_torch.cli.main over the panel
     files at `prefix` (the README's biobank flags), with its checks.
-    `own` is the name of the wrapper this storage must launch."""
+    `own` is the name of the wrapper this storage must launch, None for an
+    operator that launches no band kernel (--operator banded)."""
     import torch
 
     from sgvamp_torch.cli import main as cli_main
     from sgvamp_torch.core.vamp import alignment_l2
     from sgvamp_torch.io.writers import read_bin
 
-    name = "bb_" + ld_dtype
+    name = f"bb_{operator}_{ld_dtype}"
     cm = max(int(M * LAM), 1)
     argv = ["--ld-files", prefix + "_R.npz", "--r-files", prefix + "_r.npy",
             "--true-signal-file", prefix + "_bet.npy",
             "--out-dir", out_dir, "--out-name", name,
             "--N", str(N_SAMPLES), "--M", str(M), "--iterations", str(CLI_ITERATIONS),
             "--prior-probs", f"{1 - LAM:g},{LAM:g}", "--prior-vars", f"0,{H2 / cm:.6g}",
-            "--operator", "sym", "--ld-dtype", ld_dtype, "--block-size", str(B_FULL),
+            "--operator", operator, "--ld-dtype", ld_dtype, "--block-size", str(B_FULL),
             "--bandwidth", str(BW_FULL), "--cg-maxit", "500", "--cg-rtol", "1e-5",
             "--cg-precond-block", "64", "--cg-precond-dtype", "bfloat16",
             "--lmmse-damp", "1", "--rho", "0.5", "--stop-on-divergence", "1", *extra]
@@ -257,7 +319,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own: str, extra=()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = band_launches()
-    what = f"cli.main --ld-dtype {ld_dtype} at M={M}"
+    what = f"cli.main --operator {operator} --ld-dtype {ld_dtype} at M={M}"
     if rc != 0:
         fail(f"{what} returned {rc}")
     for need in (f"{name}_cohort_1.csv", f"{name}_metrics.csv", f"{name}_xhat_it_0.bin",
@@ -266,7 +328,9 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own: str, extra=()
             fail(f"{what}: output file {need} missing (have {sorted(os.listdir(out_dir))})")
     passes = [int(v) for v in log.floats(r"\[roofline\] iteration \d+: [0-9.]+s, (\d+) LD passes")]
     step_s = log.floats(r"\[roofline\] iteration \d+: ([0-9.]+)s")
-    if counts[own] == 0 or counts[own] != sum(passes):
+    if sum(passes) == 0:
+        fail(f"{what}: the run logged no LD pass")
+    if own is not None and counts[own] != sum(passes):
         fail(f"{what}: {own} launched {counts[own]} times, the run logged "
              f"{sum(passes)} LD passes")
     others = {k: v for k, v in counts.items() if k != own and v}
@@ -288,33 +352,96 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own: str, extra=()
     align = alignment_l2(best, bet)[0]
     if not align >= MIN_ALIGNMENT:
         fail(f"{what}: best-iterate alignment {align:.5f} < {MIN_ALIGNMENT}")
-    res = {"ld_dtype": ld_dtype, "M": M, "launches": counts[own], "iterations": len(rows),
+    res = {"operator": operator, "ld_dtype": ld_dtype, "M": M,
+           "launches": counts[own] if own else 0, "iterations": len(rows),
            "passes": passes, "ingest_s": sum(log.floats(r"\[timer\] load/R: ([0-9.]+)s")),
            "precond_eig_s": sum(log.floats(r"\[timer\] precond/eig: ([0-9.]+)s")),
            "infer_s": sum(log.floats(r"\[timer\] infer: ([0-9.]+)s")),
            "s_per_iteration": float(np.median(step_s[1:])) if len(step_s) > 1 else float("nan"),
            "total_s": total_s, "alignment": align,
            "stop": stopped[0] if stopped else "ran all iterations"}
-    print(f"[4 cli] --ld-dtype {ld_dtype}, M={M}: {total_s:.1f} s in all; ingestion "
+    print(f"[4 cli] --operator {operator} --ld-dtype {ld_dtype}, M={M}: {total_s:.1f} s in all; "
+          f"ingestion "
           f"(load/R: .npz -> band -> blocks -> card) {res['ingest_s']:.2f} s, "
           f"preconditioner eigendecomposition {res['precond_eig_s']:.2f} s, inference "
           f"{res['infer_s']:.2f} s = {res['s_per_iteration']:.4f} s/iteration (median "
-          f"after the first); {len(rows)} iterations, LD passes {passes}, {own} launches "
-          f"{counts[own]}, other band kernels 0; {res['stop']}; best-iterate alignment "
+          f"after the first); {len(rows)} iterations, LD passes {passes}, "
+          f"{own or 'band kernel'} launches {res['launches']}, other band kernels 0; "
+          f"{res['stop']}; best-iterate alignment "
           f"{align:.5f}", flush=True)
     return res
+
+
+def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None) -> dict:
+    """VampEngine.run at the bench geometry over `op` with a fixed CG
+    budget, started with the launch counts at zero, and its checks: 102
+    launches of `own` per executed iteration and no other band kernel, a
+    best iterate that is finite and aligned, the reference-format files.
+    `before_run(engine)` runs after the counts are reset and before the
+    run (the read probe of phase 3)."""
+    import torch
+
+    from sgvamp_torch.core.vamp import alignment_l2
+    from sgvamp_torch.io.writers import OutputWriter, read_bin
+    from sgvamp_torch.ops.membench import _read_once
+
+    device = op.upper.device
+    engine = engine_over(op, r, M_FULL, device)
+    stamps = []
+    reset_launches()
+    extra = before_run(engine) if before_run else None
+    with tempfile.TemporaryDirectory() as out_dir:
+        writer = OutputWriter(out_dir, "smoke", K=1)
+        hist = engine.run(iterations, writer=writer, x0=x0, stop_tol=1e-4,
+                          stop_gam1_drop=10.0,
+                          callback=lambda it, s, a: stamps.append(time.perf_counter()))
+        torch.cuda.synchronize()
+        launches = dict(band_launches(), read_max=_read_once.launches)
+        files = sorted(os.listdir(out_dir))
+        best_it = hist["best_it"]
+        best_bin = (read_bin(writer.xhat_path(best_it))
+                    if best_it >= 0 and os.path.exists(writer.xhat_path(best_it)) else None)
+    end_it = hist.get("stopped_at", hist.get("aborted_at", iterations - 1))
+    executed = end_it + 1
+    s_per_it = float(np.median(np.diff(stamps))) if len(stamps) > 1 else float("nan")
+    best = hist["best_xhat1"]
+    best_align = alignment_l2(best, x0)[0] if best is not None else float("nan")
+    print(f"[{phase}] {executed} iterations, {s_per_it:.4f} s/iteration "
+          f"(median after the first), {own} launches {launches[own]} (expect "
+          f"{102 * executed}), probe launches {launches['read_max']}; alignment "
+          f"{[round(v, 5) for v in hist['alignment']]}; stop {hist.get('stop_reason')} at "
+          f"{hist.get('stopped_at')}; best iterate {best_it}, alignment {best_align:.5f}",
+          flush=True)
+    if launches[own] != 102 * executed:
+        fail(f"{phase}: {own} launched {launches[own]} times, expected {102 * executed}")
+    moved = {k: v for k, v in launches.items() if k not in (own, "read_max") and v}
+    if moved:
+        fail(f"{phase}: the engine path over {own} launched other band kernels: {moved}")
+    if "aborted_at" in hist or best_it < 0 or not np.all(np.isfinite(best)):
+        fail(f"{phase}: non-finite state before the best iterate (best_it {best_it})")
+    if best.shape != (M_FULL,):
+        fail(f"{phase}: best iterate has shape {best.shape}, expected ({M_FULL},)")
+    if not best_align >= MIN_ALIGNMENT:
+        fail(f"{phase}: best-iterate alignment {best_align:.5f} < {MIN_ALIGNMENT}")
+    for need in ("smoke_cohort_1.csv", "smoke_metrics.csv", "smoke_xhat_it_0.bin"):
+        if need not in files:
+            fail(f"{phase}: output file {need} missing (have {files})")
+    if best_bin is None or not np.array_equal(best_bin, best.astype(np.float64)):
+        fail(f"{phase}: smoke_xhat_it_{best_it}.bin does not hold the best iterate")
+    return {"launches": launches, "executed": executed, "s_per_iteration": s_per_it,
+            "alignment": best_align, "extra": extra}
 
 
 def main() -> None:
     import torch
 
-    from sgvamp_torch.core.vamp import alignment_l2
+    from sgvamp_torch.core.operators import BandedLD
     from sgvamp_torch.data.simulate import simulate_ld_band
-    from sgvamp_torch.io.writers import OutputWriter, read_bin
     from sgvamp_torch.ops import _build
     from sgvamp_torch.ops.band_kernel import SymBandedLD, band_kernel_of
-    from sgvamp_torch.ops.membench import (_prep, _read_once, measure_read_gbps,
-                                           read_max, read_max_ref)
+    from sgvamp_torch.ops.membench import (_prep, measure_read_gbps, read_max,
+                                           read_max_ref)
+    from sgvamp_torch.utils import kernel_bench
 
     t_start = time.perf_counter()
     seconds = {}
@@ -348,6 +475,8 @@ def main() -> None:
                      f"<= {max(spills, default=0)} bytes spilled")
     print(f"[1 build] {seconds['build']:.2f} s for {len(libs)} libraries; " + "; ".join(ptxas),
           flush=True)
+    if len(libs) != 7:
+        fail(f"expected seven kernel libraries, built {sorted(libs)}")
 
     # ---- 2. kernels vs their plain versions ----
     t0 = time.perf_counter()
@@ -356,12 +485,29 @@ def main() -> None:
     ragged_err = {}
     for storage in STORAGES + ("float64",):
         for B in (64, 128, 256):
-            op_s = SymBandedLD.from_band(band_small, block_size=B, K=2, dtype=storage,
-                                         device=dev)
-            _, rel = kernel_vs_plain(op_s, 2, B, f"{storage}, ragged M=1000 hb={op_s.hb} "
-                                     f"B={B} K=2 S=2",
-                                     F64_TOL if storage == "float64" else SCALED_TOL)
+            tol = F64_TOL if storage == "float64" else SCALED_TOL
+            # the streamed diag kernels (float storage would take the
+            # resident kernel under mode "auto")
+            op_s = dataclasses.replace(
+                SymBandedLD.from_band(band_small, block_size=B, K=2, dtype=storage, device=dev),
+                mode="streamed")
+            what = f"ragged M=1000 hb={op_s.hb} B={B} K=2 S=2"
+            _, rel = kernel_vs_plain(op_s, 2, B, f"{storage}, {what}", tol)
             ragged_err[storage] = max(ragged_err.get(storage, 0.0), rel)
+            if op_s.upper.dtype == torch.int8:
+                continue
+            slab = SymBandedLD.from_band(band_small, block_size=B, K=2, dtype=storage,
+                                         layout="slab", device=dev)
+            for flavor, wrapper in FLAVOR_WRAPPER.items():
+                op_f = with_flavor(op_s, flavor)
+                if op_f.layout == "slab" and not torch.equal(op_f.upper, slab.upper):
+                    fail(f"from_band(layout='slab') differs from the transposed diag blocks "
+                         f"({storage}, B={B})")
+                if band_kernel_of(op_f, 2)[0].__name__ != wrapper:
+                    fail(f"{flavor} operator is routed to {band_kernel_of(op_f, 2)[0].__name__}")
+                _, rel = kernel_vs_plain(op_f, 2, B, f"{flavor} {storage}, {what}", tol)
+                key = f"{flavor} {storage}"
+                ragged_err[key] = max(ragged_err.get(key, 0.0), rel)
     print("[2 ragged] M=1000, bandwidth 300, K=2, S=2, B in (64, 128, 256): worst scaled "
           "error " + ", ".join(f"{k} {v:.2e}" for k, v in ragged_err.items())
           + f" (tol {SCALED_TOL}, float64 {F64_TOL})", flush=True)
@@ -379,33 +525,63 @@ def main() -> None:
 
     t0 = time.perf_counter()
     S = 2
-    full = {}      # storage -> numbers at the full shape
+    full = {}      # storage or "flavor storage" -> numbers at the full shape
     op_int8 = None
-    for storage in STORAGES:
-        t1 = time.perf_counter()
-        op = SymBandedLD.from_band(band, block_size=B_FULL, dtype=storage, device=dev)
-        pack_s = time.perf_counter() - t1
-        abs_err, rel = kernel_vs_plain(op, S, 0, f"{storage}, full shape")
-        kernel, plain, args, xdt = band_kernel_of(op)
+
+    def measure(op, key, storage, label):
+        abs_err, rel = kernel_vs_plain(op, S, 0, f"{key}, full shape")
+        kernel, plain, args, xdt = band_kernel_of(op, S)
         xf = torch.randn((1, S, op.M), generator=torch.Generator(dev).manual_seed(0),
                          device=dev).to(xdt)
         ms_kern, ms_plain = kernel_and_plain_ms(lambda: kernel(*args, xf),
                                                 lambda: plain(*args, xf))
         b_ms, b_by, nbytes = bound_ms(op, S, storage)
-        full[storage] = {"abs_err": abs_err, "rel_err": rel, "ms": ms_kern,
-                         "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
-                         "bytes": nbytes, "bytes_per_pass": op.bytes_per_pass()}
-        print(f"[2 {storage}] full shape upper {tuple(op.upper.shape)} "
-              f"{str(op.upper.dtype).split('.')[-1]} (packed in {pack_s:.1f} s), "
-              f"{op.bytes_per_pass()} bytes per pass, {nbytes} with x and y: scaled error "
-              f"{rel:.2e} (max abs {abs_err:.3e}, tol {SCALED_TOL}); kernel {ms_kern:.4f} "
-              f"ms/pass = {op.bytes_per_pass() / ms_kern / 1e6:.1f} GB/s over bytes_per_pass, "
+        read = block_bytes_read(op, S)
+        full[key] = {"abs_err": abs_err, "rel_err": rel, "ms": ms_kern,
+                     "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
+                     "bytes": nbytes, "bytes_per_pass": op.bytes_per_pass(),
+                     "block_bytes_read": read, "kernel": kernel.__name__}
+        print(f"[2 {key}] {kernel.__name__}, full shape upper {tuple(op.upper.shape)} "
+              f"{str(op.upper.dtype).split('.')[-1]} ({label}), "
+              f"{op.bytes_per_pass()} bytes per pass, {nbytes} with x and y, {read} block "
+              f"bytes read by the kernel: scaled error {rel:.2e} (max abs {abs_err:.3e}, tol "
+              f"{SCALED_TOL}); kernel {ms_kern:.4f} ms/pass = "
+              f"{op.bytes_per_pass() / ms_kern / 1e6:.1f} GB/s over bytes_per_pass, "
               f"plain {ms_plain:.4f} ms/pass, bound {b_ms:.4f} ms ({b_by} at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
+
+    for storage in STORAGES:
+        t1 = time.perf_counter()
+        op = dataclasses.replace(
+            SymBandedLD.from_band(band, block_size=B_FULL, dtype=storage, device=dev),
+            mode="streamed")
+        measure(op, storage, storage, f"packed in {time.perf_counter() - t1:.1f} s")
         if storage == "int8":
             op_int8 = op
-        del op, args, xf
-    del band
+        if storage in ("bfloat16", "float32"):
+            for flavor in FLAVORS:
+                measure(with_flavor(op, flavor), f"{flavor} {storage}", storage,
+                        "the same blocks")
+            del op
+            # the one PyTorch call that computes the same product: BandedLD's
+            # einsum over full-band storage, (2hb+1)/(hb+1) of the blocks
+            t1 = time.perf_counter()
+            full_band = BandedLD.from_band(band, block_size=B_FULL, dtype=storage, device=dev)
+            pack_s = time.perf_counter() - t1
+            xl = torch.randn((S, full_band.M), generator=torch.Generator(dev).manual_seed(0),
+                             device=dev)
+            sym = SymBandedLD.from_band(band, block_size=B_FULL, dtype=storage, device=dev)
+            err, rel = scaled_err(full_band.matvec(xl), sym.matvec(xl))
+            if not rel <= SCALED_TOL:
+                fail(f"BandedLD.matvec vs the {storage} sym operator: scaled error {rel:.3e}")
+            ms_lib = min(cuda_ms(lambda: full_band.matvec(xl), 10) for _ in range(2))
+            full[f"einsum {storage}"] = {"ms": ms_lib, "bytes_per_pass": full_band.bytes_per_pass()}
+            print(f"[2 einsum {storage}] BandedLD.matvec over blocks "
+                  f"{tuple(full_band.blocks.shape)} (packed in {pack_s:.1f} s), "
+                  f"{full_band.bytes_per_pass()} bytes per pass: {ms_lib:.4f} ms/pass; scaled "
+                  f"difference from the sym operator {rel:.2e}", flush=True)
+            del full_band, sym, xl
+            torch.cuda.empty_cache()
     seconds["kernels_full"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -447,57 +623,18 @@ def main() -> None:
     t0 = time.perf_counter()
     logging.basicConfig(stream=sys.stdout, format="%(message)s")
     logging.getLogger("sgvamp").setLevel(logging.DEBUG)
-    engine = engine_over(op_int8, r_full, M_FULL, dev)
-    stamps = []
-    reset_launches()
-    gbps, probe_s = measure_read_gbps(op_int8.upper, n=20)
-    with tempfile.TemporaryDirectory() as out_dir:
-        writer = OutputWriter(out_dir, "smoke", K=1)
-        hist = engine.run(ITERATIONS, writer=writer, x0=x0, stop_tol=1e-4,
-                          stop_gam1_drop=10.0,
-                          callback=lambda it, s, a: stamps.append(time.perf_counter()))
-        torch.cuda.synchronize()
-        launches = dict(band_launches(), read_max=_read_once.launches)
-        files = sorted(os.listdir(out_dir))
-        best_it = hist["best_it"]
-        best_bin = (read_bin(writer.xhat_path(best_it))
-                    if best_it >= 0 and os.path.exists(writer.xhat_path(best_it)) else None)
-    end_it = hist.get("stopped_at", hist.get("aborted_at", ITERATIONS - 1))
-    executed = end_it + 1
-    s_per_it = float(np.median(np.diff(stamps))) if len(stamps) > 1 else float("nan")
-    best = hist["best_xhat1"]
-    best_align = alignment_l2(best, x0)[0] if best is not None else float("nan")
+    int8_run = engine_run(op_int8, r_full, x0, "sym_band_matvec_int8", ITERATIONS,
+                          "3 engine path",
+                          before_run=lambda eng: measure_read_gbps(op_int8.upper, n=20))
+    gbps, probe_s = int8_run["extra"]
+    launches = int8_run["launches"]
     ms_int8, bpp = full["int8"]["ms"], full["int8"]["bytes_per_pass"]
     print(f"[3 engine path] read ceiling {gbps:.1f} GB/s ({probe_s * 1e3:.4f} ms/pass "
           f"over the int8 blocks); int8 band kernel {ms_int8:.4f} ms/pass = "
           f"{100 * bpp / ms_int8 / 1e6 / gbps:.1f}% of it", flush=True)
-    print(f"[3 engine path] {executed} iterations, {s_per_it:.4f} s/iteration "
-          f"(median after the first), int8 band kernel launches "
-          f"{launches['sym_band_matvec_int8']} (expect {102 * executed}), probe launches "
-          f"{launches['read_max']}; alignment {[round(v, 5) for v in hist['alignment']]}; "
-          f"stop {hist.get('stop_reason')} at {hist.get('stopped_at')}; best iterate "
-          f"{best_it}, alignment {best_align:.5f}", flush=True)
-    if launches["sym_band_matvec_int8"] != 102 * executed:
-        fail(f"int8 band kernel launched {launches['sym_band_matvec_int8']} times, "
-             f"expected {102 * executed}")
-    moved = {k: v for k, v in launches.items()
-             if k not in ("sym_band_matvec_int8", "read_max") and v}
-    if moved:
-        fail(f"the int8 engine path launched other band kernels: {moved}")
     if launches["read_max"] == 0:
         fail("the read probe kernel was not launched on the engine path")
-    if "aborted_at" in hist or best_it < 0 or not np.all(np.isfinite(best)):
-        fail(f"non-finite state before the best iterate (best_it {best_it})")
-    if best.shape != (M_FULL,):
-        fail(f"best iterate has shape {best.shape}, expected ({M_FULL},)")
-    if not best_align >= MIN_ALIGNMENT:
-        fail(f"best-iterate alignment {best_align:.5f} < {MIN_ALIGNMENT}")
-    for need in ("smoke_cohort_1.csv", "smoke_metrics.csv", "smoke_xhat_it_0.bin"):
-        if need not in files:
-            fail(f"output file {need} missing (have {files})")
-    if best_bin is None or not np.array_equal(best_bin, best.astype(np.float64)):
-        fail(f"smoke_xhat_it_{best_it}.bin does not hold the best iterate")
-    del engine, op_int8, hist
+    del op_int8
     torch.cuda.empty_cache()
     seconds["engine_path"] = time.perf_counter() - t0
 
@@ -509,45 +646,118 @@ def main() -> None:
     t0 = time.perf_counter()
     small_prefix = os.path.join(work.name, "sm")
     seconds["gen_band_small"] = gen_band(small_prefix, M_CLI_SMALL)
-    # the float and int4 kernels at the shapes this path gives them
+    # the resident and int4 kernels at the shapes this path gives them
     band_sm = load_panel(small_prefix, M_CLI_SMALL)[0]
-    for storage in ("bfloat16", "int4"):
+    for storage, key in (("bfloat16", "resident bfloat16"), ("int4", "int4")):
         op = SymBandedLD.from_band(band_sm, block_size=B_FULL, dtype=storage, device=dev)
-        abs_err, rel = kernel_vs_plain(op, S, 5, f"{storage}, M={M_CLI_SMALL}")
-        full[storage]["abs_err"] = max(full[storage]["abs_err"], abs_err)
+        if band_kernel_of(op, S)[0].__name__ != full[key]["kernel"]:
+            fail(f"--ld-dtype {storage} at M={M_CLI_SMALL} would run "
+                 f"{band_kernel_of(op, S)[0].__name__}, expected {full[key]['kernel']}")
+        abs_err, rel = kernel_vs_plain(op, S, 5, f"{key}, M={M_CLI_SMALL}")
+        full[key]["abs_err"] = max(full[key]["abs_err"], abs_err)
         del op
     del band_sm
-    cli["bfloat16"] = cli_run(small_prefix, out_dir, M_CLI_SMALL, "bfloat16", "sym_band_matvec")
+    cli["bfloat16"] = cli_run(small_prefix, out_dir, M_CLI_SMALL, "bfloat16",
+                              "sym_band_matvec_resident")
     cli["int4"] = cli_run(small_prefix, out_dir, M_CLI_SMALL, "int4", "sym_band_matvec_int4",
                           extra=("--cg-rtol", "1e-3"))
+    cli["banded"] = cli_run(small_prefix, out_dir, M_CLI_SMALL, "bfloat16", None,
+                            operator="banded")
     seconds["cli_small"] = time.perf_counter() - t0
+
+    # ---- 5. the operator-flavor path ----
+    t0 = time.perf_counter()
+    bench_rows, bench_launches = {}, {}
+    for variant, own in BENCH_VARIANTS.items():
+        reset_launches()
+        rows = kernel_bench.main(
+            ["--M", str(M_FULL), "--bandwidth", str(BW_FULL), "--B", str(B_FULL), "--K", "1",
+             "--S", str(S), "--passes", str(BENCH_PASSES), "--dtype", "bfloat16",
+             "--variants", variant], band=band)
+        torch.cuda.synchronize()
+        counts = band_launches()
+        if len(rows) != 1 or "error" in rows[0]:
+            fail(f"kernel_bench variant {variant}: {rows}")
+        # one warm-up and four timed chains of n and of 2n passes
+        expect = 15 * BENCH_PASSES if own else 0
+        got = {k: v for k, v in counts.items() if v}
+        want = {own: expect} if own else {}
+        if got != want:
+            fail(f"kernel_bench variant {variant} launched {got}, expected {want}")
+        bench_rows[variant] = rows[0]
+        bench_launches[variant] = expect
+    print("[5 kernel_bench] bfloat16, bench shape, ms per chained operator pass (kernel, "
+          "casts, lane transposes and the regularization): "
+          + ", ".join(f"{v} {r['ms_per_pass']} ({r['kernel']})" for v, r in bench_rows.items())
+          + "; each variant launched its own kernel 15 x passes times and no other",
+          flush=True)
+    seconds["kernel_bench"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op_bf16 = SymBandedLD.from_band(band, block_size=B_FULL, dtype="bfloat16", device=dev)
+    del band
+    flavor_runs = {}
+    for flavor in ("slab-streamed", "resident"):
+        flavor_runs[flavor] = engine_run(with_flavor(op_bf16, flavor), r_full, x0,
+                                         FLAVOR_WRAPPER[flavor], FLAVOR_ITERATIONS,
+                                         f"5 engine path, bfloat16 {flavor}")
+        torch.cuda.empty_cache()
+    del op_bf16
+    seconds["flavor_engine_paths"] = time.perf_counter() - t0
     work.cleanup()
     seconds["total"] = time.perf_counter() - t_start
 
     print(json.dumps({"seconds": {k: round(v, 2) for k, v in seconds.items()},
-                      "cli": list(cli.values())}))
-    line = "sgvamp_tpu/ops/band_kernel.py:179"
+                      "cli": list(cli.values()),
+                      "kernel_bench": list(bench_rows.values()),
+                      "engine_paths": {
+                          "int8": {k: int8_run[k] for k in ("executed", "s_per_iteration",
+                                                            "alignment")},
+                          **{f: {k: v[k] for k in ("executed", "s_per_iteration", "alignment")}
+                             for f, v in flavor_runs.items()}}}))
 
-    def band_entry(name, storage, source, n_launch, **extra):
-        f = full[storage]
-        return dict({"name": name, "route": "cuda", "source": source, "replaces": line,
+    def band_entry(name, key, source, line, n_launch, library=None, **extra):
+        f = full[key]
+        return dict({"name": name, "route": "cuda", "source": source,
+                     "replaces": f"sgvamp_tpu/ops/band_kernel.py:{line}",
                      "launches": n_launch, "max_abs_err": f["abs_err"], "ms": f["ms"],
                      "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-                     "bound_by": f["bound_by"], "library_ms": None,
-                     "bytes": f["bytes"]}, **extra)
+                     "bound_by": f["bound_by"], "library_ms": library,
+                     "bytes": f["bytes"], "block_bytes_read": f["block_bytes_read"]}, **extra)
 
+    def float_entry(name, flavor, source, line, n_launch):
+        """A float kernel's entry: timed in bfloat16 at the top level, its
+        float32 numbers beside; BandedLD.matvec as the library call."""
+        k16 = f"{flavor} bfloat16".strip()
+        k32 = f"{flavor} float32".strip()
+        return band_entry(
+            name, k16, source, line, n_launch, library=full["einsum bfloat16"]["ms"],
+            timed_storage="bfloat16", library_call="BandedLD.matvec",
+            library_bytes=full["einsum bfloat16"]["bytes_per_pass"],
+            float32=dict({k: full[k32][k] for k in
+                          ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "abs_err",
+                           "block_bytes_read")},
+                         library_ms=full["einsum float32"]["ms"],
+                         library_bytes=full["einsum float32"]["bytes_per_pass"]))
+
+    csrc = "sgvamp_torch/csrc/"
     print(smi)
     print(json.dumps({"kernels": [
-        band_entry("sym_band_matvec_int8", "int8", "sgvamp_torch/csrc/sym_band_int8.cu",
+        band_entry("sym_band_matvec_int8", "int8", csrc + "sym_band_int8.cu", 179,
                    launches["sym_band_matvec_int8"]),
-        band_entry("sym_band_matvec", "bfloat16", "sgvamp_torch/csrc/sym_band_float.cu",
-                   cli["bfloat16"]["launches"], timed_storage="bfloat16",
-                   float32={k: full["float32"][k] for k in
-                            ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "abs_err")}),
-        band_entry("sym_band_matvec_int4", "int4", "sgvamp_torch/csrc/sym_band_int4.cu",
+        float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
+                    bench_launches["streamed"]),
+        band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
                    cli["int4"]["launches"]),
-        band_entry("sym_band_matvec_hybrid", "hybrid", "sgvamp_torch/csrc/sym_band_hybrid.cu",
+        band_entry("sym_band_matvec_hybrid", "hybrid", csrc + "sym_band_hybrid.cu", 179,
                    cli["hybrid"]["launches"]),
+        float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
+                    333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"]),
+        float_entry("sym_band_matvec_resident", "resident", csrc + "sym_band_resident.cu", 46,
+                    flavor_runs["resident"]["launches"]["sym_band_matvec_resident"]),
+        float_entry("sym_band_matvec_window", "window", csrc + "sym_band_resident.cu", 83,
+                    bench_launches["window"]),
+        float_entry("sym_slab_matvec_resident", "slab-resident", csrc + "sym_slab_resident.cu",
+                    106, bench_launches["slab"] + bench_launches["slabresident"]),
         {"name": "read_max", "route": "triton",
          "source": "sgvamp_torch/ops/membench.py",
          "replaces": "sgvamp_tpu/ops/membench.py:38",

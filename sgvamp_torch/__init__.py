@@ -33,7 +33,7 @@ def resolve_device(device=None) -> torch.device:
 from sgvamp_torch.config import PriorConfig, VampConfig
 from sgvamp_torch.core.cg import cg_batched
 from sgvamp_torch.core.denoiser import combine_cohorts, posterior_mean_and_slope
-from sgvamp_torch.core.operators import DenseLD
+from sgvamp_torch.core.operators import BandedLD, DenseLD
 from sgvamp_torch.core.prior import PriorState, em_loop, em_update
 from sgvamp_torch.core.vamp import (StopMonitor, VampEngine, VampInputs,
                                     VampState, vamp_step)
@@ -47,6 +47,7 @@ __all__ = [
     "cg_batched",
     "combine_cohorts",
     "posterior_mean_and_slope",
+    "BandedLD",
     "DenseLD",
     "SymBandedLD",
     "PriorState",

@@ -4,12 +4,16 @@ The same flags, defaults and value semantics as the JAX command line, so an
 invocation ports by changing the module name. All K cohorts run inside one
 process on one device: a CUDA GPU unless --platform cpu is given.
 
-Ported: --operator dense and --operator sym with --ld-dtype float64,
-float32, bfloat16, int8, int4 or hybrid; .npz / .npy LD inputs; the host
-loop with the block-Jacobi preconditioner, the StopMonitor and
-reference-format output files. A flag whose code is not ported yet is
-rejected with a message that names it and its ROADMAP item; none is
-silently ignored.
+Ported: --operator dense, --operator banded (float storage) and
+--operator sym with --ld-dtype float64, float32, bfloat16, int8, int4 or
+hybrid; .npz / .npy LD inputs; the host loop with the block-Jacobi
+preconditioner, the StopMonitor and reference-format output files.
+--operator sym leaves the operator's mode at "auto", so float storage
+runs the resident kernel where its run fits a CTA's shared memory. Not
+ported yet: --operator blocksparse, the sharded run (--mesh-*, the
+multi-host flags), --fused, checkpoints, --prior-update mle, .ld tables
+and --bim-files, --profile-dir. Each is rejected with a message that
+names the flag and its ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -168,8 +172,8 @@ def _reject_unported(args) -> None:
         no("--resume", "ROADMAP A9, checkpoint and resume")
     if args.prior_update == "mle":
         no("--prior-update mle", "ROADMAP A11, MLE prior learning")
-    if args.operator in ("banded", "blocksparse"):
-        no(f"--operator {args.operator}", "ROADMAP A, BandedLD and BlockSparseLD")
+    if args.operator == "blocksparse":
+        no("--operator blocksparse", "ROADMAP A, BlockSparseLD")
     if args.bim_files:
         no("--bim-files", "ROADMAP A, .bim harmonization without pandas")
     if args.ld_files and any(p.endswith(".ld") for p in args.ld_files.split(",")):
@@ -190,13 +194,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     import torch
 
     from sgvamp_torch import default_device
-    from sgvamp_torch.config import PriorConfig, VampConfig
-    from sgvamp_torch.core.operators import DenseLD
+    from sgvamp_torch.config import _DTYPES, PriorConfig, VampConfig
+    from sgvamp_torch.core.operators import BandedLD, DenseLD
     from sgvamp_torch.core.prior import PriorState
     from sgvamp_torch.core.vamp import VampEngine, VampInputs, alignment_l2
     from sgvamp_torch.data import harmonize as hz
     from sgvamp_torch.data import loaders
     from sgvamp_torch.io.writers import OutputWriter, write_bin
+    from sgvamp_torch.ops.band_kernel import SymBandedLD
     from sgvamp_torch.utils.profiling import PhaseTimers
 
     device = torch.device("cpu") if args.platform == "cpu" else default_device()
@@ -291,60 +296,84 @@ def main(argv: Optional[List[str]] = None) -> int:
     ts = time.time()
     timers.start("load/R")
     B = args.block_size
-    if args.operator == "sym":
-        from sgvamp_torch.ops.band_kernel import SymBandedLD
 
-        # the quantized and bf16 storages round at block-pack time; the
-        # staged band arrays stay float
-        band_dtype = np.dtype(np.float64 if ld_dtype == "float64" else np.float32)
-        if all(p.endswith(".npz") for p in ld_paths):
-            # Band-direct ingestion: sparse .npz -> symmetric band storage
-            # -> upper blocks, never materializing MxM. Each UNIQUE path is
-            # loaded, converted and block-packed once: the shared-panel
-            # meta-analysis workflow lists one file once per cohort.
-            uniq = {}
-            for p in ld_paths:
-                if p not in uniq:
-                    uniq[p] = loaders.csr_to_band(
-                        loaders.load_R(p), args.bandwidth, dtype=band_dtype)
-            dropped = sum(d for _, _, d in uniq.values())
-            bw = max(w for _, w, _ in uniq.values())
-            bands = {p: _pad_band(uniq[p][0], bw) for p in uniq}
-            pack_keys = list(ld_paths)
-        else:
-            # dense .npy (or mixed) inputs go through CSR, one per cohort
-            bands, dropped = {}, 0
-            for k, p in enumerate(ld_paths):
-                band_k, _, d_k = loaders.csr_to_band(
+    def cat_sym(ops):
+        if len(ops) == 1:
+            return ops[0]
+        return SymBandedLD(
+            upper=torch.cat([o.upper for o in ops], dim=0),
+            scales=(torch.cat([o.scales for o in ops], dim=0)
+                    if ops[0].scales is not None else None),
+            packed=ops[0].packed, hybrid=ops[0].hybrid, s=s)
+
+    # the quantized and bf16 storages round at block-pack time; the staged
+    # band arrays stay float
+    band_dtype = np.dtype(np.float64 if ld_dtype == "float64" else np.float32)
+    if args.operator in ("banded", "sym") and all(p.endswith(".npz") for p in ld_paths):
+        # Band-direct ingestion: sparse .npz -> symmetric band storage ->
+        # block-banded operator, never materializing MxM. Each UNIQUE path
+        # is loaded, converted and block-packed once: the shared-panel
+        # meta-analysis workflow lists one file once per cohort.
+        uniq = {}
+        for p in ld_paths:
+            if p not in uniq:
+                uniq[p] = loaders.csr_to_band(
                     loaders.load_R(p), args.bandwidth, dtype=band_dtype)
-                bands[k] = band_k
-                dropped += d_k
-            bw = max((b.shape[1] - 1) // 2 for b in bands.values())
-            bands = {k: _pad_band(b, bw) for k, b in bands.items()}
-            pack_keys = list(range(K))
+        dropped = sum(d for _, _, d in uniq.values())
+        bw = max(w for _, w, _ in uniq.values())
         if dropped:
             log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
+        ctor = SymBandedLD.from_band if args.operator == "sym" else BandedLD.from_band
         pack_cache = {}
-        for key in pack_keys:
-            if key not in pack_cache:
-                pack_cache[key] = SymBandedLD.from_band(
-                    bands[key], block_size=B, s=s, dtype=ld_dtype, device=device)
-        ops = [pack_cache[key] for key in pack_keys]
-        del bands
-        if K == 1:
-            op = ops[0]
+        for p in uniq:
+            pack_cache[p] = ctor(_pad_band(uniq[p][0], bw), block_size=B, s=s,
+                                 dtype=ld_dtype, device=device)
+        del uniq
+        ops = [pack_cache[p] for p in ld_paths]
+        del pack_cache
+        if args.operator == "sym":
+            op = cat_sym(ops)
         else:
-            op = SymBandedLD(
-                upper=torch.cat([o.upper for o in ops], dim=0),
-                scales=(torch.cat([o.scales for o in ops], dim=0)
-                        if ops[0].scales is not None else None),
-                packed=ops[0].packed, hybrid=ops[0].hybrid, s=s)
-        del ops, pack_cache
+            op = ops[0] if K == 1 else BandedLD(
+                blocks=torch.cat([o.blocks for o in ops], dim=0), s=s,
+                accum_dtype=ops[0].accum_dtype)
+        del ops
         Mp = op.M
         pad = Mp - M
+    elif args.operator == "sym":
+        # dense .npy (or mixed) inputs go through CSR, one per cohort: the
+        # dense stack is never needed on this path
+        bands, dropped = [], 0
+        for p in ld_paths:
+            band_k, _, d_k = loaders.csr_to_band(
+                loaders.load_R(p), args.bandwidth, dtype=band_dtype)
+            bands.append(band_k)
+            dropped += d_k
+        bw = max((b.shape[1] - 1) // 2 for b in bands)
+        if dropped:
+            log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
+        op = cat_sym([SymBandedLD.from_band(_pad_band(b, bw), block_size=B, s=s,
+                                            dtype=ld_dtype, device=device)
+                      for b in bands])
+        del bands
+        Mp = op.M
+        pad = Mp - M
+    elif args.operator == "banded":
+        Rs = [loaders.load_R(p) for p in ld_paths]
+        dense = loaders.to_dense_stack(Rs, M)
+        bw = args.bandwidth
+        if bw is None:
+            bw = max(loaders.estimate_bandwidth(R) for R in Rs)
+        pad = (-M) % B
+        if pad:
+            dense = np.pad(dense, ((0, 0), (0, pad), (0, pad)))
+            for i in range(pad):  # keep padded diagonal SPD
+                dense[:, M + i, M + i] = 1.0
+        hb = -(-(bw + B - 1) // B)
+        op = BandedLD.from_dense(dense, block_size=B, bandwidth_blocks=hb, s=s,
+                                 dtype=ld_dtype, device=device)
+        Mp = dense.shape[-1]
     else:
-        from sgvamp_torch.config import _DTYPES
-
         dense = loaders.to_dense_stack([loaders.load_R(p) for p in ld_paths], M)
         op = DenseLD(mats=torch.as_tensor(dense).to(device=device, dtype=_DTYPES[ld_dtype]),
                      s=s)

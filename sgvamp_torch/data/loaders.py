@@ -150,3 +150,19 @@ def to_dense_stack(Rs: Sequence, M: int) -> np.ndarray:
     for k, R in enumerate(Rs):
         out[k] = np.asarray(R.todense()) if scipy.sparse.issparse(R) else np.asarray(R)
     return out
+
+
+def estimate_bandwidth(R, quantile: float = 1.0) -> int:
+    """Max |i-j| over nonzero entries (optionally a quantile for outlier-
+    robust banding). Used to pick BandedLD bandwidth for sparse LD."""
+    if scipy.sparse.issparse(R):
+        coo = R.tocoo()
+        d = np.abs(coo.row - coo.col)
+    else:
+        nz = np.nonzero(np.asarray(R))
+        d = np.abs(nz[0] - nz[1])
+    if d.size == 0:
+        return 0
+    if quantile >= 1.0:
+        return int(d.max())
+    return int(np.quantile(d, quantile))

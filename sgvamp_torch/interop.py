@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from sgvamp_torch import resolve_device
+from sgvamp_torch.core.operators import BandedLD
 from sgvamp_torch.core.prior import PriorState
 from sgvamp_torch.core.vamp import VampInputs, VampState
 from sgvamp_torch.ops.band_kernel import SymBandedLD
@@ -28,20 +29,32 @@ def operator_from_numpy(upper: np.ndarray, scales: Optional[np.ndarray] = None,
                         s: float = 0.0, packed: bool = False,
                         hybrid: bool = False,
                         dtype: Optional[torch.dtype] = None,
-                        device=None) -> SymBandedLD:
+                        device=None, layout: str = "diag", mode: str = "auto",
+                        window: bool = False, rows_per_step: int = 0) -> SymBandedLD:
     """SymBandedLD from the JAX operator's fields as numpy arrays.
 
     int8, int4 (`packed`) and hybrid storage: `upper` int8 and its f32
-    `scales`, unchanged. Float blocks: `scales` None and `upper` a float32
-    or float64 array; bf16 blocks cross as float32 values (exact) with
-    dtype=torch.bfloat16. Tensors go to `device` (None: the default CUDA
-    device)."""
+    `scales`, unchanged. Float blocks, in diag or slab `layout`: `scales`
+    None and `upper` a float32 or float64 array; bf16 blocks cross as
+    float32 values (exact) with dtype=torch.bfloat16. `mode`, `window` and
+    `rows_per_step` as the JAX operator has them. Tensors go to `device`
+    (None: the default CUDA device)."""
     if scales is not None:
         dtype = torch.int8
     return SymBandedLD(
         upper=_t(upper, device, dtype).contiguous(),
         scales=None if scales is None else _t(scales, device, torch.float32).contiguous(),
-        packed=packed, hybrid=hybrid, s=s)
+        packed=packed, hybrid=hybrid, s=s, layout=layout, mode=mode, window=window,
+        rows_per_step=rows_per_step)
+
+
+def banded_from_numpy(blocks: np.ndarray, s: float = 0.0, accum_dtype: str = "",
+                      dtype: Optional[torch.dtype] = None, device=None) -> BandedLD:
+    """BandedLD from the JAX operator's (K, nb, 2*hb+1, B, B) blocks as a
+    numpy array (bf16 blocks cross as float32 values with
+    dtype=torch.bfloat16), its s and its accum_dtype."""
+    return BandedLD(blocks=_t(blocks, device, dtype).contiguous(), s=s,
+                    accum_dtype=accum_dtype)
 
 
 def inputs_from_numpy(op, r: np.ndarray, a: np.ndarray, N: np.ndarray,

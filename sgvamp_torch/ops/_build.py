@@ -36,6 +36,13 @@ ENTRY_POINTS = {
     "sym_band_hybrid": ("sgv_sym_band_hybrid_matvec", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     # upper, x, y, K, nb, hb, B, S, dtype code, stream
     "sym_band_float": ("sgv_sym_band_float_matvec", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
+    # upper, x, y, K, nb, hb, B, S, block rows a CTA, dtype code, stream
+    "sym_slab_streamed": ("sgv_sym_slab_streamed_matvec",
+                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sym_band_resident": ("sgv_sym_band_resident_matvec",
+                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    "sym_slab_resident": ("sgv_sym_slab_resident_matvec",
+                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
 }
 
 

@@ -5,7 +5,11 @@ d = 0..hb, are stored. A matvec adds both the row part U[i,d] @ x_{i+d}
 and the mirrored part U[i,d]^T @ x_i. Five storage types:
 
   float    (K, nb, hb+1, B, B) bfloat16 / float32 / float64 blocks, no
-           scales; x is cast to the block dtype.
+           scales; x is cast to the block dtype. With layout="slab" the
+           same blocks are stored as (K, nb, (hb+1)*B, B) stacked
+           transposes T_i[d*B + q, p] = U[i, d][p, q], so that the row part
+           of block row i is one product of T_i with the contiguous
+           (hb+1)*B window of x.
   int8     (K, nb, hb+1, B, B) int8, one f32 scale per block
            (q = round(U / scale), scale = max|U| / 127).
   int4     (K, nb, hb+1, B, B/2) int8 bytes holding two 4-bit values each
@@ -16,17 +20,33 @@ and the mirrored part U[i,d]^T @ x_i. Five storage types:
            int8 column halves (per-row scales max|row| / 127, diagonal
            stripped), slot d+1 is diagonal d >= 1 packed as int4.
 
-The quantized types take x in bf16 and sum in f32. On a CUDA tensor each
-matvec runs a hand-written kernel (csrc/sym_band_int8.cu,
-sym_band_float.cu, sym_band_int4.cu, sym_band_hybrid.cu), which replace
-the flavors of the TPU kernel
-sgvamp_tpu/ops/band_kernel.py::_sym_band_kernel_streamed; see the sources'
-headers for their design. On a CPU tensor it runs the plain PyTorch
-version beside the wrapper (sym_band_matvec*_ref). The TPU package also
-has a VMEM-resident kernel that serves small float panels; here every
-diag-layout float operator goes through the streamed kernel's port. The
-slab layout, the resident kernels and the sharded matvec are not ported
-yet (ROADMAP B4, B7-B9, A14).
+The quantized types take x in bf16 and sum in f32, in diag layout and the
+streamed flavor only. Float blocks have two flavors in either layout
+(SymBandedLD.mode): "streamed" gathers every output block row on its own
+and reads each off-diagonal block twice; "resident" keeps the x and y of a
+run of block rows in a CTA's shared memory, reads each block once and
+takes both its terms, and is limited by that shared memory
+(SymBandedLD.fits_shared_memory); "auto" takes the resident flavor where
+it fits.
+
+On a CUDA tensor each matvec runs a hand-written kernel, one per row of
+this table; on a CPU tensor it runs the plain PyTorch version beside the
+wrapper (*_ref). The kernels replace the TPU kernels of
+sgvamp_tpu/ops/band_kernel.py; see the sources' headers for their design.
+
+  wrapper                     source                      replaces
+  sym_band_matvec_int8        csrc/sym_band_int8.cu       _sym_band_kernel_streamed, int8
+  sym_band_matvec             csrc/sym_band_float.cu      same, float blocks
+  sym_band_matvec_int4        csrc/sym_band_int4.cu       same, packed4
+  sym_band_matvec_hybrid      csrc/sym_band_hybrid.cu     same, hybrid
+  sym_slab_matvec_streamed    csrc/sym_slab_streamed.cu   _sym_slab_kernel_streamed
+  sym_band_matvec_resident    csrc/sym_band_resident.cu   _sym_band_kernel
+  sym_band_matvec_window      csrc/sym_band_resident.cu   _sym_band_kernel, window=True
+  sym_slab_matvec_resident    csrc/sym_slab_resident.cu   _sym_slab_kernel
+
+The sharded matvec (SymBandedLD.mesh in the TPU package, with the
+spill=True variants of the two streamed kernels) is not ported yet
+(ROADMAP A14, B4).
 """
 
 from __future__ import annotations
@@ -91,14 +111,7 @@ def sym_band_matvec_int8_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor
     return y.reshape(K, S, nb * B)
 
 
-def sym_band_matvec_ref(upper: Tensor, x: Tensor) -> Tensor:
-    """Plain PyTorch version of the float-block kernel.
-
-    upper (K, nb, hb+1, B, B) and x (K, S, nb*B) in one of bfloat16,
-    float32, float64 -> y in f32 (f64 for f64 blocks). Products and sums
-    are taken in the output type: a float32 block times a float32 x is a
-    true float32 product (the TPU's matrix unit truncates f32 operands to
-    bf16 at its default precision; this port does not)."""
+def _diag_ref(upper: Tensor, x: Tensor) -> Tensor:
     K, nb, nslot, B, _ = upper.shape
     acc = torch.promote_types(upper.dtype, torch.float32)
     xb = x.to(acc).reshape(K, x.shape[1], nb, B)
@@ -110,6 +123,106 @@ def sym_band_matvec_ref(upper: Tensor, x: Tensor) -> Tensor:
         return torch.einsum("knpq,ksnp->ksnq", upper[:, :, d].to(acc), xs)
 
     return _band_sum(xb, nslot - 1, rowpart, mirpart)
+
+
+def sym_band_matvec_ref(upper: Tensor, x: Tensor) -> Tensor:
+    """Plain PyTorch version of the float-block kernel.
+
+    upper (K, nb, hb+1, B, B) and x (K, S, nb*B) in one of bfloat16,
+    float32, float64 -> y in f32 (f64 for f64 blocks). Products and sums
+    are taken in the output type: a float32 block times a float32 x is a
+    true float32 product (the TPU's matrix unit truncates f32 operands to
+    bf16 at its default precision; this port does not)."""
+    return _diag_ref(upper, x)
+
+
+def _x_windows(xb: Tensor, hb: int) -> Tensor:
+    """(K, S, nb, B) -> (K, S, nb, (hb+1)*B): row i holds x_i .. x_{i+hb},
+    zeros past the end (a view of the zero-padded x)."""
+    K, S, nb, B = xb.shape
+    xpad = torch.cat([xb, xb.new_zeros(K, S, hb, B)], dim=2)
+    return xpad.reshape(K, S, (nb + hb) * B).unfold(2, (hb + 1) * B, B)
+
+
+def _slab_ref(upper: Tensor, x: Tensor) -> Tensor:
+    K, nb, rows, B = upper.shape
+    hb = rows // B - 1
+    acc = torch.promote_types(upper.dtype, torch.float32)
+    xb = x.to(acc).reshape(K, x.shape[1], nb, B)
+    T = upper.to(acc)
+    # row part: y_i[p] = sum_w T_i[w, p] xwin_i[w], one product per block row
+    y = torch.einsum("knwp,ksnw->ksnp", T, _x_windows(xb, hb))
+    for d in range(1, hb + 1):
+        # mirror part: y_{i+d}[q] += sum_p T_i[d*B + q, p] x_i[p]
+        mir = torch.einsum("knqp,ksnp->ksnq", T[:, :, d * B:(d + 1) * B], xb)
+        y[:, :, d:] += mir[:, :, :nb - d]
+    return y.reshape(K, x.shape[1], nb * B)
+
+
+def sym_slab_matvec_streamed_ref(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """Plain PyTorch version of the streamed slab kernel.
+
+    upper (K, nb, (hb+1)*B, B) slabs T_i[d*B + q, p] = U[i, d][p, q] and
+    x (K, S, nb*B) in one of bfloat16, float32, float64 -> y in f32 (f64
+    for f64 slabs). The row part is one product of T_i with the
+    (hb+1)*B window of x (blocks past the matrix end are zeros by
+    from_band's invariant); the mirror part contracts both operands over
+    their last axis. rows_per_step is checked and otherwise unused."""
+    _gather_rows(upper, x.shape[1], rows_per_step)
+    return _slab_ref(upper, x)
+
+
+def sym_slab_matvec_resident_ref(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """Plain PyTorch version of the resident slab kernel: the same sums as
+    sym_slab_matvec_streamed_ref, from the same storage (the two kernels
+    differ in how often they read a block, not in what they add)."""
+    _resident_rows(upper, x.shape[1], rows_per_step)
+    return _slab_ref(upper, x)
+
+
+def _window_ref(upper: Tensor, x: Tensor) -> Tensor:
+    K, nb, nslot, B, _ = upper.shape
+    hb = nslot - 1
+    ni = nb - hb            # interior block rows
+    if hb < 1 or ni <= 0:
+        return _diag_ref(upper, x)
+    acc = torch.promote_types(upper.dtype, torch.float32)
+    S = x.shape[1]
+    xb = x.to(acc).reshape(K, S, nb, B)
+    U = upper.to(acc)
+    y = xb.new_zeros(K, S, nb, B)
+    # W_i[d*B + q, p] = U[i, d][p, q]: the window's operand
+    W = U[:, :ni].transpose(-1, -2).reshape(K, ni, (hb + 1) * B, B)
+    y[:, :, :ni] = torch.einsum("knwp,ksnw->ksnp", W, _x_windows(xb, hb)[:, :, :ni])
+    for d in range(hb + 1):
+        last = nb - d       # block rows i with i + d inside the matrix
+        if last > ni:       # edge rows, per diagonal
+            y[:, :, ni:last] += torch.einsum("knpq,ksnq->ksnp", U[:, ni:last, d],
+                                             xb[:, :, ni + d:])
+        if d:
+            y[:, :, d:] += torch.einsum("knpq,ksnp->ksnq", U[:, :last, d], xb[:, :, :last])
+    return y.reshape(K, S, nb * B)
+
+
+def sym_band_matvec_resident_ref(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """Plain PyTorch version of the resident diag kernel.
+
+    upper (K, nb, hb+1, B, B) and x (K, S, nb*B) in one of bfloat16,
+    float32, float64 -> y in f32 (f64 for f64 blocks). Every block adds its
+    row term into y_i and its mirror term into y_{i+d}: the sums of
+    sym_band_matvec_ref (the two kernels differ in how often they read a
+    block, not in what they add). rows_per_step is checked and otherwise
+    unused."""
+    _resident_rows(upper, x.shape[1], rows_per_step)
+    return _diag_ref(upper, x)
+
+
+def sym_band_matvec_window_ref(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """Plain PyTorch version of the resident diag kernel with window=True:
+    the row part of the interior block rows (i + hb < nb) is one product
+    over the (hb+1)*B window of x, and per diagonal on the last hb rows."""
+    _resident_rows(upper, x.shape[1], rows_per_step)
+    return _window_ref(upper, x)
 
 
 def _unpack4(packed: Tensor):
@@ -291,15 +404,153 @@ def sym_band_matvec_hybrid(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
                    (K, nb, nslot - 2, B, x.shape[1]), B, torch.float32)
 
 
+# the kernels over float blocks that give one warp one block row: what a CTA
+# of G block rows may ask for on an H100 (csrc/sym_band_tile.cuh)
+SHARED_MEMORY_BYTES = 232448
+MAX_ROWS_PER_CTA = 16
+
+
+def _geometry(upper: Tensor) -> tuple:
+    """(K, nb, hb, B) of float blocks in diag (5-D) or slab (4-D) layout."""
+    if upper.dim() == 5:
+        return upper.shape[0], upper.shape[1], upper.shape[2] - 1, upper.shape[-1]
+    return upper.shape[0], upper.shape[1], upper.shape[2] // upper.shape[3] - 1, upper.shape[3]
+
+
+def _acc_bytes(storage_bytes: int) -> int:
+    return 8 if storage_bytes == 8 else 4
+
+
+def _run_shared_bytes(G: int, hb: int, B: int, S: int, storage_bytes: int) -> int:
+    """Shared memory of a resident kernel's CTA: x of G + 2*hb block rows,
+    the run's row sums, and hb slots of mirror sums, S lanes each."""
+    return S * B * (G * (hb + 2) + 2 * hb) * _acc_bytes(storage_bytes)
+
+
+def _resident_rows(upper: Tensor, S: int, rows_per_step: int) -> int:
+    """Block rows a CTA of a resident kernel takes: rows_per_step where it
+    is given (it must divide nb, as in the JAX package, and fit the card),
+    else the most that fit; raises ValueError where none does."""
+    _, nb, hb, B = _geometry(upper)
+    nbytes = upper.element_size()
+    if rows_per_step:
+        G = rows_per_step
+        if nb % G:
+            raise ValueError(f"rows_per_step={G} must divide nb={nb}")
+        if G > MAX_ROWS_PER_CTA or _run_shared_bytes(G, hb, B, S, nbytes) > SHARED_MEMORY_BYTES:
+            raise ValueError(
+                f"rows_per_step={G} is too much for a resident kernel's CTA (at most "
+                f"{MAX_ROWS_PER_CTA} block rows and {SHARED_MEMORY_BYTES} bytes of shared "
+                f"memory; hb={hb}, B={B}, S={S} need "
+                f"{_run_shared_bytes(G, hb, B, S, nbytes)})")
+        return G
+    if not SymBandedLD.fits_shared_memory(hb, B, S, nbytes):
+        raise ValueError(
+            f"the resident kernel does not fit this operator (hb={hb}, B={B}, S={S}, "
+            f"{nbytes}-byte blocks: {SymBandedLD.resident_rows(hb, B, S, nbytes)} block rows "
+            f"in {SHARED_MEMORY_BYTES} bytes of shared memory); use mode='streamed' or 'auto'")
+    return SymBandedLD.resident_rows(hb, B, S, nbytes)
+
+
+def _gather_rows(upper: Tensor, S: int, rows_per_step: int) -> int:
+    """Block rows (warps) a CTA of the streamed slab kernel takes.
+    rows_per_step is checked as the JAX package checks its chunk (it must
+    divide nb and be >= hb); the kernel carries nothing between block rows,
+    so any count up to MAX_ROWS_PER_CTA whose x window fits will do."""
+    _, nb, hb, B = _geometry(upper)
+    G = rows_per_step
+    if G and (nb % G or G < hb):
+        raise ValueError(f"rows_per_step={G} must divide nb={nb} and be >= hb={hb}")
+    acc = _acc_bytes(upper.element_size())
+    for g in (16, 8, 4, 2, 1):
+        if g <= (G or 8) and S * B * (2 * g + 2 * hb) * acc <= SHARED_MEMORY_BYTES:
+            return g
+    raise ValueError(f"hb={hb}, B={B}, S={S}: the x window of one block row does not fit "
+                     f"{SHARED_MEMORY_BYTES} bytes of shared memory")
+
+
+def _check_float(upper: Tensor, x: Tensor, slab: bool) -> None:
+    ok = (upper.dim() == 4 and upper.shape[2] % upper.shape[3] == 0 if slab
+          else upper.dim() == 5 and upper.shape[-1] == upper.shape[-2])
+    if upper.dtype not in _FLOAT_CODES or not ok:
+        raise ValueError("upper must be "
+                         + ("(K, nb, (hb+1)*B, B)" if slab else "(K, nb, hb+1, B, B)")
+                         + " bfloat16, float32 or float64")
+    K, nb, _, B = _geometry(upper)
+    _check_x(x, K, nb * B, upper.dtype)
+    if upper.device != x.device:
+        raise ValueError("upper and x must be on one device")
+
+
+def _launch_rows(wrapper, library: str, upper: Tensor, x: Tensor, G: int) -> Tensor:
+    K, nb, hb, B = _geometry(upper)
+    return _launch(wrapper, library, f"sgv_{library}_matvec", x, (upper, x),
+                   (K, nb, hb, B, x.shape[1], G, _FLOAT_CODES[upper.dtype]), B,
+                   torch.promote_types(upper.dtype, torch.float32))
+
+
+def sym_slab_matvec_streamed(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """y = R x per cohort over float slabs, streamed flavor; arguments as
+    for sym_slab_matvec_streamed_ref. `sym_slab_matvec_streamed.launches`
+    counts kernel launches."""
+    _check_float(upper, x, slab=True)
+    G = _gather_rows(upper, x.shape[1], rows_per_step)
+    if x.device.type == "cpu":
+        return sym_slab_matvec_streamed_ref(upper, rows_per_step, x)
+    return _launch_rows(sym_slab_matvec_streamed, "sym_slab_streamed", upper, x, G)
+
+
+def sym_slab_matvec_resident(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """y = R x per cohort over float slabs, resident flavor; arguments as
+    for sym_slab_matvec_resident_ref. Raises ValueError where the run of
+    block rows does not fit a CTA's shared memory.
+    `sym_slab_matvec_resident.launches` counts kernel launches."""
+    _check_float(upper, x, slab=True)
+    G = _resident_rows(upper, x.shape[1], rows_per_step)
+    if x.device.type == "cpu":
+        return sym_slab_matvec_resident_ref(upper, rows_per_step, x)
+    return _launch_rows(sym_slab_matvec_resident, "sym_slab_resident", upper, x, G)
+
+
+def sym_band_matvec_resident(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """y = R x per cohort over float blocks in diag layout, resident
+    flavor; arguments as for sym_band_matvec_resident_ref.
+    `sym_band_matvec_resident.launches` counts kernel launches."""
+    _check_float(upper, x, slab=False)
+    G = _resident_rows(upper, x.shape[1], rows_per_step)
+    if x.device.type == "cpu":
+        return sym_band_matvec_resident_ref(upper, rows_per_step, x)
+    return _launch_rows(sym_band_matvec_resident, "sym_band_resident", upper, x, G)
+
+
+def sym_band_matvec_window(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
+    """sym_band_matvec_resident for an operator with window=True. On the
+    card both run the kernel of csrc/sym_band_resident.cu (its header says
+    why the flag changes nothing there); this wrapper keeps a launch count
+    of its own, `sym_band_matvec_window.launches`."""
+    _check_float(upper, x, slab=False)
+    G = _resident_rows(upper, x.shape[1], rows_per_step)
+    if x.device.type == "cpu":
+        return sym_band_matvec_window_ref(upper, rows_per_step, x)
+    return _launch_rows(sym_band_matvec_window, "sym_band_resident", upper, x, G)
+
+
 BAND_KERNELS = (sym_band_matvec_int8, sym_band_matvec, sym_band_matvec_int4,
-                sym_band_matvec_hybrid)
+                sym_band_matvec_hybrid, sym_slab_matvec_streamed,
+                sym_band_matvec_resident, sym_band_matvec_window,
+                sym_slab_matvec_resident)
 for _w in BAND_KERNELS:
     _w.launches = 0
 
 
-def band_kernel_of(op: "SymBandedLD") -> tuple:
+def band_kernel_of(op: "SymBandedLD", S: int = 2) -> tuple:
     """(wrapper, plain version, their arguments before x, dtype of x) for
-    the operator's storage."""
+    the operator's storage, layout and mode, routed as the JAX operator's
+    matvec routes; S lanes a cohort decide what "auto" fits."""
+    resident = op._use_resident(S)    # raises for a quantized resident operator
+    G = op.rows_per_step
+    if not resident and G and (op.nb % G or G < op.hb):
+        raise ValueError(f"rows_per_step={G} must divide nb={op.nb} and be >= hb={op.hb}")
     if op.hybrid:
         return (sym_band_matvec_hybrid, sym_band_matvec_hybrid_ref,
                 (op.upper, op.scales), torch.bfloat16)
@@ -309,7 +560,16 @@ def band_kernel_of(op: "SymBandedLD") -> tuple:
     if op.quantized:
         return (sym_band_matvec_int8, sym_band_matvec_int8_ref,
                 (op.upper, op.scales), torch.bfloat16)
-    return sym_band_matvec, sym_band_matvec_ref, (op.upper,), op.upper.dtype
+    xdt = op.upper.dtype
+    if op.layout == "slab":
+        if resident:
+            return sym_slab_matvec_resident, sym_slab_matvec_resident_ref, (op.upper, G), xdt
+        return sym_slab_matvec_streamed, sym_slab_matvec_streamed_ref, (op.upper, G), xdt
+    if resident and op.window:
+        return sym_band_matvec_window, sym_band_matvec_window_ref, (op.upper, G), xdt
+    if resident:
+        return sym_band_matvec_resident, sym_band_matvec_resident_ref, (op.upper, G), xdt
+    return sym_band_matvec, sym_band_matvec_ref, (op.upper,), xdt
 
 
 # ---------------------------------------------------------------------------
@@ -318,12 +578,21 @@ def band_kernel_of(op: "SymBandedLD") -> tuple:
 
 @dataclasses.dataclass(frozen=True)
 class SymBandedLD:
-    """Symmetric block-banded LD operator, diag layout.
+    """Symmetric block-banded LD operator.
 
     upper: upper-triangle block diagonals, in one of the storage types of
     the module docstring. scales: None for float blocks, (K, nb, hb+1) f32
     for int8, (K, nb, nslot, B) f32 per block row for int4 (`packed`) and
-    hybrid (`hybrid`). Same matvec contract as the other operators: x is
+    hybrid (`hybrid`). layout: "diag" ((K, nb, hb+1, B, B) blocks) or
+    "slab" ((K, nb, (hb+1)*B, B) stacked transposes, float blocks only).
+    mode: "auto" takes the resident kernel where fits_shared_memory says
+    its run of block rows fits a CTA and the streamed kernel above that;
+    "resident" and "streamed" force one (tests, A/B timing). rows_per_step:
+    block rows a CTA of a resident kernel takes (0: the most that fit; it
+    must divide nb); for a streamed kernel it is checked as the JAX package
+    checks its chunk and otherwise only shapes the slab kernel's launch.
+    window: the resident diag kernel's row part as one product over the
+    (hb+1)*B window of x. Same matvec contract as the other operators: x is
     (S*K, M).
     """
 
@@ -332,15 +601,29 @@ class SymBandedLD:
     packed: bool = False
     hybrid: bool = False
     s: float = 0.0
+    rows_per_step: int = 0
+    window: bool = False
+    layout: str = "diag"
+    mode: str = "auto"
 
     def __post_init__(self) -> None:
         if self.packed and self.hybrid:
             raise ValueError("packed (int4) and hybrid storage exclude each other")
+        if self.layout not in ("diag", "slab"):
+            raise ValueError(f"layout must be 'diag' or 'slab', got {self.layout!r}")
+        if self.mode not in ("auto", "resident", "streamed"):
+            raise ValueError(f"mode must be 'auto', 'resident' or 'streamed', got {self.mode!r}")
         if self.upper.dtype == torch.int8:
             if self.scales is None:
                 raise ValueError("int8, int4 and hybrid storage need scales")
+            if self.layout == "slab":
+                raise ValueError("quantization supports the diag layout only")
         elif self.upper.dtype not in _FLOAT_CODES or self.packed or self.hybrid:
             raise ValueError(f"unsupported SymBandedLD storage: {self.upper.dtype}")
+        if self.upper.dim() != (4 if self.layout == "slab" else 5):
+            raise ValueError(f"{self.layout} layout needs "
+                             f"{4 if self.layout == 'slab' else 5}-dimensional blocks, "
+                             f"got {tuple(self.upper.shape)}")
 
     @property
     def K(self) -> int:
@@ -352,6 +635,8 @@ class SymBandedLD:
 
     @property
     def hb(self) -> int:
+        if self.layout == "slab":
+            return self.upper.shape[2] // self.upper.shape[3] - 1
         if self.hybrid:
             return self.upper.shape[2] - 2  # slots 0, 1 both hold d=0
         return self.upper.shape[2] - 1
@@ -381,12 +666,51 @@ class SymBandedLD:
             n += self.scales.numel() * self.scales.element_size()
         return n
 
+    @staticmethod
+    def resident_rows(hb: int, B: int, S: int = 2, storage_bytes: int = 2) -> int:
+        """Block rows G (8, 4, 2 or 1; 0 for none) a resident kernel's CTA
+        can take: the most whose x (G + 2*hb block rows), row sums (G) and
+        mirror sums (hb*G), S lanes of B accumulator words each (4 bytes,
+        8 for float64 blocks), fit the 232,448 bytes of shared memory a
+        CTA can use on an H100."""
+        for g in (8, 4, 2, 1):
+            if _run_shared_bytes(g, hb, B, S, storage_bytes) <= SHARED_MEMORY_BYTES:
+                return g
+        return 0
+
+    @staticmethod
+    def fits_shared_memory(hb: int, B: int, S: int = 2, storage_bytes: int = 2) -> bool:
+        """The size rule of mode="auto" on this card: whether a resident
+        kernel's run is long enough to read fewer bytes than the streamed
+        gather. A run of G block rows reads 1 + hb/(2G) of the stored
+        blocks (its neighbour's last rows once more), the gather
+        (2hb+1)/(hb+1), so the resident kernel is taken when
+        2 * resident_rows(...) > hb + 1, with 232,448 bytes of shared
+        memory a CTA. The rule does not depend on M: no CTA holds more
+        than its run."""
+        return 2 * SymBandedLD.resident_rows(hb, B, S, storage_bytes) > hb + 1
+
+    def _use_resident(self, S: int) -> bool:
+        if self.upper.dtype == torch.int8:
+            if self.mode == "resident":
+                raise ValueError(
+                    "quantized SymBandedLD has no resident kernel "
+                    "(dequant lives in the streamed flavor); use "
+                    "mode='streamed' or 'auto'")
+            return False
+        if self.mode == "resident":
+            return True
+        if self.mode == "streamed":
+            return False
+        return SymBandedLD.fits_shared_memory(self.hb, self.B, S,
+                                              self.upper.element_size())
+
     def matvec(self, x: Tensor) -> Tensor:
         S = x.shape[0] // self.K
         # (K, S, M) lanes in bf16 for the quantized storages, in the block
         # dtype for float blocks; the caller's x stays unrounded for the
         # regularization term below.
-        kernel, _, args, comp = band_kernel_of(self)
+        kernel, _, args, comp = band_kernel_of(self, S)
         xs = x.reshape(S, self.K, self.M).transpose(0, 1).to(comp).contiguous()
         y = kernel(*args, xs).transpose(0, 1).reshape(x.shape).to(x.dtype)
         if self.s != 0.0:
@@ -400,7 +724,10 @@ class SymBandedLD:
         elif self.packed:
             D = torch.cat(_unpack4(self.upper[:, :, 0]), dim=-1)
         else:
-            D = self.upper[:, :, 0].float()
+            if self.layout == "slab":   # T_i rows [0, B) hold U[i, 0]^T
+                D = self.upper[:, :, :self.B].transpose(-1, -2).float()
+            else:
+                D = self.upper[:, :, 0].float()
             if self.quantized:
                 D = D * self.scales[:, :, 0, None, None]
             return D
@@ -419,43 +746,50 @@ class SymBandedLD:
 
     @staticmethod
     def from_band(band: np.ndarray, block_size: int, K: int = 1,
-                  s: float = 0.0, dtype="int8", layout: str = "diag",
+                  s: float = 0.0, dtype=None, layout: str = "diag",
                   mesh=None, device=None) -> "SymBandedLD":
         """Pack symmetric band storage (M, 2*bw+1) into upper blocks.
 
-        dtype: "int8" (the default: the main path's storage), "int4",
-        "hybrid", "float32", "float64", "bfloat16", or None for the band's
-        own float dtype. The blocks are
-        bit-identical to sgvamp_tpu's SymBandedLD.from_band (its numpy
-        path). M is padded up to a block multiple with an identity
-        diagonal on the padded markers, which callers mask. The tensors go
-        to `device` (None: the default CUDA device).
+        dtype: None (the default) for the band's own float dtype, or
+        "float32", "float64", "bfloat16", "int8", "int4", "hybrid".
+        layout: "diag", or "slab" for float blocks
+        (T_i[d*B + q, p] = U[i, d][p, q]). The blocks are bit-identical to
+        sgvamp_tpu's SymBandedLD.from_band (its numpy path). M is padded
+        up to a block multiple with an identity diagonal on the padded
+        markers, which callers mask. The tensors go to `device` (None: the
+        default CUDA device).
         """
-        if layout != "diag":
-            raise NotImplementedError("the slab layout is not ported (ROADMAP B7)")
         if mesh is not None:
             raise NotImplementedError("the sharded matvec is not ported (ROADMAP A14)")
-        device = resolve_device(device)
+        if layout not in ("diag", "slab"):
+            raise ValueError(f"layout must be 'diag' or 'slab', got {layout!r}")
         band = np.asarray(band)
         name = _dtype_name(dtype if dtype is not None else band.dtype)
+        if name in ("int8", "int4", "hybrid") and layout == "slab":
+            raise ValueError("quantization supports the diag layout only")
+        device = resolve_device(device)
         scales = None
         if name in ("int8", "int4", "hybrid"):
             packer = {"int8": pack_int8, "int4": pack_int4, "hybrid": pack_hybrid}[name]
             upper, scales = packer(band, block_size)
-            upper_t = torch.from_numpy(upper)
-        elif name == "bfloat16":
-            # round-to-nearest-even from the f32 blocks
-            upper_t = torch.from_numpy(pack_blocks(band, block_size, np.float32)
-                                       ).to(torch.bfloat16)
         else:
-            upper_t = torch.from_numpy(pack_blocks(band, block_size, np.dtype(name)))
+            # bfloat16 is rounded to nearest even from the f32 blocks, below
+            upper = pack_blocks(band, block_size,
+                                np.float32 if name == "bfloat16" else np.dtype(name))
+        if layout == "slab":
+            nb, nslot, B, _ = upper.shape
+            upper = np.ascontiguousarray(upper.transpose(0, 1, 3, 2)).reshape(nb, nslot * B, B)
+        upper_t = torch.from_numpy(upper)
+        if name == "bfloat16":
+            upper_t = upper_t.to(torch.bfloat16)
 
         def stack(t):   # one copy per cohort, made on the device
             return t.to(device)[None].repeat(K, *([1] * t.dim())).contiguous()
 
         return SymBandedLD(upper=stack(upper_t),
                            scales=None if scales is None else stack(torch.from_numpy(scales)),
-                           packed=name == "int4", hybrid=name == "hybrid", s=s)
+                           packed=name == "int4", hybrid=name == "hybrid", s=s,
+                           layout=layout)
 
     def to_dense(self) -> Tensor:
         """Materialize (K, M, M) on the CPU - tests only. f32 for the
@@ -476,6 +810,8 @@ class SymBandedLD:
             up = up.float().numpy()
         else:
             up = up.numpy()
+        if self.layout == "slab":
+            up = up.reshape(K, nb, hbp1, B, B).transpose(0, 1, 2, 4, 3)
         out = np.zeros((K, self.M, self.M), dtype=up.dtype)
         for k in range(K):
             for i in range(nb):

@@ -44,7 +44,7 @@ def test_simulator_copy_matches():
 def test_from_band_bit_identical(B, bw, M, K, dtype):
     band = _band(M, bw, seed=B + M, dtype=dtype)
     want = JaxSymBandedLD.from_band(band, block_size=B, K=K, dtype="int8")
-    got = SymBandedLD.from_band(band, block_size=B, K=K, device="cpu")
+    got = SymBandedLD.from_band(band, block_size=B, K=K, dtype="int8", device="cpu")
     assert got.upper.dtype == torch.int8 and got.scales.dtype == torch.float32
     np.testing.assert_array_equal(got.upper.numpy(), np.asarray(want.upper))
     np.testing.assert_array_equal(got.scales.numpy(), np.asarray(want.scales))
@@ -78,7 +78,7 @@ def test_matvec_matches_jax_and_dense(B, bw, M, K):
 
 def test_cpu_wrapper_takes_the_plain_version():
     band = _band(300, 100, seed=3)
-    op = SymBandedLD.from_band(band, block_size=64, device="cpu")
+    op = SymBandedLD.from_band(band, block_size=64, dtype="int8", device="cpu")
     x = torch.randn(1, 2, op.M, generator=torch.Generator().manual_seed(0)).to(torch.bfloat16)
     before = sym_band_matvec_int8.launches
     y = sym_band_matvec_int8(op.upper, op.scales, x)
@@ -90,6 +90,9 @@ def test_cpu_wrapper_takes_the_plain_version():
 
 def test_unported_flavors_raise():
     band = _band(300, 100, seed=3)
-    for kw in ({"layout": "slab"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            SymBandedLD.from_band(band, block_size=64, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # the sharded matvec
+        SymBandedLD.from_band(band, block_size=64, dtype="int8", device="cpu", mesh=object())
+    # the slab layout is ported for float blocks and refused for quantized ones
+    assert SymBandedLD.from_band(band, block_size=64, device="cpu", layout="slab").layout == "slab"
+    with pytest.raises(ValueError, match="diag layout only"):
+        SymBandedLD.from_band(band, block_size=64, dtype="int8", device="cpu", layout="slab")

@@ -199,7 +199,7 @@ def test_default_device_raises_without_cuda():
     with pytest.raises(RuntimeError, match='device="cpu"'):
         sgvamp_torch.default_device()
     band = _band(128, 10, 0)
-    for call in (lambda: SymBandedLD.from_band(band, block_size=64),
+    for call in (lambda: SymBandedLD.from_band(band, block_size=64, dtype="int8"),
                  lambda: TPrior.create(0.1, [1.0], [1.0]),
                  lambda: interop.prior_from_numpy(0.1, [1.0], [1.0]),
                  lambda: interop.inputs_from_numpy(None, band, band[0], band[0]),

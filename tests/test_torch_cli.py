@@ -212,7 +212,6 @@ BASE = ["--ld-files", "R.npz", "--r-files", "r.npy", "--N", "10", "--M", "10",
     (["--resume", "1"], "--resume"),
     (["--prior-update", "mle"], "--prior-update mle"),
     (["--mle-prior-update", "mle"], "--prior-update mle"),
-    (["--operator", "banded"], "--operator banded"),
     (["--operator", "blocksparse"], "--operator blocksparse"),
     (["--bim-files", "a.bim"], "--bim-files"),
     (["--ld-files", "panel.ld"], ".ld"),

@@ -29,6 +29,7 @@ MODULES = [
     "sgvamp_torch.ops.band_kernel",
     "sgvamp_torch.ops.membench",
     "sgvamp_torch.utils",
+    "sgvamp_torch.utils.kernel_bench",
     "sgvamp_torch.utils.kernel_diag",
     "sgvamp_torch.utils.profiling",
 ]
