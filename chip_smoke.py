@@ -43,6 +43,32 @@ Phases, a few lines of output each (and fail on the first that fails):
      other; then VampEngine.run (EM prior, fixed 100-iteration CG budget, 4
      iterations) over the bfloat16 slab-streamed operator and over the
      bfloat16 resident operator, with phase 3's checks on each.
+  6. the sharded path, on a (cohort, shard) mesh whose cells are all this
+     one card (the cells run one after another; nothing runs on the CPU and
+     nothing is caught and passed over):
+     6a. the spill forms of the streamed kernels - the five storages of the
+         diag kernel and the slab kernel in its three float types - against
+         their plain versions, every shard, both outputs (y_l and carry),
+         on two ragged operators (M=1000, K=2, S=2; bandwidth 300 and 100)
+         at B = 64, 128, 256 cut 2 and 4 ways (shard_inputs must refuse a
+         shard narrower than hb), and at the bench shape cut 4 ways
+         (nb_l=1024, hb=2; taken in phase 2's loop, where each operator is
+         on the card); the shards composed on the card against the
+         unsharded kernel's y, and the last shard's carry exactly zero;
+     6b. ms per launch of each spill kernel on one shard of four at the
+         bench shape beside its plain version and its bound, and ms per
+         whole sharded operator pass (chained as kernel_bench chains them)
+         beside the unsharded operator's;
+     6c. phase 3's engine run (int8, M=524288, same seed) under a (1, 4)
+         mesh: 4 x 102 launches of the int8 spill kernel per iteration and
+         no other band kernel, phase 3's checks, and gam1, gamw and xhat1
+         of every iteration against phase 3's unsharded run; then the same
+         over the bfloat16 slab operator (the slab spill kernel);
+     6d. sgvamp_torch.cli.main --mesh-shard 4 over phase 4's M=65536 files
+         with --ld-dtype hybrid, int4 and bfloat16, and --mesh-cohort 2
+         --mesh-shard 2 with the panel given twice (K=2, hybrid): each run
+         launches its spill kernel once per LD pass and mesh cell and no
+         other band kernel.
 Then a JSON line of the kernels' numbers, and the result line last.
 """
 
@@ -66,6 +92,13 @@ SCALED_TOL = 1e-5     # kernel vs plain version: max|dy| / max|y|
 F64_TOL = 1e-12
 ITERATIONS = 6        # engine library path (fixed CG budget)
 FLAVOR_ITERATIONS = 4 # the same over the slab-streamed and the resident operator
+MESH_ITERATIONS = 4   # the same under the (1, 4) mesh
+MESH_SHARDS = 4
+# sharded against unsharded engine run, same seed, per iteration: relative L2
+# of xhat1, relative difference of gam1 and gamw (on an H100 the runs differ
+# by at most 6.3e-14 in xhat1 and not at all in gam1 and gamw: only the head
+# rows of a shard sum in another order)
+MESH_XHAT_TOL, MESH_PARAM_TOL = 1e-5, 1e-4
 CLI_ITERATIONS = 10
 CG_MAXIT = 100
 MIN_ALIGNMENT = 0.9
@@ -85,6 +118,11 @@ BENCH_VARIANTS = {"einsum": None, "streamed": "sym_band_matvec",
                   "slab": "sym_slab_matvec_resident", "slabstreamed": "sym_slab_matvec_streamed",
                   "slabresident": "sym_slab_matvec_resident"}
 BENCH_PASSES = 20
+# the spill forms: the wrapper each storage (or "slab-streamed" flavor) takes
+SPILL_WRAPPER = {"int8": "sym_band_matvec_int8_spill", "bfloat16": "sym_band_matvec_spill",
+                 "float32": "sym_band_matvec_spill", "float64": "sym_band_matvec_spill",
+                 "int4": "sym_band_matvec_int4_spill", "hybrid": "sym_band_matvec_hybrid_spill",
+                 "slab-streamed": "sym_slab_matvec_streamed_spill"}
 
 # NVIDIA H100 SXM data sheet: HBM bytes/s, dense operations/s by input type
 HBM_BYTES_PER_S = 3.35e12
@@ -180,6 +218,92 @@ def block_bytes_read(op, S: int) -> int:
     return op.K * (nb * d0_block + off * far_block)
 
 
+def shard_bound_ms(piece, S: int, storage: str) -> tuple:
+    """bound_ms for the spill form over one shard: its blocks and scales and
+    x with the halo read once, y_l and carry written once; two operations
+    per stored element and lane for each block product the shard takes (its
+    rows' row terms, and the mirror terms of its blocks into y_l or carry)."""
+    xb, yb = {"float32": (4, 4), "float64": (8, 8)}.get(storage, (2, 4))
+    rows = piece.nb + piece.hb
+    nbytes = piece.bytes_per_pass() + piece.K * S * rows * piece.B * (xb + yb)
+    ops = 2.0 * S * piece.K * piece.nb * (2 * piece.hb + 1) * piece.B * piece.B
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
+            nbytes)
+
+
+def one_card_mesh(n_cohort: int, n_shard: int):
+    """A mesh whose every cell is the card."""
+    import torch
+
+    from sgvamp_torch.parallel.sharding import make_mesh
+
+    return make_mesh(n_cohort, n_shard, devices=[torch.device("cuda:0")] * (n_cohort * n_shard))
+
+
+def shard_operator(op, n_shard: int):
+    """`op` cut n_shard ways over a one-card mesh, through shard_inputs."""
+    import torch
+
+    from sgvamp_torch import VampInputs
+    from sgvamp_torch.parallel.sharding import shard_inputs
+
+    dev = op.upper.device
+    inputs = VampInputs(op=op, r=torch.zeros((op.K, op.M), device=dev),
+                        a=torch.ones(op.K, device=dev), N=torch.ones(op.K, device=dev))
+    return shard_inputs(inputs, one_card_mesh(1, n_shard)).op
+
+
+def spill_vs_plain(op, n_shard: int, S: int, seed: int, what: str, tol: float) -> tuple:
+    """Every shard's spill kernel against its plain version on the card,
+    both outputs; then the shards composed (each carry added into the next
+    shard's head) against the unsharded kernel's y, the last shard's carry
+    exactly zero, and the sharded operator's matvec against the unsharded
+    one's. Fails above `tol` (scaled by max |y|). Returns (the worst
+    absolute error of a kernel against its plain version, the worst scaled
+    error of all comparisons, the sharded operator)."""
+    import torch
+
+    from sgvamp_torch.ops.band_kernel import band_kernel_of
+
+    dev = op.upper.device
+    sh = shard_operator(op, n_shard)
+    whole, _, wargs, xdt = band_kernel_of(op, S)
+    x = torch.randn((op.K, S, op.M), generator=torch.Generator(dev).manual_seed(seed),
+                    device=dev).to(xdt)
+    want = whole(*wargs, x)
+    scale = float(want.abs().max())
+    hbB, M_l = op.hb * op.B, op.M // n_shard
+    xpad = torch.cat([x, x.new_zeros(op.K, S, hbB)], dim=2)
+    worst_abs = worst = 0.0
+    ys, carry = [], None
+    for j, piece in enumerate(sh.shards[0]):
+        kernel, plain, args, _ = band_kernel_of(piece, S, spill=True)
+        x_ext = xpad[:, :, j * M_l:(j + 1) * M_l + hbB].contiguous()
+        y_l, spilled = kernel(*args, x_ext)
+        torch.cuda.synchronize()
+        for got, ref, name in zip((y_l, spilled), plain(*args, x_ext), ("y_l", "carry")):
+            err = float((got - ref).abs().max())
+            worst_abs, worst = max(worst_abs, err), max(worst, err / scale)
+            if got.shape != ref.shape or not err / scale <= tol:
+                fail(f"{kernel.__name__}, {what}, shard {j} of {n_shard}: {name} "
+                     f"{tuple(got.shape)} scaled error {err / scale:.3e} > {tol}")
+        if j and hbB:
+            y_l[:, :, :hbB] += carry
+        carry = spilled
+        ys.append(y_l)
+    if float(carry.abs().max()) != 0.0:
+        fail(f"{what}: the last shard's carry is not exactly zero "
+             f"(max {float(carry.abs().max()):.3e})")
+    rel = float((torch.cat(ys, dim=2) - want).abs().max()) / scale
+    lanes = x.transpose(0, 1).reshape(S * op.K, op.M).to(want.dtype)
+    rel_op = scaled_err(sh.matvec(lanes), op.matvec(lanes))[1]
+    if not max(rel, rel_op) <= tol:
+        fail(f"{what}: {n_shard} shards composed against the unsharded kernel: scaled "
+             f"error {rel:.3e}, sharded against unsharded operator {rel_op:.3e} > {tol}")
+    return worst_abs, max(worst, rel, rel_op), sh
+
+
 def with_flavor(op, flavor: str):
     """A float diag-layout operator on the card as the operator of `flavor`
     over the same blocks (slab storage by transposing them there)."""
@@ -233,9 +357,9 @@ def load_panel(prefix: str, M: int) -> tuple:
     return band, r, x0
 
 
-def engine_over(op, r, M, device, cg_maxit=CG_MAXIT):
+def engine_over(op, r, M, device, cg_maxit=CG_MAXIT, mesh=None):
     """The bench's engine over a packed operator: float32, EM prior, a
-    fixed CG budget."""
+    fixed CG budget; under `mesh` where one is given."""
     import torch
 
     from sgvamp_torch import PriorState, VampConfig, VampEngine, VampInputs
@@ -253,7 +377,7 @@ def engine_over(op, r, M, device, cg_maxit=CG_MAXIT):
                         a=torch.ones(1, dtype=torch.float32, device=device),
                         N=torch.full((1,), float(N_SAMPLES), device=device),
                         mask=mask)
-    return VampEngine(inputs, cfg, prior, gamw=5.0, gam1=1e-6)
+    return VampEngine(inputs, cfg, prior, gamw=5.0, gam1=1e-6, mesh=mesh)
 
 
 def small_engine(device, seed=3):
@@ -290,22 +414,25 @@ class LogCapture(logging.Handler):
 
 
 def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
-            operator: str = "sym") -> dict:
+            operator: str = "sym", K: int = 1, per_pass: int = 1, tag: str = "") -> dict:
     """One production-mode run of sgvamp_torch.cli.main over the panel
     files at `prefix` (the README's biobank flags), with its checks.
     `own` is the name of the wrapper this storage must launch, None for an
-    operator that launches no band kernel (--operator banded)."""
+    operator that launches no band kernel (--operator banded). K > 1 gives
+    the panel K times; per_pass is the launches an LD pass makes (the mesh
+    cells of a sharded run); tag goes into the output files' name."""
     import torch
 
     from sgvamp_torch.cli import main as cli_main
     from sgvamp_torch.core.vamp import alignment_l2
     from sgvamp_torch.io.writers import read_bin
 
-    name = f"bb_{operator}_{ld_dtype}"
+    name = f"bb_{operator}_{ld_dtype}{tag}"
     cm = max(int(M * LAM), 1)
-    argv = ["--ld-files", prefix + "_R.npz", "--r-files", prefix + "_r.npy",
+    argv = ["--ld-files", ",".join([prefix + "_R.npz"] * K),
+            "--r-files", ",".join([prefix + "_r.npy"] * K),
             "--true-signal-file", prefix + "_bet.npy",
-            "--out-dir", out_dir, "--out-name", name,
+            "--out-dir", out_dir, "--out-name", name, "--K", str(K),
             "--N", str(N_SAMPLES), "--M", str(M), "--iterations", str(CLI_ITERATIONS),
             "--prior-probs", f"{1 - LAM:g},{LAM:g}", "--prior-vars", f"0,{H2 / cm:.6g}",
             "--operator", operator, "--ld-dtype", ld_dtype, "--block-size", str(B_FULL),
@@ -319,10 +446,11 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = band_launches()
-    what = f"cli.main --operator {operator} --ld-dtype {ld_dtype} at M={M}"
+    flags = "".join(f" {e}" for e in extra)
+    what = f"cli.main --operator {operator} --ld-dtype {ld_dtype}{flags} at M={M}"
     if rc != 0:
         fail(f"{what} returned {rc}")
-    for need in (f"{name}_cohort_1.csv", f"{name}_metrics.csv", f"{name}_xhat_it_0.bin",
+    for need in (f"{name}_cohort_{K}.csv", f"{name}_metrics.csv", f"{name}_xhat_it_0.bin",
                  f"{name}_xhat_best.bin"):
         if not os.path.exists(os.path.join(out_dir, need)):
             fail(f"{what}: output file {need} missing (have {sorted(os.listdir(out_dir))})")
@@ -330,9 +458,9 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     step_s = log.floats(r"\[roofline\] iteration \d+: ([0-9.]+)s")
     if sum(passes) == 0:
         fail(f"{what}: the run logged no LD pass")
-    if own is not None and counts[own] != sum(passes):
+    if own is not None and counts[own] != per_pass * sum(passes):
         fail(f"{what}: {own} launched {counts[own]} times, the run logged "
-             f"{sum(passes)} LD passes")
+             f"{sum(passes)} LD passes of {per_pass} launches each")
     others = {k: v for k, v in counts.items() if k != own and v}
     if others:
         fail(f"{what}: other band kernels were launched: {others}")
@@ -352,7 +480,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     align = alignment_l2(best, bet)[0]
     if not align >= MIN_ALIGNMENT:
         fail(f"{what}: best-iterate alignment {align:.5f} < {MIN_ALIGNMENT}")
-    res = {"operator": operator, "ld_dtype": ld_dtype, "M": M,
+    res = {"operator": operator, "ld_dtype": ld_dtype, "M": M, "K": K, "flags": list(extra),
            "launches": counts[own] if own else 0, "iterations": len(rows),
            "passes": passes, "ingest_s": sum(log.floats(r"\[timer\] load/R: ([0-9.]+)s")),
            "precond_eig_s": sum(log.floats(r"\[timer\] precond/eig: ([0-9.]+)s")),
@@ -360,7 +488,8 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
            "s_per_iteration": float(np.median(step_s[1:])) if len(step_s) > 1 else float("nan"),
            "total_s": total_s, "alignment": align,
            "stop": stopped[0] if stopped else "ran all iterations"}
-    print(f"[4 cli] --operator {operator} --ld-dtype {ld_dtype}, M={M}: {total_s:.1f} s in all; "
+    print(f"[{'6d' if tag else '4'} cli] --operator {operator} --ld-dtype {ld_dtype}{flags}, "
+          f"K={K}, M={M}: {total_s:.1f} s in all; "
           f"ingestion "
           f"(load/R: .npz -> band -> blocks -> card) {res['ingest_s']:.2f} s, "
           f"preconditioner eigendecomposition {res['precond_eig_s']:.2f} s, inference "
@@ -372,13 +501,15 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     return res
 
 
-def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None) -> dict:
+def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None,
+               mesh=None) -> dict:
     """VampEngine.run at the bench geometry over `op` with a fixed CG
     budget, started with the launch counts at zero, and its checks: 102
-    launches of `own` per executed iteration and no other band kernel, a
-    best iterate that is finite and aligned, the reference-format files.
-    `before_run(engine)` runs after the counts are reset and before the
-    run (the read probe of phase 3)."""
+    launches of `own` per executed iteration (times the mesh's cells under
+    `mesh`, which cuts `op`) and no other band kernel, a best iterate that
+    is finite and aligned, the reference-format files. `before_run(engine)`
+    runs after the counts are reset and before the run (the read probe of
+    phase 3)."""
     import torch
 
     from sgvamp_torch.core.vamp import alignment_l2
@@ -386,7 +517,8 @@ def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None
     from sgvamp_torch.ops.membench import _read_once
 
     device = op.upper.device
-    engine = engine_over(op, r, M_FULL, device)
+    engine = engine_over(op, r, M_FULL, device, mesh=mesh)
+    per_it = 102 * (mesh.devices.size if mesh is not None else 1)
     stamps = []
     reset_launches()
     extra = before_run(engine) if before_run else None
@@ -408,12 +540,12 @@ def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None
     best_align = alignment_l2(best, x0)[0] if best is not None else float("nan")
     print(f"[{phase}] {executed} iterations, {s_per_it:.4f} s/iteration "
           f"(median after the first), {own} launches {launches[own]} (expect "
-          f"{102 * executed}), probe launches {launches['read_max']}; alignment "
+          f"{per_it * executed}), probe launches {launches['read_max']}; alignment "
           f"{[round(v, 5) for v in hist['alignment']]}; stop {hist.get('stop_reason')} at "
           f"{hist.get('stopped_at')}; best iterate {best_it}, alignment {best_align:.5f}",
           flush=True)
-    if launches[own] != 102 * executed:
-        fail(f"{phase}: {own} launched {launches[own]} times, expected {102 * executed}")
+    if launches[own] != per_it * executed:
+        fail(f"{phase}: {own} launched {launches[own]} times, expected {per_it * executed}")
     moved = {k: v for k, v in launches.items() if k not in (own, "read_max") and v}
     if moved:
         fail(f"{phase}: the engine path over {own} launched other band kernels: {moved}")
@@ -429,7 +561,34 @@ def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None
     if best_bin is None or not np.array_equal(best_bin, best.astype(np.float64)):
         fail(f"{phase}: smoke_xhat_it_{best_it}.bin does not hold the best iterate")
     return {"launches": launches, "executed": executed, "s_per_iteration": s_per_it,
-            "alignment": best_align, "extra": extra}
+            "alignment": best_align, "extra": extra, "xhat1": hist["xhat1"],
+            "params": hist["params"], "best_it": best_it}
+
+
+def compare_runs(sharded: dict, whole: dict, phase: str) -> dict:
+    """A sharded engine run against the unsharded run from the same seed:
+    per iteration up to the unsharded run's best iterate (past it the run
+    is diverging and amplifies any rounding), the relative L2 difference of
+    xhat1 and the relative differences of gam1 and gamw (the largest over
+    cohorts). Fails above MESH_XHAT_TOL and MESH_PARAM_TOL."""
+    n = min(len(sharded["xhat1"]), whole["best_it"] + 1)
+    dev = {"xhat1": [], "gam1": [], "gamw": []}
+    for it in range(n):
+        a, b = np.asarray(sharded["xhat1"][it], np.float64), np.asarray(whole["xhat1"][it],
+                                                                        np.float64)
+        dev["xhat1"].append(float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+        pa, pb = np.asarray(sharded["params"][it]), np.asarray(whole["params"][it])
+        for name, col in (("gamw", 1), ("gam1", 2)):
+            dev[name].append(float(np.max(np.abs(pa[:, col] - pb[:, col]) / np.abs(pb[:, col]))))
+    print(f"[{phase}] against the unsharded run of the same seed, iterations 0..{n - 1}: "
+          f"xhat1 relative L2 {[f'{v:.2e}' for v in dev['xhat1']]} (tol {MESH_XHAT_TOL}), "
+          f"gam1 {[f'{v:.2e}' for v in dev['gam1']]}, gamw {[f'{v:.2e}' for v in dev['gamw']]} "
+          f"(tol {MESH_PARAM_TOL})", flush=True)
+    if n == 0 or not max(dev["xhat1"]) <= MESH_XHAT_TOL:
+        fail(f"{phase}: xhat1 deviates from the unsharded run: {dev['xhat1']}")
+    if not max(dev["gam1"] + dev["gamw"]) <= MESH_PARAM_TOL:
+        fail(f"{phase}: gam1 or gamw deviates from the unsharded run: {dev}")
+    return dev
 
 
 def main() -> None:
@@ -513,6 +672,48 @@ def main() -> None:
           + f" (tol {SCALED_TOL}, float64 {F64_TOL})", flush=True)
     seconds["kernels_ragged"] = time.perf_counter() - t0
 
+    # ---- 6a. the spill kernels on the ragged operators ----
+    t0 = time.perf_counter()
+    band_narrow, _, _ = simulate_ld_band(10000, 1000, 100, rng=rng)
+    spill_err, spill_cases, refused = {}, 0, 0
+    for storage in STORAGES + ("float64",):
+        tol = F64_TOL if storage == "float64" else SCALED_TOL
+        for bw, band_r in ((300, band_small), (100, band_narrow)):
+            for B in (64, 128, 256):
+                op_s = dataclasses.replace(
+                    SymBandedLD.from_band(band_r, block_size=B, K=2, dtype=storage, device=dev),
+                    mode="streamed")
+                ops = {storage: op_s}
+                if op_s.upper.dtype != torch.int8:
+                    ops[f"slab-streamed {storage}"] = with_flavor(op_s, "slab-streamed")
+                for key, op_f in ops.items():
+                    own = SPILL_WRAPPER["slab-streamed" if op_f.layout == "slab" else storage]
+                    if band_kernel_of(op_f, 2, spill=True)[0].__name__ != own:
+                        fail(f"the spill form of {key} is routed to "
+                             f"{band_kernel_of(op_f, 2, spill=True)[0].__name__}")
+                    for n in (2, 4):
+                        what = f"ragged M=1000 bandwidth {bw} hb={op_f.hb} B={B} K=2 S=2"
+                        if op_f.nb % n or op_f.nb // n < op_f.hb:
+                            try:
+                                shard_operator(op_f, n)
+                            except ValueError:
+                                refused += 1
+                                continue
+                            fail(f"shard_inputs took {key}, {what}, cut {n} ways: shards of "
+                                 f"{op_f.nb / n} block rows, hb={op_f.hb}")
+                        _, rel, _ = spill_vs_plain(op_f, n, 2, B + n, f"{key}, {what}", tol)
+                        spill_err[key] = max(spill_err.get(key, 0.0), rel)
+                        spill_cases += 1
+    print(f"[6a ragged] M=1000, bandwidth 300 and 100, K=2, S=2, B in (64, 128, 256), 2 and 4 "
+          f"shards: {spill_cases} operators cut and composed, {refused} refused by "
+          f"shard_inputs (shard narrower than hb); worst scaled error of y_l, carry, the "
+          f"composition and the sharded operator: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in spill_err.items())
+          + f" (tol {SCALED_TOL}, float64 {F64_TOL}); every last carry exactly zero", flush=True)
+    if refused == 0:
+        fail("no ragged case was refused by shard_inputs")
+    seconds["spill_ragged"] = time.perf_counter() - t0
+
     work = tempfile.TemporaryDirectory(prefix="sgvamp_smoke_")
     prefix = os.path.join(work.name, "bb")
     seconds["gen_band_full"] = gen_band(prefix, M_FULL)
@@ -550,18 +751,50 @@ def main() -> None:
               f"plain {ms_plain:.4f} ms/pass, bound {b_ms:.4f} ms ({b_by} at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
 
+    spill = {}     # the same for the spill forms: one shard of MESH_SHARDS
+
+    def measure_spill(op, key, storage):
+        """6a and 6b at the bench shape: the operator cut MESH_SHARDS ways."""
+        abs_err, rel, sh = spill_vs_plain(op, MESH_SHARDS, S, 0, f"{key}, full shape",
+                                          SCALED_TOL)
+        piece = sh.shards[0][1]   # an interior shard: a halo to read, a carry to write
+        kernel, plain, args, xdt = band_kernel_of(piece, S, spill=True)
+        xe = torch.randn((1, S, piece.M + piece.hb * piece.B),
+                         generator=torch.Generator(dev).manual_seed(0), device=dev).to(xdt)
+        ms_kern, ms_plain = kernel_and_plain_ms(lambda: kernel(*args, xe),
+                                                lambda: plain(*args, xe))
+        b_ms, b_by, nbytes = shard_bound_ms(piece, S, storage)
+        lanes = torch.randn((S, op.M), generator=torch.Generator(dev).manual_seed(1),
+                            device=dev)
+        pass_ms = kernel_bench.time_passes(sh, lanes, BENCH_PASSES) * 1e3
+        whole_ms = kernel_bench.time_passes(op, lanes, BENCH_PASSES) * 1e3
+        spill[key] = {"abs_err": abs_err, "rel_err": rel, "ms": ms_kern, "plain_ms": ms_plain,
+                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                      "pass_ms": pass_ms, "unsharded_pass_ms": whole_ms,
+                      "kernel": kernel.__name__}
+        print(f"[6a 6b {key}] {kernel.__name__}, one shard of {MESH_SHARDS} at the full shape, "
+              f"upper {tuple(piece.upper.shape)}: worst scaled error of y_l, carry, the "
+              f"composition and the sharded operator {rel:.2e} (max abs {abs_err:.3e}, tol "
+              f"{SCALED_TOL}), last carry exactly zero; kernel {ms_kern:.4f} ms/launch "
+              f"(unsharded kernel {full[key]['ms']:.4f} ms/pass), plain {ms_plain:.4f}, bound "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s); "
+              f"chained operator pass: sharded {pass_ms:.4f} ms ({MESH_SHARDS} launches, the "
+              f"x slices, the carries and the gather), unsharded {whole_ms:.4f} ms", flush=True)
+
     for storage in STORAGES:
         t1 = time.perf_counter()
         op = dataclasses.replace(
             SymBandedLD.from_band(band, block_size=B_FULL, dtype=storage, device=dev),
             mode="streamed")
         measure(op, storage, storage, f"packed in {time.perf_counter() - t1:.1f} s")
+        measure_spill(op, storage, storage)
         if storage == "int8":
             op_int8 = op
         if storage in ("bfloat16", "float32"):
             for flavor in FLAVORS:
                 measure(with_flavor(op, flavor), f"{flavor} {storage}", storage,
                         "the same blocks")
+            measure_spill(with_flavor(op, "slab-streamed"), f"slab-streamed {storage}", storage)
             del op
             # the one PyTorch call that computes the same product: BandedLD's
             # einsum over full-band storage, (2hb+1)/(hb+1) of the blocks
@@ -634,8 +867,6 @@ def main() -> None:
           f"{100 * bpp / ms_int8 / 1e6 / gbps:.1f}% of it", flush=True)
     if launches["read_max"] == 0:
         fail("the read probe kernel was not launched on the engine path")
-    del op_int8
-    torch.cuda.empty_cache()
     seconds["engine_path"] = time.perf_counter() - t0
 
     # ---- 4. the command-line path ----
@@ -701,19 +932,62 @@ def main() -> None:
                                          FLAVOR_WRAPPER[flavor], FLAVOR_ITERATIONS,
                                          f"5 engine path, bfloat16 {flavor}")
         torch.cuda.empty_cache()
-    del op_bf16
     seconds["flavor_engine_paths"] = time.perf_counter() - t0
+
+    # ---- 6c. the engine path under the mesh ----
+    t0 = time.perf_counter()
+    mesh = one_card_mesh(1, MESH_SHARDS)
+    mesh_runs = {}
+    for key, op_m, own, whole_run in (
+            ("int8", op_int8, "sym_band_matvec_int8_spill", int8_run),
+            ("bfloat16 slab-streamed", with_flavor(op_bf16, "slab-streamed"),
+             "sym_slab_matvec_streamed_spill", flavor_runs["slab-streamed"])):
+        phase = f"6c engine path, {key}, (1, {MESH_SHARDS}) mesh"
+        mesh_runs[key] = engine_run(op_m, r_full, x0, own, MESH_ITERATIONS, phase, mesh=mesh)
+        mesh_runs[key]["deviation"] = compare_runs(mesh_runs[key], whole_run, phase)
+        print(f"[{phase}] {mesh_runs[key]['s_per_iteration']:.4f} s/iteration against "
+              f"{whole_run['s_per_iteration']:.4f} unsharded", flush=True)
+        del op_m
+        torch.cuda.empty_cache()
+    del op_int8, op_bf16
+    torch.cuda.empty_cache()
+    seconds["mesh_engine_paths"] = time.perf_counter() - t0
+
+    # ---- 6d. the command line under the mesh ----
+    t0 = time.perf_counter()
+    shard_flags = ("--mesh-shard", str(MESH_SHARDS))
+    mesh_cli = {
+        "hybrid": cli_run(small_prefix, out_dir, M_CLI_SMALL, "hybrid",
+                          "sym_band_matvec_hybrid_spill", extra=shard_flags,
+                          per_pass=MESH_SHARDS, tag="_mesh"),
+        "int4": cli_run(small_prefix, out_dir, M_CLI_SMALL, "int4",
+                        "sym_band_matvec_int4_spill",
+                        extra=shard_flags + ("--cg-rtol", "1e-3"), per_pass=MESH_SHARDS,
+                        tag="_mesh"),
+        "bfloat16": cli_run(small_prefix, out_dir, M_CLI_SMALL, "bfloat16",
+                            "sym_band_matvec_spill", extra=shard_flags, per_pass=MESH_SHARDS,
+                            tag="_mesh"),
+        "hybrid K=2": cli_run(small_prefix, out_dir, M_CLI_SMALL, "hybrid",
+                              "sym_band_matvec_hybrid_spill",
+                              extra=("--mesh-cohort", "2", "--mesh-shard", "2"), K=2,
+                              per_pass=4, tag="_mesh22"),
+    }
+    seconds["mesh_cli"] = time.perf_counter() - t0
     work.cleanup()
     seconds["total"] = time.perf_counter() - t_start
 
     print(json.dumps({"seconds": {k: round(v, 2) for k, v in seconds.items()},
-                      "cli": list(cli.values()),
+                      "cli": list(cli.values()) + list(mesh_cli.values()),
                       "kernel_bench": list(bench_rows.values()),
                       "engine_paths": {
                           "int8": {k: int8_run[k] for k in ("executed", "s_per_iteration",
                                                             "alignment")},
                           **{f: {k: v[k] for k in ("executed", "s_per_iteration", "alignment")}
-                             for f, v in flavor_runs.items()}}}))
+                             for f, v in flavor_runs.items()},
+                          **{f"{f}, (1, {MESH_SHARDS}) mesh":
+                             {k: v[k] for k in ("executed", "s_per_iteration", "alignment",
+                                                "deviation")}
+                             for f, v in mesh_runs.items()}}}))
 
     def band_entry(name, key, source, line, n_launch, library=None, **extra):
         f = full[key]
@@ -738,6 +1012,22 @@ def main() -> None:
                            "block_bytes_read")},
                          library_ms=full["einsum float32"]["ms"],
                          library_bytes=full["einsum float32"]["bytes_per_pass"]))
+
+    def spill_entry(name, key, source, line, n_launch, **extra):
+        """A spill kernel's entry: ms per launch on one shard of MESH_SHARDS
+        at the bench shape; no PyTorch call computes a shard's (y_l, carry)."""
+        f = spill[key]
+        return dict({"name": name, "route": "cuda", "source": source,
+                     "replaces": f"sgvamp_tpu/ops/band_kernel.py:{line}",
+                     "launches": n_launch, "max_abs_err": f["abs_err"], "ms": f["ms"],
+                     "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+                     "bound_by": f["bound_by"], "library_ms": None, "bytes": f["bytes"],
+                     "shards": MESH_SHARDS, "sharded_pass_ms": f["pass_ms"],
+                     "unsharded_pass_ms": f["unsharded_pass_ms"]}, **extra)
+
+    def spill32(key):
+        return {k: spill[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
+                                           "abs_err", "pass_ms", "unsharded_pass_ms")}
 
     csrc = "sgvamp_torch/csrc/"
     print(smi)
@@ -765,6 +1055,20 @@ def main() -> None:
          "ms": probe_s * 1e3, "plain_ms": probe_plain_ms,
          "bound_ms": probe_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
          "library_ms": probe_library_ms, "bytes": probe_bytes},
+        spill_entry("sym_band_matvec_int8_spill", "int8", csrc + "sym_band_int8.cu", 197,
+                    mesh_runs["int8"]["launches"]["sym_band_matvec_int8_spill"]),
+        spill_entry("sym_band_matvec_spill", "bfloat16", csrc + "sym_band_float.cu", 197,
+                    mesh_cli["bfloat16"]["launches"], timed_storage="bfloat16",
+                    float32=spill32("float32")),
+        spill_entry("sym_band_matvec_int4_spill", "int4", csrc + "sym_band_int4.cu", 197,
+                    mesh_cli["int4"]["launches"]),
+        spill_entry("sym_band_matvec_hybrid_spill", "hybrid", csrc + "sym_band_hybrid.cu", 197,
+                    mesh_cli["hybrid"]["launches"] + mesh_cli["hybrid K=2"]["launches"]),
+        spill_entry("sym_slab_matvec_streamed_spill", "slab-streamed bfloat16",
+                    csrc + "sym_slab_streamed.cu", 380,
+                    mesh_runs["bfloat16 slab-streamed"]["launches"][
+                        "sym_slab_matvec_streamed_spill"],
+                    timed_storage="bfloat16", float32=spill32("slab-streamed float32")),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

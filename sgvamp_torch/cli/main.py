@@ -2,7 +2,11 @@
 
 The same flags, defaults and value semantics as the JAX command line, so an
 invocation ports by changing the module name. All K cohorts run inside one
-process on one device: a CUDA GPU unless --platform cpu is given.
+process: on one CUDA GPU unless --platform cpu is given, or, with
+--mesh-cohort / --mesh-shard, with the LD operator cut over a (cohort,
+shard) mesh of the visible GPUs (parallel/sharding.py). A mesh with more
+cells than there are GPUs takes them round-robin, and under --platform cpu
+every cell is the CPU: the sharded path then runs its cells in turn.
 
 Ported: --operator dense, --operator banded (float storage) and
 --operator sym with --ld-dtype float64, float32, bfloat16, int8, int4 or
@@ -10,9 +14,10 @@ hybrid; .npz / .npy LD inputs; the host loop with the block-Jacobi
 preconditioner, the StopMonitor and reference-format output files.
 --operator sym leaves the operator's mode at "auto", so float storage
 runs the resident kernel where its run fits a CTA's shared memory. Not
-ported yet: --operator blocksparse, the sharded run (--mesh-*, the
-multi-host flags), --fused, checkpoints, --prior-update mle, .ld tables
-and --bim-files, --profile-dir. Each is rejected with a message that
+ported yet: --operator blocksparse, runs of several processes
+(--coordinator-address, --num-processes, --process-id), --fused,
+checkpoints, --prior-update mle, .ld tables and --bim-files,
+--profile-dir. Each is rejected with a message that
 names the flag and its ROADMAP item; none is silently ignored.
 """
 
@@ -155,15 +160,11 @@ def _reject_unported(args) -> None:
     if args.platform not in (None, "cuda", "cpu"):
         raise SystemExit(f"--platform {args.platform} is not supported by "
                          "sgvamp_torch: use cuda (the default) or cpu")
-    if args.mesh_cohort > 1:
-        no("--mesh-cohort > 1", "ROADMAP A14, multi-GPU")
-    if args.mesh_shard:
-        no("--mesh-shard", "ROADMAP A14, multi-GPU")
     for flag, val in (("--coordinator-address", args.coordinator_address),
                       ("--num-processes", args.num_processes),
                       ("--process-id", args.process_id)):
         if val is not None:
-            no(flag, "ROADMAP A14, multi-GPU")
+            no(flag, "ROADMAP A8b, several processes over torch.distributed")
     if bool(int(args.fused)):
         no("--fused 1", "ROADMAP A12, fused runs")
     if args.checkpoint_dir:
@@ -269,6 +270,21 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     Nt = float(sum(N_list))
     a = np.asarray(N_list, dtype=np.float64) / Nt
+
+    # -- device mesh: one process drives every cell of it --
+    mesh = None
+    if args.mesh_cohort > 1 or args.mesh_shard:
+        from sgvamp_torch.parallel.sharding import make_mesh
+        # the cards taken round-robin; under --platform cpu every cell is the
+        # CPU. Without --mesh-shard the shard axis takes the devices the
+        # cohort axis leaves, as in the JAX command line.
+        on_cpu = device.type == "cpu"
+        n_mesh = max(args.mesh_cohort, 1) * max(args.mesh_shard or 1, 1)
+        n_dev = n_mesh if on_cpu else torch.cuda.device_count()
+        n_shard = args.mesh_shard or max(n_dev // max(args.mesh_cohort, 1), 1)
+        mesh = make_mesh(args.mesh_cohort, n_shard,
+                         devices=[device] * n_mesh if on_cpu else None)
+        log.info(f"Running on mesh {mesh.shape}")
 
     # -- the marker panel (no .bim files: all cohorts share it) --
     ts = time.time()
@@ -420,7 +436,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         mask=mask,
     )
     with timers.phase("precond/eig"):
-        engine = VampEngine(inputs, cfg, prior, gamw=gamw, gam1=gam1)
+        engine = VampEngine(inputs, cfg, prior, gamw=gamw, gam1=gam1, mesh=mesh)
 
     writer = None
     if args.out_dir:

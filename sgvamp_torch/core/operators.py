@@ -30,6 +30,12 @@ def _regularize(y: Tensor, x: Tensor, s: float) -> Tensor:
     return (1.0 - s) * y + s * x
 
 
+def default_diag_block(M: int) -> int:
+    """The block size DenseLD.diag_blocks takes when none is given: the
+    largest divisor of M at most 256."""
+    return max(b for b in range(1, min(256, M) + 1) if M % b == 0)
+
+
 def _regularize_diag(D: Tensor, s: float) -> Tensor:
     # diagonal blocks of Rused = (1-s) R + s I, from diagonal blocks of R
     if s == 0.0:
@@ -67,29 +73,13 @@ class DenseLD:
         """(K, nb, B, B) f32 regularized diagonal blocks of Rused (for the
         block-Jacobi preconditioner, core/precond.py). Default block: the
         largest divisor of M at most 256."""
-        B = block_size or max(b for b in range(1, min(256, self.M) + 1)
-                              if self.M % b == 0)
+        B = block_size or default_diag_block(self.M)
         if self.M % B:
             raise ValueError(f"M={self.M} not a multiple of block {B}")
         nb = self.M // B
         Dv = self.mats.reshape(self.K, nb, B, nb, B)
         D = torch.diagonal(Dv, dim1=1, dim2=3).movedim(-1, 1).float()
         return _regularize_diag(D, self.s)
-
-
-def _shift_blocks(xb: Tensor, d: int) -> Tensor:
-    """Shift (..., nb, B) along the block axis by d, zero-filling the edge:
-    out[..., i, :] = xb[..., i + d, :]."""
-    if d == 0:
-        return xb
-    nb = xb.shape[-2]
-    out = torch.zeros_like(xb)
-    if abs(d) < nb:
-        if d > 0:
-            out[..., :nb - d, :] = xb[..., d:, :]
-        else:
-            out[..., -d:, :] = xb[..., :nb + d, :]
-    return out
 
 
 def _to_torch(blocks: np.ndarray, name: str, device) -> Tensor:
@@ -167,18 +157,28 @@ class BandedLD:
     def matvec(self, x: Tensor) -> Tensor:
         K, nb, B, hb = self.K, self.nb, self.B, self.hb
         S = x.shape[0] // K
-        xb = x.reshape(S, K, nb, B).to(self.blocks.dtype)
-        # neighbour table: for block row i the x blocks i-hb .. i+hb, zeros
-        # outside the matrix (matching the zero-padded edge blocks)
-        xn = torch.stack([_shift_blocks(xb, d) for d in range(-hb, hb + 1)], dim=3)
+        xb = x.reshape(S, K, nb, B)
+        # zeros outside the matrix (matching the zero-padded edge blocks)
+        edge = xb.new_zeros(S, K, hb, B)
+        yb = self.apply_padded(torch.cat([edge, xb, edge], dim=2))
+        return _regularize(yb.reshape(x.shape).to(x.dtype), x, self.s)
+
+    def apply_padded(self, xpad: Tensor) -> Tensor:
+        """(S, K, nb, B) block rows of R x, without the s term, from xpad
+        (S, K, nb + 2*hb, B): the x blocks -hb .. nb+hb-1 of these block
+        rows. The whole operator pads with zeros; a shard of block rows
+        (parallel/sharding.py) with its neighbours' x blocks."""
+        nb, hb = self.nb, self.hb
+        xpad = xpad.to(self.blocks.dtype)
+        # neighbour table: for block row i the x blocks i-hb .. i+hb
+        xn = torch.stack([xpad[:, :, d:d + nb] for d in range(2 * hb + 1)], dim=3)
         acc = _ACCUM[self.accum_dtype]
         blocks = self.blocks
         if acc is not None and acc != blocks.dtype:
             # torch.einsum has no separate accumulation type: widen the
             # operands (exact), so products and sums are taken in `acc`
             blocks, xn = blocks.to(acc), xn.to(acc)
-        yb = torch.einsum("kndij,skndj->skni", blocks, xn)
-        return _regularize(yb.reshape(x.shape).to(x.dtype), x, self.s)
+        return torch.einsum("kndij,skndj->skni", blocks, xn)
 
     def to_dense(self) -> Tensor:
         """Materialize dense (K, M, M) on the CPU - tests only."""

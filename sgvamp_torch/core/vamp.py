@@ -1,6 +1,8 @@
 """The VAMP iteration and its host loop (PyTorch port of sgvamp_tpu/core/vamp.py).
 
-The whole multi-cohort state lives in (K, ...) tensors on one device. One
+The whole multi-cohort state lives in (K, ...) tensors on one device (under
+a mesh: its first device; the mesh divides the LD operator only, see
+parallel/sharding.py). One
 step is: the EM prior update, the meta denoiser, one CG of 2K lanes (the
 LMMSE right-hand sides and the Hutchinson probes share A = gamw R + gam2 I,
 so each LD pass serves both), and one 2K-lane LD pass for the noise
@@ -355,23 +357,34 @@ class VampEngine:
     between steps."""
 
     def __init__(self, inputs: VampInputs, cfg: VampConfig, prior: PriorState,
-                 gamw: float = 5.0, gam1: float = 1e-6) -> None:
+                 gamw: float = 5.0, gam1: float = 1e-6, mesh=None) -> None:
+        """mesh: a parallel.sharding.Mesh to cut the LD operator over (None:
+        one device)."""
         if (cfg.cg_precond_block and cfg.cg_precond_eig
                 and inputs.precond_q is None):
             # one-time factorization of the diagonal sub-blocks; every step
-            # then rebuilds the shifted inverse from it
+            # then rebuilds the shifted inverse from it. It is taken from
+            # the operator before the mesh cuts it.
             Q, lam = block_jacobi_eig(inputs.op, cfg.cg_precond_block, 2048,
                                       cfg.precond_torch_dtype)
             inputs = dataclasses.replace(inputs, precond_q=Q, precond_lam=lam)
+        if mesh is not None:
+            from sgvamp_torch.parallel.sharding import shard_inputs
+            inputs = shard_inputs(inputs, mesh)
         self.inputs = inputs
         self.cfg = cfg
         self.prior = prior
         self.gamw0 = gamw
         self.gam10 = gam1
+        self.mesh = mesh
 
     def init_state(self, seed: int = 0) -> VampState:
-        return init_state(self.inputs, self.cfg, self.prior, self.gamw0,
-                          self.gam10, seed)
+        state = init_state(self.inputs, self.cfg, self.prior, self.gamw0,
+                           self.gam10, seed)
+        if self.mesh is not None:
+            from sgvamp_torch.parallel.sharding import shard_state
+            state = shard_state(state, self.mesh)
+        return state
 
     def run(
         self,

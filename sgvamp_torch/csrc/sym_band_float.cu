@@ -1,8 +1,8 @@
 // Symmetric block-banded matvec over float upper-triangle blocks (Hopper).
 //
 // Replaces sgvamp_tpu/ops/band_kernel.py::_sym_band_kernel_streamed, the
-// unquantized flavor (blocks in bfloat16, float32 or float64, no scales,
-// spill=False).
+// unquantized flavor (blocks in bfloat16, float32 or float64, no scales),
+// with spill=False and, through the second entry point, with spill=True.
 //
 // What it computes, per cohort k and right-hand side s:
 //   y_i = sum_{d=0..hb, i+d<nb} U[i,d]     @ x_{i+d}     (row part)
@@ -26,6 +26,13 @@
 //   mirror part: thread t is output column q and walks p; for each p the
 //                CTA reads one contiguous block row.
 // Only x (S*B values) lives in shared memory.
+//
+// Spill form (one shard of a sharded operator; `carry` is not null), as in
+// csrc/sym_band_int8.cu: x carries the next shard's first hb blocks after
+// the shard's own nb, the row part of the last hb block rows multiplies
+// them (blocks with i+d >= nb are ordinary data inside a shard), and hb
+// more CTAs a cohort sum the mirror terms that land in the next shard's
+// block rows nb .. nb+hb-1 and write them to carry.
 //
 // Bound. 2*S flops per element read (S <= 4), against 2 to 8 bytes per
 // element: bytes from HBM bound it. The gather reads every off-diagonal
@@ -55,7 +62,8 @@ __device__ __forceinline__ double fma_acc(double a, double b, double c) { return
 template <typename T, int B, int S>
 __global__ void __launch_bounds__(B)
 sym_band_float_kernel(const T* __restrict__ upper, const T* __restrict__ x,
-                      typename AccOf<T>::type* __restrict__ y, int nb, int hb) {
+                      typename AccOf<T>::type* __restrict__ y,
+                      typename AccOf<T>::type* __restrict__ carry, int nb, int hb) {
   using A = typename AccOf<T>::type;
   constexpr int NW = B / 32;     // warps in the CTA
   __shared__ A xs[S * B];        // the x block of this step
@@ -67,9 +75,11 @@ sym_band_float_kernel(const T* __restrict__ upper, const T* __restrict__ x,
   const int lane = t & 31;
   const int warp = t >> 5;
   const int nslot = hb + 1;
+  const int nx = carry ? nb + hb : nb;  // x block rows: with the halo in the spill form
   const size_t M = static_cast<size_t>(nb) * B;
+  const size_t Mx = static_cast<size_t>(nx) * B;
   const T* uk = upper + static_cast<size_t>(k) * nb * nslot * B * B;
-  const T* xk = x + static_cast<size_t>(k) * S * M;
+  const T* xk = x + static_cast<size_t>(k) * S * Mx;
 
   A acc[S];                      // mirror-part sums of output column t
 #pragma unroll
@@ -83,13 +93,14 @@ sym_band_float_kernel(const T* __restrict__ upper, const T* __restrict__ x,
     const int d = mirror ? step - hb : step;
     const int src = mirror ? i - d : i;     // block row that stores the block
     const int xb = mirror ? i - d : i + d;  // x block it multiplies
-    if (xb < 0 || xb >= nb) continue;       // the same for every thread
+    // the same for every thread; src >= nb only for the carry's block rows
+    if (src < 0 || src >= nb || xb >= nx) continue;
     const T* g = uk + (static_cast<size_t>(src) * nslot + d) * B * B;
 
     __syncthreads();  // the previous step's readers of xs are done
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      xs[s * B + t] = to_acc(xk[s * M + static_cast<size_t>(xb) * B + t]);
+      xs[s * B + t] = to_acc(xk[s * Mx + static_cast<size_t>(xb) * B + t]);
     __syncthreads();
 
     if (!mirror) {
@@ -128,40 +139,54 @@ sym_band_float_kernel(const T* __restrict__ upper, const T* __restrict__ x,
   }
 
   __syncthreads();  // every warp's row sums are in ys
-  A* yk = y + static_cast<size_t>(k) * S * M + static_cast<size_t>(i) * B + t;
+  // block rows past nb are the carry (K, S, hb * B)
+  const size_t Mo = i < nb ? M : static_cast<size_t>(hb) * B;
+  A* ok = (i < nb ? y + static_cast<size_t>(i) * B : carry + static_cast<size_t>(i - nb) * B)
+          + static_cast<size_t>(k) * S * Mo + t;
 #pragma unroll
-  for (int s = 0; s < S; ++s) yk[s * M] = ys[s * B + t] + acc[s];
+  for (int s = 0; s < S; ++s) ok[s * Mo] = ys[s * B + t] + acc[s];
 }
 
 template <typename T, int B, int S>
-int launch(const void* upper, const void* x, void* y, int K, int nb, int hb,
+int launch(const void* upper, const void* x, void* y, void* carry, int K, int nb, int hb,
            cudaStream_t stream) {
   using A = typename AccOf<T>::type;
-  sym_band_float_kernel<T, B, S><<<dim3(nb, K), B, 0, stream>>>(
+  sym_band_float_kernel<T, B, S><<<dim3(carry ? nb + hb : nb, K), B, 0, stream>>>(
       static_cast<const T*>(upper), static_cast<const T*>(x),
-      static_cast<A*>(y), nb, hb);
+      static_cast<A*>(y), static_cast<A*>(carry), nb, hb);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, int B>
-int launch_s(const void* upper, const void* x, void* y, int K, int nb, int hb,
+int launch_s(const void* upper, const void* x, void* y, void* carry, int K, int nb, int hb,
              int S, cudaStream_t stream) {
   switch (S) {
-    case 1: return launch<T, B, 1>(upper, x, y, K, nb, hb, stream);
-    case 2: return launch<T, B, 2>(upper, x, y, K, nb, hb, stream);
-    case 3: return launch<T, B, 3>(upper, x, y, K, nb, hb, stream);
-    case 4: return launch<T, B, 4>(upper, x, y, K, nb, hb, stream);
+    case 1: return launch<T, B, 1>(upper, x, y, carry, K, nb, hb, stream);
+    case 2: return launch<T, B, 2>(upper, x, y, carry, K, nb, hb, stream);
+    case 3: return launch<T, B, 3>(upper, x, y, carry, K, nb, hb, stream);
+    case 4: return launch<T, B, 4>(upper, x, y, carry, K, nb, hb, stream);
     default: return -1;
   }
 }
 
 template <typename T>
-int launch_b(const void* upper, const void* x, void* y, int K, int nb, int hb,
+int launch_b(const void* upper, const void* x, void* y, void* carry, int K, int nb, int hb,
              int B, int S, cudaStream_t stream) {
   switch (B) {
-    case 64: return launch_s<T, 64>(upper, x, y, K, nb, hb, S, stream);
-    case 128: return launch_s<T, 128>(upper, x, y, K, nb, hb, S, stream);
-    case 256: return launch_s<T, 256>(upper, x, y, K, nb, hb, S, stream);
+    case 64: return launch_s<T, 64>(upper, x, y, carry, K, nb, hb, S, stream);
+    case 128: return launch_s<T, 128>(upper, x, y, carry, K, nb, hb, S, stream);
+    case 256: return launch_s<T, 256>(upper, x, y, carry, K, nb, hb, S, stream);
+    default: return -1;
+  }
+}
+
+int matvec(const void* upper, const void* x, void* y, void* carry, int K, int nb, int hb,
+           int B, int S, int dtype, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_b<bf16_t>(upper, x, y, carry, K, nb, hb, B, S, st);
+    case 1: return launch_b<float>(upper, x, y, carry, K, nb, hb, B, S, st);
+    case 2: return launch_b<double>(upper, x, y, carry, K, nb, hb, B, S, st);
     default: return -1;
   }
 }
@@ -176,11 +201,16 @@ int launch_b(const void* upper, const void* x, void* y, int K, int nb, int hb,
 extern "C" int sgv_sym_band_float_matvec(const void* upper, const void* x,
                                          void* y, int K, int nb, int hb, int B,
                                          int S, int dtype, void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_b<bf16_t>(upper, x, y, K, nb, hb, B, S, st);
-    case 1: return launch_b<float>(upper, x, y, K, nb, hb, B, S, st);
-    case 2: return launch_b<double>(upper, x, y, K, nb, hb, B, S, st);
-    default: return -1;
-  }
+  return matvec(upper, x, y, nullptr, K, nb, hb, B, S, dtype, stream);
+}
+
+// The spill form: upper of one shard's nb block rows, x (K, S, (nb+hb)*B)
+// with the halo, y (K, S, nb*B) and carry (K, S, hb*B) in y's type. With
+// hb = 0 nothing is written to carry (the caller's is one block of zeros).
+// Returns as above.
+extern "C" int sgv_sym_band_float_spill(const void* upper, const void* x, void* y,
+                                        void* carry, int K, int nb, int hb, int B,
+                                        int S, int dtype, void* stream) {
+  if (carry == nullptr) return -1;
+  return matvec(upper, x, y, carry, K, nb, hb, B, S, dtype, stream);
 }

@@ -2,7 +2,8 @@
 // (Hopper).
 //
 // Replaces sgvamp_tpu/ops/band_kernel.py::_sym_band_kernel_streamed, the
-// hybrid=True flavor (spill=False): the d=0 block as two int8 column halves
+// hybrid=True flavor (spill=False, and spill=True through the
+// second entry point): the d=0 block as two int8 column halves
 // in slots 0 and 1 (no mirror, x added back for the stripped unit
 // diagonal), diagonal d >= 1 as int4 in slot d+1, one f32 scale per block
 // row. The kernel, what it computes, its design and what bounds it (bytes
@@ -19,5 +20,15 @@
 extern "C" int sgv_sym_band_hybrid_matvec(const void* upper, const void* scales,
                                           const void* x, void* y, int K, int nb,
                                           int hb, int B, int S, void* stream) {
-  return sgv_packed::matvec<true>(upper, scales, x, y, K, nb, hb, B, S, stream);
+  return sgv_packed::matvec<true>(upper, scales, x, y, nullptr, K, nb, hb, B, S, stream);
+}
+
+// The spill form: upper and scales of one shard's nb block rows, x
+// (K, S, (nb+hb)*B) with the halo, y (K, S, nb*B) and carry (K, S, hb*B) f32
+// (sym_band_packed.cuh). Returns as above.
+extern "C" int sgv_sym_band_hybrid_spill(const void* upper, const void* scales,
+                                           const void* x, void* y, void* carry, int K,
+                                           int nb, int hb, int B, int S, void* stream) {
+  if (carry == nullptr) return -1;
+  return sgv_packed::matvec<true>(upper, scales, x, y, carry, K, nb, hb, B, S, stream);
 }

@@ -1,7 +1,8 @@
 // Symmetric block-banded matvec over int4 upper-triangle blocks (Hopper).
 //
 // Replaces sgvamp_tpu/ops/band_kernel.py::_sym_band_kernel_streamed, the
-// packed4=True flavor (spill=False): two 4-bit values a byte as contiguous
+// packed4=True flavor (spill=False, and spill=True through the
+// second entry point): two 4-bit values a byte as contiguous
 // column halves, one f32 scale per block row, the unit diagonal of the d=0
 // block stripped and x added back. The kernel, what it computes, its
 // design and what bounds it (bytes from HBM, about 8*S flops a byte; the
@@ -17,5 +18,15 @@
 extern "C" int sgv_sym_band_int4_matvec(const void* upper, const void* scales,
                                         const void* x, void* y, int K, int nb,
                                         int hb, int B, int S, void* stream) {
-  return sgv_packed::matvec<false>(upper, scales, x, y, K, nb, hb, B, S, stream);
+  return sgv_packed::matvec<false>(upper, scales, x, y, nullptr, K, nb, hb, B, S, stream);
+}
+
+// The spill form: upper and scales of one shard's nb block rows, x
+// (K, S, (nb+hb)*B) with the halo, y (K, S, nb*B) and carry (K, S, hb*B) f32
+// (sym_band_packed.cuh). Returns as above.
+extern "C" int sgv_sym_band_int4_spill(const void* upper, const void* scales,
+                                         const void* x, void* y, void* carry, int K,
+                                         int nb, int hb, int B, int S, void* stream) {
+  if (carry == nullptr) return -1;
+  return sgv_packed::matvec<false>(upper, scales, x, y, carry, K, nb, hb, B, S, stream);
 }

@@ -1,7 +1,8 @@
 // Symmetric block-banded matvec over int8 upper-triangle blocks (Hopper).
 //
 // Replaces sgvamp_tpu/ops/band_kernel.py::_sym_band_kernel_streamed, the
-// quantized flavor (quantized=True, spill=False).
+// quantized flavor (quantized=True), with spill=False and, through the
+// second entry point, with spill=True.
 //
 // What it computes, per cohort k and right-hand side s:
 //   y_i = sum_{d=0..hb, i+d<nb} sc[i,d]   * U[i,d]   @ x_{i+d}     (row part)
@@ -19,6 +20,18 @@
 // blocks U[i,0..hb], mirror blocks U[i-d,d] for d=1..hb), accumulates in
 // registers and writes y_i once. No atomics, no second pass, and the
 // result is the same bits on every run.
+//
+// Spill form (one shard of a sharded operator; `carry` is not null). upper
+// holds the shard's nb block rows, x its nb x blocks followed by the next
+// shard's first hb (the halo). Two things change. The row part of the last
+// hb block rows multiplies the halo where the whole operator ends: inside a
+// shard the blocks U[i,d] with i+d >= nb are ordinary data, so nothing past
+// the local end may be skipped. And hb more CTAs a cohort, for the output
+// block rows nb .. nb+hb-1 that belong to the next shard, sum the mirror
+// terms of this shard's blocks that land there (d > i-nb) and write them to
+// carry; the caller adds carry into the head of the next shard's y. Mirror
+// terms from the previous shard are not in y: they arrive as its carry. The
+// gather needs nothing else: no CTA waits for another in either form.
 //
 // Bound. About 4*S flops per int8 byte: far below where tensor cores
 // matter, so bytes from HBM bound it. The gather reads every off-diagonal
@@ -49,7 +62,7 @@ __global__ void __launch_bounds__(B)
 sym_band_int8_kernel(const int8_t* __restrict__ upper,
                      const float* __restrict__ scales,
                      const uint16_t* __restrict__ x,
-                     float* __restrict__ y, int nb, int hb) {
+                     float* __restrict__ y, float* __restrict__ carry, int nb, int hb) {
   constexpr int ROW = B + 16;    // padded shared-memory row, bytes
   constexpr int VEC = B / 16;    // 16-byte vectors per block row
   extern __shared__ __align__(16) unsigned char smem[];
@@ -60,10 +73,12 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper,
   const int k = blockIdx.y;
   const int t = threadIdx.x;
   const int nslot = hb + 1;
+  const int nx = carry ? nb + hb : nb;  // x block rows: with the halo in the spill form
   const size_t M = static_cast<size_t>(nb) * B;
+  const size_t Mx = static_cast<size_t>(nx) * B;
   const int8_t* uk = upper + static_cast<size_t>(k) * nb * nslot * B * B;
   const float* sk = scales + static_cast<size_t>(k) * nb * nslot;
-  const uint16_t* xk = x + static_cast<size_t>(k) * S * M;
+  const uint16_t* xk = x + static_cast<size_t>(k) * S * Mx;
 
   float acc[S];
 #pragma unroll
@@ -74,7 +89,8 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper,
     const int d = mirror ? step - hb : step;
     const int src = mirror ? i - d : i;     // block row that stores the block
     const int xb = mirror ? i - d : i + d;  // x block it multiplies
-    if (xb < 0 || xb >= nb) continue;       // the same for every thread
+    // the same for every thread; src >= nb only for the carry's block rows
+    if (src < 0 || src >= nb || xb >= nx) continue;
     const int4* g = reinterpret_cast<const int4*>(
         uk + (static_cast<size_t>(src) * nslot + d) * B * B);
 
@@ -86,7 +102,7 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper,
     }
 #pragma unroll
     for (int s = 0; s < S; ++s)
-      xs[s * B + t] = bf16_to_f32(xk[s * M + static_cast<size_t>(xb) * B + t]);
+      xs[s * B + t] = bf16_to_f32(xk[s * Mx + static_cast<size_t>(xb) * B + t]);
     __syncthreads();
 
     float part[S];
@@ -123,14 +139,17 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper,
     for (int s = 0; s < S; ++s) acc[s] += sc * part[s];
   }
 
-  float* yk = y + static_cast<size_t>(k) * S * M + static_cast<size_t>(i) * B + t;
+  // block rows past nb are the carry (K, S, hb * B)
+  const size_t Mo = i < nb ? M : static_cast<size_t>(hb) * B;
+  float* ok = (i < nb ? y + static_cast<size_t>(i) * B : carry + static_cast<size_t>(i - nb) * B)
+              + static_cast<size_t>(k) * S * Mo + t;
 #pragma unroll
-  for (int s = 0; s < S; ++s) yk[s * M] = acc[s];
+  for (int s = 0; s < S; ++s) ok[s * Mo] = acc[s];
 }
 
 template <int B, int S>
 int launch(const int8_t* upper, const float* scales, const uint16_t* x,
-           float* y, int K, int nb, int hb, cudaStream_t stream) {
+           float* y, float* carry, int K, int nb, int hb, cudaStream_t stream) {
   const int smem = B * (B + 16) + S * B * static_cast<int>(sizeof(float));
   auto kernel = sym_band_int8_kernel<B, S>;
   if (smem > 48 * 1024) {  // above the default limit (B=256) it must be asked for
@@ -138,18 +157,35 @@ int launch(const int8_t* upper, const float* scales, const uint16_t* x,
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<dim3(nb, K), B, smem, stream>>>(upper, scales, x, y, nb, hb);
+  kernel<<<dim3(carry ? nb + hb : nb, K), B, smem, stream>>>(upper, scales, x, y, carry, nb,
+                                                             hb);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int B>
 int launch_b(const int8_t* upper, const float* scales, const uint16_t* x,
-             float* y, int K, int nb, int hb, int S, cudaStream_t stream) {
+             float* y, float* carry, int K, int nb, int hb, int S, cudaStream_t stream) {
   switch (S) {
-    case 1: return launch<B, 1>(upper, scales, x, y, K, nb, hb, stream);
-    case 2: return launch<B, 2>(upper, scales, x, y, K, nb, hb, stream);
-    case 3: return launch<B, 3>(upper, scales, x, y, K, nb, hb, stream);
-    case 4: return launch<B, 4>(upper, scales, x, y, K, nb, hb, stream);
+    case 1: return launch<B, 1>(upper, scales, x, y, carry, K, nb, hb, stream);
+    case 2: return launch<B, 2>(upper, scales, x, y, carry, K, nb, hb, stream);
+    case 3: return launch<B, 3>(upper, scales, x, y, carry, K, nb, hb, stream);
+    case 4: return launch<B, 4>(upper, scales, x, y, carry, K, nb, hb, stream);
+    default: return -1;
+  }
+}
+
+int matvec(const void* upper, const void* scales, const void* x, void* y, void* carry,
+           int K, int nb, int hb, int B, int S, void* stream) {
+  const auto* u = static_cast<const int8_t*>(upper);
+  const auto* sc = static_cast<const float*>(scales);
+  const auto* xv = static_cast<const uint16_t*>(x);
+  auto* yv = static_cast<float*>(y);
+  auto* cv = static_cast<float*>(carry);
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (B) {
+    case 64: return launch_b<64>(u, sc, xv, yv, cv, K, nb, hb, S, st);
+    case 128: return launch_b<128>(u, sc, xv, yv, cv, K, nb, hb, S, st);
+    case 256: return launch_b<256>(u, sc, xv, yv, cv, K, nb, hb, S, st);
     default: return -1;
   }
 }
@@ -163,15 +199,16 @@ int launch_b(const int8_t* upper, const float* scales, const uint16_t* x,
 extern "C" int sgv_sym_band_int8_matvec(const void* upper, const void* scales,
                                         const void* x, void* y, int K, int nb,
                                         int hb, int B, int S, void* stream) {
-  const auto* u = static_cast<const int8_t*>(upper);
-  const auto* sc = static_cast<const float*>(scales);
-  const auto* xv = static_cast<const uint16_t*>(x);
-  auto* yv = static_cast<float*>(y);
-  auto st = static_cast<cudaStream_t>(stream);
-  switch (B) {
-    case 64: return launch_b<64>(u, sc, xv, yv, K, nb, hb, S, st);
-    case 128: return launch_b<128>(u, sc, xv, yv, K, nb, hb, S, st);
-    case 256: return launch_b<256>(u, sc, xv, yv, K, nb, hb, S, st);
-    default: return -1;
-  }
+  return matvec(upper, scales, x, y, nullptr, K, nb, hb, B, S, stream);
+}
+
+// The spill form: upper and scales of one shard's nb block rows, x
+// (K, S, (nb+hb)*B) with the halo, y (K, S, nb*B) and carry (K, S, hb*B) f32.
+// With hb = 0 nothing is written to carry (the caller's is one block of
+// zeros). Returns as above.
+extern "C" int sgv_sym_band_int8_spill(const void* upper, const void* scales,
+                                       const void* x, void* y, void* carry, int K,
+                                       int nb, int hb, int B, int S, void* stream) {
+  if (carry == nullptr) return -1;
+  return matvec(upper, scales, x, y, carry, K, nb, hb, B, S, stream);
 }

@@ -34,6 +34,14 @@
 // low nibble of byte column q and thread q >= B/2 the high nibble of byte
 // column q - B/2.
 //
+// Spill form (one shard of a sharded operator; `carry` is not null), as in
+// csrc/sym_band_int8.cu: x carries the next shard's first hb blocks after
+// the shard's own nb, the row part of the last hb block rows multiplies
+// them (slots with i+d >= nb are ordinary data inside a shard), and hb
+// more CTAs a cohort sum the mirror terms that land in the next shard's
+// block rows nb .. nb+hb-1, bf16(x * scale) rounding included, and write
+// them to carry.
+//
 // Bound. About 8*S flops per int4 byte (4*S per int8 byte of the hybrid's
 // d=0 halves): bytes from HBM bound it, the f32 scales (one per 64 to 128
 // bytes of a row) included. The gather reads every off-diagonal slot
@@ -69,7 +77,7 @@ __global__ void __launch_bounds__(B)
 sym_band_packed_kernel(const int8_t* __restrict__ upper,
                        const float* __restrict__ scales,
                        const uint16_t* __restrict__ x,
-                       float* __restrict__ y, int nb, int hb) {
+                       float* __restrict__ y, float* __restrict__ carry, int nb, int hb) {
   constexpr int BH = B / 2;       // bytes in a slot row
   constexpr int ROW = BH + 16;    // padded shared-memory row, bytes
   constexpr int VEC = BH / 16;    // 16-byte vectors per slot row
@@ -80,10 +88,12 @@ sym_band_packed_kernel(const int8_t* __restrict__ upper,
   const int k = blockIdx.y;
   const int t = threadIdx.x;
   const int nslot = hb + (HYBRID ? 2 : 1);
+  const int nx = carry ? nb + hb : nb;  // x block rows: with the halo in the spill form
   const size_t M = static_cast<size_t>(nb) * B;
+  const size_t Mx = static_cast<size_t>(nx) * B;
   const int8_t* uk = upper + static_cast<size_t>(k) * nb * nslot * B * BH;
   const float* sk = scales + static_cast<size_t>(k) * nb * nslot * B;
-  const uint16_t* xk = x + static_cast<size_t>(k) * S * M;
+  const uint16_t* xk = x + static_cast<size_t>(k) * S * Mx;
 
   float acc[S];
 #pragma unroll
@@ -94,7 +104,8 @@ sym_band_packed_kernel(const int8_t* __restrict__ upper,
     const int d = mirror ? step - hb : step;
     const int src = mirror ? i - d : i;     // block row that stores the block
     const int xb = mirror ? i - d : i + d;  // x block it multiplies
-    if (xb < 0 || xb >= nb) continue;       // the same for every thread
+    // the same for every thread; src >= nb only for the carry's block rows
+    if (src < 0 || src >= nb || xb >= nx) continue;
     const int slot = HYBRID ? (d == 0 ? 0 : d + 1) : d;
     const bool halves8 = HYBRID && d == 0;  // two int8 halves instead of nibbles
     const size_t slot0 = static_cast<size_t>(src) * nslot + slot;
@@ -115,7 +126,7 @@ sym_band_packed_kernel(const int8_t* __restrict__ upper,
       if (sub == 0) {
 #pragma unroll
         for (int s = 0; s < S; ++s) {
-          const float xv = bf16_to_f32(xk[s * M + static_cast<size_t>(xb) * B + t]);
+          const float xv = bf16_to_f32(xk[s * Mx + static_cast<size_t>(xb) * B + t]);
           xs[s * B + t] = mirror ? round_bf16(xv * sc) : xv;
         }
       }
@@ -174,45 +185,51 @@ sym_band_packed_kernel(const int8_t* __restrict__ upper,
     }
   }
 
-  float* yk = y + static_cast<size_t>(k) * S * M + static_cast<size_t>(i) * B + t;
+  // block rows past nb are the carry (K, S, hb * B)
+  const size_t Mo = i < nb ? M : static_cast<size_t>(hb) * B;
+  float* ok = (i < nb ? y + static_cast<size_t>(i) * B : carry + static_cast<size_t>(i - nb) * B)
+              + static_cast<size_t>(k) * S * Mo + t;
 #pragma unroll
-  for (int s = 0; s < S; ++s) yk[s * M] = acc[s];
+  for (int s = 0; s < S; ++s) ok[s * Mo] = acc[s];
 }
 
 template <int B, int S, bool HYBRID>
 int launch(const int8_t* upper, const float* scales, const uint16_t* x,
-           float* y, int K, int nb, int hb, cudaStream_t stream) {
-  sym_band_packed_kernel<B, S, HYBRID><<<dim3(nb, K), B, 0, stream>>>(
-      upper, scales, x, y, nb, hb);
+           float* y, float* carry, int K, int nb, int hb, cudaStream_t stream) {
+  sym_band_packed_kernel<B, S, HYBRID><<<dim3(carry ? nb + hb : nb, K), B, 0, stream>>>(
+      upper, scales, x, y, carry, nb, hb);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int B, bool HYBRID>
 int launch_s(const int8_t* upper, const float* scales, const uint16_t* x,
-             float* y, int K, int nb, int hb, int S, cudaStream_t stream) {
+             float* y, float* carry, int K, int nb, int hb, int S, cudaStream_t stream) {
   switch (S) {
-    case 1: return launch<B, 1, HYBRID>(upper, scales, x, y, K, nb, hb, stream);
-    case 2: return launch<B, 2, HYBRID>(upper, scales, x, y, K, nb, hb, stream);
-    case 3: return launch<B, 3, HYBRID>(upper, scales, x, y, K, nb, hb, stream);
-    case 4: return launch<B, 4, HYBRID>(upper, scales, x, y, K, nb, hb, stream);
+    case 1: return launch<B, 1, HYBRID>(upper, scales, x, y, carry, K, nb, hb, stream);
+    case 2: return launch<B, 2, HYBRID>(upper, scales, x, y, carry, K, nb, hb, stream);
+    case 3: return launch<B, 3, HYBRID>(upper, scales, x, y, carry, K, nb, hb, stream);
+    case 4: return launch<B, 4, HYBRID>(upper, scales, x, y, carry, K, nb, hb, stream);
     default: return -1;
   }
 }
 
 // cudaGetLastError() after the launch, or -1 for a block size or S the
-// kernel is not built for.
+// kernel is not built for. carry: null for the whole operator, else the
+// spill form's (K, S, hb*B) f32 output (with hb = 0 nothing is written to
+// it), and x is then (K, S, (nb+hb)*B).
 template <bool HYBRID>
-int matvec(const void* upper, const void* scales, const void* x, void* y,
+int matvec(const void* upper, const void* scales, const void* x, void* y, void* carry,
            int K, int nb, int hb, int B, int S, void* stream) {
   const auto* u = static_cast<const int8_t*>(upper);
   const auto* sc = static_cast<const float*>(scales);
   const auto* xv = static_cast<const uint16_t*>(x);
   auto* yv = static_cast<float*>(y);
+  auto* cv = static_cast<float*>(carry);
   auto st = static_cast<cudaStream_t>(stream);
   switch (B) {
-    case 64: return launch_s<64, HYBRID>(u, sc, xv, yv, K, nb, hb, S, st);
-    case 128: return launch_s<128, HYBRID>(u, sc, xv, yv, K, nb, hb, S, st);
-    case 256: return launch_s<256, HYBRID>(u, sc, xv, yv, K, nb, hb, S, st);
+    case 64: return launch_s<64, HYBRID>(u, sc, xv, yv, cv, K, nb, hb, S, st);
+    case 128: return launch_s<128, HYBRID>(u, sc, xv, yv, cv, K, nb, hb, S, st);
+    case 256: return launch_s<256, HYBRID>(u, sc, xv, yv, cv, K, nb, hb, S, st);
     default: return -1;
   }
 }

@@ -267,6 +267,7 @@ struct Args {
   void* y;
   int K, nb, hb, G;
   cudaStream_t stream;
+  void* carry = nullptr;  // the spill form's second output (sym_slab_streamed.cu)
 };
 
 template <template <typename, int, int> class Launch, typename T, int B>
@@ -305,16 +306,24 @@ int dispatch(const Args& a, int B, int S, int dtype) {
   }
 }
 
-// Launches `kernel` with G warps a CTA over (ceil(nb / G), K) CTAs and
-// `smem` bytes of dynamic shared memory.
-template <typename T, typename A, typename Kernel>
-int launch_rows(Kernel kernel, const Args& a, size_t smem) {
+// Asks for `smem` bytes of dynamic shared memory for `kernel`: 0, -2 when a
+// CTA cannot have that much, or the CUDA error.
+template <typename Kernel>
+int reserve_shared(Kernel kernel, size_t smem) {
   if (smem > static_cast<size_t>(kMaxSharedBytes)) return -2;
   if (smem > 48 * 1024) {  // above the default limit it must be asked for
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
+  return 0;
+}
+
+// Launches `kernel` with G warps a CTA over (ceil(nb / G), K) CTAs and
+// `smem` bytes of dynamic shared memory.
+template <typename T, typename A, typename Kernel>
+int launch_rows(Kernel kernel, const Args& a, size_t smem) {
+  if (const int err = reserve_shared(kernel, smem)) return err;
   kernel<<<dim3((a.nb + a.G - 1) / a.G, a.K), 32 * a.G, smem, a.stream>>>(
       static_cast<const T*>(a.upper), static_cast<const T*>(a.x), static_cast<A*>(a.y),
       a.nb, a.hb, a.G);

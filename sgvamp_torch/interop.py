@@ -57,6 +57,20 @@ def banded_from_numpy(blocks: np.ndarray, s: float = 0.0, accum_dtype: str = "",
                     accum_dtype=accum_dtype)
 
 
+def mesh_like(shape, device=None):
+    """The port's mesh for a JAX mesh's shape: `shape` is its
+    {axis name: size} mapping (dict(jax_mesh.shape)) or a (n_cohort,
+    n_shard) pair. device: the one device every cell takes (tests on the
+    CPU pass "cpu"); None: the visible CUDA cards, round-robin."""
+    from sgvamp_torch.parallel.sharding import COHORT_AXIS, SHARD_AXIS, make_mesh
+
+    if isinstance(shape, Mapping):
+        shape = (shape[COHORT_AXIS], shape[SHARD_AXIS])
+    n_cohort, n_shard = (int(v) for v in shape)
+    devices = None if device is None else [torch.device(device)] * (n_cohort * n_shard)
+    return make_mesh(n_cohort, n_shard, devices=devices)
+
+
 def inputs_from_numpy(op, r: np.ndarray, a: np.ndarray, N: np.ndarray,
                       mask: Optional[np.ndarray] = None,
                       dtype: torch.dtype = torch.float32,

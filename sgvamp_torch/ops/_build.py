@@ -27,22 +27,34 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# entry point and argument types of each library: pointers (the stream
+_QUANT = [_P] * 4 + [_I] * 5 + [_P]
+_FLOAT = [_P] * 3 + [_I] * 6 + [_P]
+_ROWS = [_P] * 3 + [_I] * 7 + [_P]
+
+
+def _spill(argtypes: list, n_in: int) -> list:
+    """The spill form's signature: one more pointer, carry, after y."""
+    return argtypes[:n_in + 1] + [_P] + argtypes[n_in + 1:]
+
+
+# entry points and argument types of each library: pointers (the stream
 # last) as c_void_p, or ctypes passes them as 32-bit ints
 ENTRY_POINTS = {
-    # upper, scales, x, y, K, nb, hb, B, S, stream
-    "sym_band_int8": ("sgv_sym_band_int8_matvec", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "sym_band_int4": ("sgv_sym_band_int4_matvec", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    "sym_band_hybrid": ("sgv_sym_band_hybrid_matvec", [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
-    # upper, x, y, K, nb, hb, B, S, dtype code, stream
-    "sym_band_float": ("sgv_sym_band_float_matvec", [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P]),
-    # upper, x, y, K, nb, hb, B, S, block rows a CTA, dtype code, stream
-    "sym_slab_streamed": ("sgv_sym_slab_streamed_matvec",
-                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "sym_band_resident": ("sgv_sym_band_resident_matvec",
-                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
-    "sym_slab_resident": ("sgv_sym_slab_resident_matvec",
-                          [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
+    # upper, scales, x, y, [carry,] K, nb, hb, B, S, stream
+    "sym_band_int8": {"sgv_sym_band_int8_matvec": _QUANT,
+                      "sgv_sym_band_int8_spill": _spill(_QUANT, 3)},
+    "sym_band_int4": {"sgv_sym_band_int4_matvec": _QUANT,
+                      "sgv_sym_band_int4_spill": _spill(_QUANT, 3)},
+    "sym_band_hybrid": {"sgv_sym_band_hybrid_matvec": _QUANT,
+                        "sgv_sym_band_hybrid_spill": _spill(_QUANT, 3)},
+    # upper, x, y, [carry,] K, nb, hb, B, S, dtype code, stream
+    "sym_band_float": {"sgv_sym_band_float_matvec": _FLOAT,
+                       "sgv_sym_band_float_spill": _spill(_FLOAT, 2)},
+    # upper, x, y, [carry,] K, nb, hb, B, S, block rows a CTA, dtype code, stream
+    "sym_slab_streamed": {"sgv_sym_slab_streamed_matvec": _ROWS,
+                          "sgv_sym_slab_streamed_spill": _spill(_ROWS, 2)},
+    "sym_band_resident": {"sgv_sym_band_resident_matvec": _ROWS},
+    "sym_slab_resident": {"sgv_sym_slab_resident_matvec": _ROWS},
 }
 
 
@@ -111,10 +123,10 @@ def build() -> dict:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, with its entry point's
-    signature set."""
+    """The built library of csrc/<name>.cu, with its entry points'
+    signatures set."""
     lib = ctypes.CDLL(build()[name])
-    entry, argtypes = ENTRY_POINTS[name]
-    getattr(lib, entry).argtypes = argtypes
-    getattr(lib, entry).restype = _I
+    for entry, argtypes in ENTRY_POINTS[name].items():
+        getattr(lib, entry).argtypes = argtypes
+        getattr(lib, entry).restype = _I
     return lib

@@ -44,15 +44,28 @@ sgvamp_tpu/ops/band_kernel.py; see the sources' headers for their design.
   sym_band_matvec_window      csrc/sym_band_resident.cu   _sym_band_kernel, window=True
   sym_slab_matvec_resident    csrc/sym_slab_resident.cu   _sym_slab_kernel
 
-The sharded matvec (SymBandedLD.mesh in the TPU package, with the
-spill=True variants of the two streamed kernels) is not ported yet
-(ROADMAP A14, B4).
+The sharded matvec. An operator that parallel/sharding.py::shard_inputs
+has cut over a (cohort, shard) mesh holds one piece per mesh cell (its
+block rows nb/n at a time, on the cell's device) and runs
+SymBandedLD._matvec_sharded: each cell gets its slice of x with the next
+cell's first hb blocks appended (the halo), runs the SPILL form of its
+streamed kernel, which returns (y_l, carry) - carry being the mirror terms
+of the cell's blocks that land in the next cell's first hb block rows - and
+the caller adds each carry into the head of the next cell's y_l. The spill
+forms are second entry points of the same sources (spill=True in the TPU
+kernels), with wrappers, plain versions and launch counts of their own:
+
+  sym_band_matvec_int8_spill      csrc/sym_band_int8.cu
+  sym_band_matvec_spill           csrc/sym_band_float.cu
+  sym_band_matvec_int4_spill      csrc/sym_band_int4.cu
+  sym_band_matvec_hybrid_spill    csrc/sym_band_hybrid.cu
+  sym_slab_matvec_streamed_spill  csrc/sym_slab_streamed.cu
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -69,13 +82,23 @@ _FLOAT_NAMES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
 # plain PyTorch versions
 # ---------------------------------------------------------------------------
 
-def _band_sum(xb: Tensor, hb: int, rowpart: Callable, mirpart: Callable) -> Tensor:
+def _band_sum(xb: Tensor, hb: int, rowpart: Callable, mirpart: Callable,
+              halo: Optional[Tensor] = None):
     """y_i = sum_d rowpart(d, x_{i+d}) + sum_{d>=1} mirpart(d, x_{i-d})[i-d].
 
     xb (K, S, nb, B); rowpart(d, xw) and mirpart(d, xb) return (K, S, nb, B)
-    contributions indexed by the block row that STORES the block."""
+    contributions indexed by the block row that STORES the block.
+
+    halo None: the whole operator; x past its end is zeros and mirror terms
+    past it are dropped. halo (K, S, hb, B), the next shard's first hb x
+    blocks: the spill form of one shard. The row part reads the halo, and
+    the mirror terms that land past the local end, block (i, d) into row
+    i + d - nb, are summed into a carry: returns (y, carry (K, S,
+    max(hb, 1)*B))."""
     K, S, nb, B = xb.shape
-    xpad = torch.cat([xb, xb.new_zeros(K, S, hb, B)], dim=2)
+    spill = halo is not None
+    xpad = torch.cat([xb, halo if spill else xb.new_zeros(K, S, hb, B)], dim=2)
+    carry = xb.new_zeros(K, S, max(hb, 1), B)
     y = None
     for d in range(hb + 1):
         row = rowpart(d, xpad[:, :, d:d + nb])
@@ -83,7 +106,39 @@ def _band_sum(xb: Tensor, hb: int, rowpart: Callable, mirpart: Callable) -> Tens
         if d:
             mir = mirpart(d, xb)
             y[:, :, d:] += mir[:, :, :nb - d]
-    return y.reshape(K, S, nb * B)
+            carry[:, :, :d] += mir[:, :, nb - d:]
+    y = y.reshape(K, S, nb * B)
+    return (y, carry.reshape(K, S, -1)) if spill else y
+
+
+def _own_and_halo(x: Tensor, nb: int, hb: int, B: int, spill: bool) -> tuple:
+    """(x as (K, S, nb, B) blocks, halo): halo None for the whole operator,
+    else the (K, S, hb, B) blocks that follow the shard's own in a
+    halo-extended x. What lies past the halo is ignored (the JAX package
+    pads the halo to a whole chunk of its kernel)."""
+    K, S = x.shape[:2]
+    own = x[:, :, :nb * B].reshape(K, S, nb, B)
+    if not spill:
+        return own, None
+    return own, x[:, :, nb * B:(nb + hb) * B].reshape(K, S, hb, B)
+
+
+def _int8_ref(upper: Tensor, scales: Tensor, x: Tensor, spill: bool):
+    K, nb, nslot, B, _ = upper.shape
+    xb, halo = _own_and_halo(x.float(), nb, nslot - 1, B, spill)
+
+    def scale(d):                                        # (K, 1, nb, 1)
+        return scales[:, None, :, d, None]
+
+    def rowpart(d, xw):
+        # y_i[p] += sc[i,d] sum_q U[i,d][p,q] x_{i+d}[q]
+        return scale(d) * torch.einsum("knpq,ksnq->ksnp", upper[:, :, d].float(), xw)
+
+    def mirpart(d, xs):
+        # y_{i+d}[q] += sc[i,d] sum_p U[i,d][p,q] x_i[p]
+        return scale(d) * torch.einsum("knpq,ksnp->ksnq", upper[:, :, d].float(), xs)
+
+    return _band_sum(xb, nslot - 1, rowpart, mirpart, halo)
 
 
 def sym_band_matvec_int8_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
@@ -93,28 +148,21 @@ def sym_band_matvec_int8_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor
     bf16 -> y (K, S, nb*B) f32. Each block's dot is taken in f32 and then
     scaled, as in the kernel.
     """
-    K, nb, nslot, B, _ = upper.shape
-    S = x.shape[1]
-    hb = nslot - 1
-    xb = x.float().reshape(K, S, nb, B)
-    xpad = torch.cat([xb, xb.new_zeros(K, S, hb, B)], dim=2)
-    y = xb.new_zeros(K, S, nb, B)
-    for d in range(hb + 1):
-        U = upper[:, :, d].float()                       # (K, nb, B, B)
-        sc = scales[:, None, :, d, None]                 # (K, 1, nb, 1)
-        # row part: y_i[p] += sc[i,d] sum_q U[i,d][p,q] x_{i+d}[q]
-        y += sc * torch.einsum("knpq,ksnq->ksnp", U, xpad[:, :, d:d + nb])
-        if d:
-            # mirror part: y_{i+d}[q] += sc[i,d] sum_p U[i,d][p,q] x_i[p]
-            mir = sc * torch.einsum("knpq,ksnp->ksnq", U, xb)
-            y[:, :, d:] += mir[:, :, :nb - d]
-    return y.reshape(K, S, nb * B)
+    return _int8_ref(upper, scales, x, spill=False)
 
 
-def _diag_ref(upper: Tensor, x: Tensor) -> Tensor:
+def sym_band_matvec_int8_spill_ref(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
+    """Plain PyTorch version of the int8 kernel's spill form: one shard's
+    (y_l (K, S, nb*B), carry (K, S, max(hb, 1)*B)) in f32 from its nb block
+    rows and x (K, S, (nb+hb)*B or longer) bf16, the shard's x followed by
+    the next shard's first hb blocks (_band_sum)."""
+    return _int8_ref(upper, scales, x, spill=True)
+
+
+def _diag_ref(upper: Tensor, x: Tensor, spill: bool = False):
     K, nb, nslot, B, _ = upper.shape
     acc = torch.promote_types(upper.dtype, torch.float32)
-    xb = x.to(acc).reshape(K, x.shape[1], nb, B)
+    xb, halo = _own_and_halo(x.to(acc), nb, nslot - 1, B, spill)
 
     def rowpart(d, xw):
         return torch.einsum("knpq,ksnq->ksnp", upper[:, :, d].to(acc), xw)
@@ -122,7 +170,7 @@ def _diag_ref(upper: Tensor, x: Tensor) -> Tensor:
     def mirpart(d, xs):
         return torch.einsum("knpq,ksnp->ksnq", upper[:, :, d].to(acc), xs)
 
-    return _band_sum(xb, nslot - 1, rowpart, mirpart)
+    return _band_sum(xb, nslot - 1, rowpart, mirpart, halo)
 
 
 def sym_band_matvec_ref(upper: Tensor, x: Tensor) -> Tensor:
@@ -136,27 +184,40 @@ def sym_band_matvec_ref(upper: Tensor, x: Tensor) -> Tensor:
     return _diag_ref(upper, x)
 
 
-def _x_windows(xb: Tensor, hb: int) -> Tensor:
-    """(K, S, nb, B) -> (K, S, nb, (hb+1)*B): row i holds x_i .. x_{i+hb},
-    zeros past the end (a view of the zero-padded x)."""
+def sym_band_matvec_spill_ref(upper: Tensor, x: Tensor) -> tuple:
+    """Plain PyTorch version of the float-block kernel's spill form: one
+    shard's (y_l, carry) in f32 (f64 for f64 blocks) from its nb block rows
+    and x (K, S, (nb+hb)*B or longer) in the block dtype, halo included
+    (_band_sum)."""
+    return _diag_ref(upper, x, spill=True)
+
+
+def _x_windows(xb: Tensor, hb: int, halo: Optional[Tensor] = None) -> Tensor:
+    """(K, S, nb, B) -> (K, S, nb, (hb+1)*B): row i holds x_i .. x_{i+hb};
+    past the end zeros, or the (K, S, hb, B) halo (a view of the padded x)."""
     K, S, nb, B = xb.shape
-    xpad = torch.cat([xb, xb.new_zeros(K, S, hb, B)], dim=2)
+    xpad = torch.cat([xb, xb.new_zeros(K, S, hb, B) if halo is None else halo], dim=2)
     return xpad.reshape(K, S, (nb + hb) * B).unfold(2, (hb + 1) * B, B)
 
 
-def _slab_ref(upper: Tensor, x: Tensor) -> Tensor:
+def _slab_ref(upper: Tensor, x: Tensor, spill: bool = False):
     K, nb, rows, B = upper.shape
     hb = rows // B - 1
+    S = x.shape[1]
     acc = torch.promote_types(upper.dtype, torch.float32)
-    xb = x.to(acc).reshape(K, x.shape[1], nb, B)
+    xb, halo = _own_and_halo(x.to(acc), nb, hb, B, spill)
     T = upper.to(acc)
     # row part: y_i[p] = sum_w T_i[w, p] xwin_i[w], one product per block row
-    y = torch.einsum("knwp,ksnw->ksnp", T, _x_windows(xb, hb))
+    y = torch.einsum("knwp,ksnw->ksnp", T, _x_windows(xb, hb, halo))
+    carry = xb.new_zeros(K, S, max(hb, 1), B)
     for d in range(1, hb + 1):
-        # mirror part: y_{i+d}[q] += sum_p T_i[d*B + q, p] x_i[p]
+        # mirror part: y_{i+d}[q] += sum_p T_i[d*B + q, p] x_i[p]; past the
+        # local end it lands in the carry (the spill form, see _band_sum)
         mir = torch.einsum("knqp,ksnp->ksnq", T[:, :, d * B:(d + 1) * B], xb)
         y[:, :, d:] += mir[:, :, :nb - d]
-    return y.reshape(K, x.shape[1], nb * B)
+        carry[:, :, :d] += mir[:, :, nb - d:]
+    y = y.reshape(K, S, nb * B)
+    return (y, carry.reshape(K, S, -1)) if spill else y
 
 
 def sym_slab_matvec_streamed_ref(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
@@ -170,6 +231,16 @@ def sym_slab_matvec_streamed_ref(upper: Tensor, rows_per_step: int, x: Tensor) -
     their last axis. rows_per_step is checked and otherwise unused."""
     _gather_rows(upper, x.shape[1], rows_per_step)
     return _slab_ref(upper, x)
+
+
+def sym_slab_matvec_streamed_spill_ref(upper: Tensor, rows_per_step: int, x: Tensor) -> tuple:
+    """Plain PyTorch version of the streamed slab kernel's spill form: one
+    shard's (y_l, carry) from its nb slabs and x (K, S, (nb+hb)*B or longer)
+    in the block dtype, halo included. The window of the last hb block rows
+    reaches into the halo; the mirror terms past the local end are the
+    carry (K, S, max(hb, 1)*B)."""
+    _gather_rows(upper, x.shape[1], rows_per_step)
+    return _slab_ref(upper, x, spill=True)
 
 
 def sym_slab_matvec_resident_ref(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
@@ -234,10 +305,11 @@ def _unpack4(packed: Tensor):
     return lo.float(), hi.float()
 
 
-def _packed_ref(upper: Tensor, scales: Tensor, x: Tensor, hybrid: bool) -> Tensor:
+def _packed_ref(upper: Tensor, scales: Tensor, x: Tensor, hybrid: bool,
+                spill: bool = False):
     K, nb, nslot, B, Bh = upper.shape
     hb = nslot - (2 if hybrid else 1)
-    xb = x.float().reshape(K, x.shape[1], nb, B)
+    xb, halo = _own_and_halo(x.float(), nb, hb, B, spill)
 
     def halves(d):
         if hybrid and d == 0:   # int8 column halves in slots 0, 1
@@ -264,7 +336,7 @@ def _packed_ref(upper: Tensor, scales: Tensor, x: Tensor, hybrid: bool) -> Tenso
         return torch.cat([torch.einsum("knpj,ksnp->ksnj", lo, xsc),
                           torch.einsum("knpj,ksnp->ksnj", hi, xsc)], dim=-1)
 
-    return _band_sum(xb, hb, rowpart, mirpart)
+    return _band_sum(xb, hb, rowpart, mirpart, halo)
 
 
 def sym_band_matvec_int4_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
@@ -277,6 +349,14 @@ def sym_band_matvec_int4_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor
     return _packed_ref(upper, scales, x, hybrid=False)
 
 
+def sym_band_matvec_int4_spill_ref(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
+    """Plain PyTorch version of the int4 kernel's spill form: one shard's
+    (y_l, carry) in f32 from its nb block rows and x (K, S, (nb+hb)*B or
+    longer) bf16, halo included; the carry's mirror terms round
+    bf16(x * scale) as all mirror terms do."""
+    return _packed_ref(upper, scales, x, hybrid=False, spill=True)
+
+
 def sym_band_matvec_hybrid_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
     """Plain PyTorch version of the hybrid kernel.
 
@@ -286,13 +366,35 @@ def sym_band_matvec_hybrid_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tens
     return _packed_ref(upper, scales, x, hybrid=True)
 
 
+def sym_band_matvec_hybrid_spill_ref(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
+    """Plain PyTorch version of the hybrid kernel's spill form: one shard's
+    (y_l, carry) in f32, as sym_band_matvec_int4_spill_ref."""
+    return _packed_ref(upper, scales, x, hybrid=True, spill=True)
+
+
 # ---------------------------------------------------------------------------
 # wrappers: the CUDA kernel on a CUDA tensor, the plain version on the CPU
 # ---------------------------------------------------------------------------
 
-def _check_x(x: Tensor, K: int, M: int, dtype: torch.dtype) -> None:
-    if x.dtype != dtype or x.dim() != 3 or x.shape[0] != K or x.shape[2] != M:
-        raise ValueError(f"x must be ({K}, S, {M}) {str(dtype).split('.')[-1]}")
+def _check_x(x: Tensor, K: int, nb: int, hb: int, B: int, dtype: torch.dtype,
+             spill: bool = False) -> Tensor:
+    """x as the kernel takes it. The whole operator: (K, S, nb*B). The
+    spill form: (K, S, (nb+hb)*B), the shard's x and the halo; a longer x
+    is cut there (the JAX package pads the halo to a whole chunk of its
+    kernel), and a shard narrower than hb is refused, since halo and carry
+    reach one neighbour only."""
+    name = str(dtype).split(".")[-1]
+    if not spill:
+        if x.dtype != dtype or x.dim() != 3 or x.shape[0] != K or x.shape[2] != nb * B:
+            raise ValueError(f"x must be ({K}, S, {nb * B}) {name}")
+        return x
+    if nb < hb:
+        raise ValueError(f"the spill form needs a shard of at least hb={hb} block rows, got {nb}")
+    Mx = (nb + hb) * B
+    if x.dtype != dtype or x.dim() != 3 or x.shape[0] != K or x.shape[2] < Mx:
+        raise ValueError(f"x must be ({K}, S, {Mx} or more: the shard's x and a halo of "
+                         f"{hb} blocks) {name}")
+    return x if x.shape[2] == Mx else x[:, :, :Mx].contiguous()
 
 
 def _check_quantized(upper: Tensor, scales: Tensor, x: Tensor,
@@ -306,30 +408,55 @@ def _check_quantized(upper: Tensor, scales: Tensor, x: Tensor,
         raise ValueError("upper, scales and x must be on one device")
 
 
-def _launch(wrapper, library: str, entry: str, x: Tensor, tensors, dims,
-            B: int, out_dtype: torch.dtype) -> Tensor:
+def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
+            out_dtype: torch.dtype, spill_hb: Optional[int] = None):
     """Launch one band kernel on x's CUDA device and count the launch on
     `wrapper`. tensors: the device arrays before y in the C signature;
-    dims: the ints after y."""
+    dims: the ints after the outputs. spill_hb None: the library's
+    `matvec` entry, returns y shaped as x. spill_hb = hb: its `spill`
+    entry over a halo-extended x, returns (y_l, carry)."""
     if x.device.type != "cuda":
         raise ValueError(f"no band kernel for device {x.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("upper, scales and x must be contiguous")
-    S = x.shape[1]
+    K, S, Mx = x.shape
     if B not in (64, 128, 256) or not 1 <= S <= 4:
         raise ValueError(f"the band kernels take B in (64, 128, 256) and "
                          f"S in 1..4, got B={B}, S={S}")
     from sgvamp_torch.ops._build import load_library
 
-    y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
+    if spill_hb is None:
+        entry = f"sgv_{library}_matvec"
+        outs = (torch.empty(x.shape, dtype=out_dtype, device=x.device),)
+    else:
+        entry = f"sgv_{library}_spill"
+        y = torch.empty((K, S, Mx - spill_hb * B), dtype=out_dtype, device=x.device)
+        # the kernel writes all of the carry, except that hb = 0 has none
+        carry = (torch.empty((K, S, spill_hb * B), dtype=out_dtype, device=x.device)
+                 if spill_hb else torch.zeros((K, S, B), dtype=out_dtype, device=x.device))
+        outs = (y, carry)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(load_library(library), entry)(
-            *[t.data_ptr() for t in tensors], y.data_ptr(), *dims, stream)
+            *[t.data_ptr() for t in tensors], *[o.data_ptr() for o in outs], *dims, stream)
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed (error {err})")
     wrapper.launches += 1
-    return y
+    return outs[0] if spill_hb is None else outs
+
+
+def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool):
+    """The int8 wrappers' body: `plain` on CPU tensors, else the kernel,
+    counted on `wrapper`."""
+    _check_quantized(upper, scales, x, lambda u: u.shape[-1] == u.shape[-2],
+                     lambda u: tuple(u.shape[:3]), "(K, nb, hb+1, B, B)")
+    K, nb, nslot, B, _ = upper.shape
+    hb = nslot - 1
+    x = _check_x(x, K, nb, hb, B, torch.bfloat16, spill)
+    if x.device.type == "cpu":
+        return plain(upper, scales, x)
+    return _launch(wrapper, "sym_band_int8", x, (upper, scales, x),
+                   (K, nb, hb, B, x.shape[1]), B, torch.float32, hb if spill else None)
 
 
 def sym_band_matvec_int8(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
@@ -339,69 +466,95 @@ def sym_band_matvec_int8(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
     the plain version. `sym_band_matvec_int8.launches` counts kernel
     launches.
     """
-    _check_quantized(upper, scales, x, lambda u: u.shape[-1] == u.shape[-2],
-                     lambda u: tuple(u.shape[:3]), "(K, nb, hb+1, B, B)")
-    K, nb, nslot, B, _ = upper.shape
-    _check_x(x, K, nb * B, torch.bfloat16)
+    return _int8(sym_band_matvec_int8, sym_band_matvec_int8_ref, upper, scales, x, False)
+
+
+def sym_band_matvec_int8_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
+    """One shard's (y_l, carry); arguments as for
+    sym_band_matvec_int8_spill_ref. `sym_band_matvec_int8_spill.launches`
+    counts kernel launches."""
+    return _int8(sym_band_matvec_int8_spill, sym_band_matvec_int8_spill_ref, upper, scales, x,
+                 True)
+
+
+def _float(wrapper, plain, upper: Tensor, x: Tensor, spill: bool):
+    """As _int8, for the float-block wrappers of the diag layout."""
+    x = _check_float(upper, x, slab=False, spill=spill)
+    K, nb, hb, B = _geometry(upper)
     if x.device.type == "cpu":
-        return sym_band_matvec_int8_ref(upper, scales, x)
-    return _launch(sym_band_matvec_int8, "sym_band_int8", "sgv_sym_band_int8_matvec",
-                   x, (upper, scales, x), (K, nb, nslot - 1, B, x.shape[1]), B,
-                   torch.float32)
+        return plain(upper, x)
+    return _launch(wrapper, "sym_band_float", x, (upper, x),
+                   (K, nb, hb, B, x.shape[1], _FLOAT_CODES[upper.dtype]), B,
+                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None)
 
 
 def sym_band_matvec(upper: Tensor, x: Tensor) -> Tensor:
     """y = R x per cohort over float blocks; arguments as for
     sym_band_matvec_ref. `sym_band_matvec.launches` counts kernel launches."""
-    if (upper.dtype not in _FLOAT_CODES or upper.dim() != 5
-            or upper.shape[-1] != upper.shape[-2]):
-        raise ValueError("upper must be (K, nb, hb+1, B, B) bfloat16, float32 "
-                         "or float64")
-    K, nb, nslot, B, _ = upper.shape
-    _check_x(x, K, nb * B, upper.dtype)
-    if upper.device != x.device:
-        raise ValueError("upper and x must be on one device")
-    if x.device.type == "cpu":
-        return sym_band_matvec_ref(upper, x)
-    return _launch(sym_band_matvec, "sym_band_float", "sgv_sym_band_float_matvec",
-                   x, (upper, x),
-                   (K, nb, nslot - 1, B, x.shape[1], _FLOAT_CODES[upper.dtype]), B,
-                   torch.promote_types(upper.dtype, torch.float32))
+    return _float(sym_band_matvec, sym_band_matvec_ref, upper, x, False)
+
+
+def sym_band_matvec_spill(upper: Tensor, x: Tensor) -> tuple:
+    """One shard's (y_l, carry) over float blocks; arguments as for
+    sym_band_matvec_spill_ref. `sym_band_matvec_spill.launches` counts
+    kernel launches."""
+    return _float(sym_band_matvec_spill, sym_band_matvec_spill_ref, upper, x, True)
 
 
 def _half_blocks(u: Tensor) -> bool:
     return u.shape[-2] == 2 * u.shape[-1]
 
 
+def _packed(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, hybrid: bool,
+            spill: bool):
+    """As _int8, for the int4 and the hybrid wrappers."""
+    if hybrid:
+        _check_quantized(upper, scales, x,
+                         lambda u: _half_blocks(u) and u.shape[2] >= 2,
+                         lambda u: tuple(u.shape[:4]), "(K, nb, hb+2, B, B/2)")
+    else:
+        _check_quantized(upper, scales, x, _half_blocks, lambda u: tuple(u.shape[:4]),
+                         "(K, nb, hb+1, B, B/2)")
+    K, nb, nslot, B, _ = upper.shape
+    hb = nslot - (2 if hybrid else 1)
+    x = _check_x(x, K, nb, hb, B, torch.bfloat16, spill)
+    if x.device.type == "cpu":
+        return plain(upper, scales, x)
+    return _launch(wrapper, "sym_band_hybrid" if hybrid else "sym_band_int4", x,
+                   (upper, scales, x), (K, nb, hb, B, x.shape[1]), B, torch.float32,
+                   hb if spill else None)
+
+
 def sym_band_matvec_int4(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
     """y = R x per cohort over int4 blocks; arguments as for
     sym_band_matvec_int4_ref. `sym_band_matvec_int4.launches` counts kernel
     launches."""
-    _check_quantized(upper, scales, x, _half_blocks, lambda u: tuple(u.shape[:4]),
-                     "(K, nb, hb+1, B, B/2)")
-    K, nb, nslot, B, _ = upper.shape
-    _check_x(x, K, nb * B, torch.bfloat16)
-    if x.device.type == "cpu":
-        return sym_band_matvec_int4_ref(upper, scales, x)
-    return _launch(sym_band_matvec_int4, "sym_band_int4", "sgv_sym_band_int4_matvec",
-                   x, (upper, scales, x), (K, nb, nslot - 1, B, x.shape[1]), B,
-                   torch.float32)
+    return _packed(sym_band_matvec_int4, sym_band_matvec_int4_ref, upper, scales, x,
+                   False, False)
+
+
+def sym_band_matvec_int4_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
+    """One shard's (y_l, carry) over int4 blocks; arguments as for
+    sym_band_matvec_int4_spill_ref. `sym_band_matvec_int4_spill.launches`
+    counts kernel launches."""
+    return _packed(sym_band_matvec_int4_spill, sym_band_matvec_int4_spill_ref, upper,
+                   scales, x, False, True)
 
 
 def sym_band_matvec_hybrid(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
     """y = R x per cohort over hybrid int8/int4 blocks; arguments as for
     sym_band_matvec_hybrid_ref. `sym_band_matvec_hybrid.launches` counts
     kernel launches."""
-    _check_quantized(upper, scales, x,
-                     lambda u: _half_blocks(u) and u.shape[2] >= 2,
-                     lambda u: tuple(u.shape[:4]), "(K, nb, hb+2, B, B/2)")
-    K, nb, nslot, B, _ = upper.shape
-    _check_x(x, K, nb * B, torch.bfloat16)
-    if x.device.type == "cpu":
-        return sym_band_matvec_hybrid_ref(upper, scales, x)
-    return _launch(sym_band_matvec_hybrid, "sym_band_hybrid",
-                   "sgv_sym_band_hybrid_matvec", x, (upper, scales, x),
-                   (K, nb, nslot - 2, B, x.shape[1]), B, torch.float32)
+    return _packed(sym_band_matvec_hybrid, sym_band_matvec_hybrid_ref, upper, scales, x,
+                   True, False)
+
+
+def sym_band_matvec_hybrid_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
+    """One shard's (y_l, carry) over hybrid blocks; arguments as for
+    sym_band_matvec_hybrid_spill_ref. `sym_band_matvec_hybrid_spill.launches`
+    counts kernel launches."""
+    return _packed(sym_band_matvec_hybrid_spill, sym_band_matvec_hybrid_spill_ref, upper,
+                   scales, x, True, True)
 
 
 # the kernels over float blocks that give one warp one block row: what a CTA
@@ -469,35 +622,52 @@ def _gather_rows(upper: Tensor, S: int, rows_per_step: int) -> int:
                      f"{SHARED_MEMORY_BYTES} bytes of shared memory")
 
 
-def _check_float(upper: Tensor, x: Tensor, slab: bool) -> None:
+def _check_float(upper: Tensor, x: Tensor, slab: bool, spill: bool = False) -> Tensor:
+    """Checks float blocks against x; returns x as the kernel takes it
+    (_check_x)."""
     ok = (upper.dim() == 4 and upper.shape[2] % upper.shape[3] == 0 if slab
           else upper.dim() == 5 and upper.shape[-1] == upper.shape[-2])
     if upper.dtype not in _FLOAT_CODES or not ok:
         raise ValueError("upper must be "
                          + ("(K, nb, (hb+1)*B, B)" if slab else "(K, nb, hb+1, B, B)")
                          + " bfloat16, float32 or float64")
-    K, nb, _, B = _geometry(upper)
-    _check_x(x, K, nb * B, upper.dtype)
+    K, nb, hb, B = _geometry(upper)
     if upper.device != x.device:
         raise ValueError("upper and x must be on one device")
+    return _check_x(x, K, nb, hb, B, upper.dtype, spill)
 
 
-def _launch_rows(wrapper, library: str, upper: Tensor, x: Tensor, G: int) -> Tensor:
+def _launch_rows(wrapper, library: str, upper: Tensor, x: Tensor, G: int,
+                 spill: bool = False):
     K, nb, hb, B = _geometry(upper)
-    return _launch(wrapper, library, f"sgv_{library}_matvec", x, (upper, x),
+    return _launch(wrapper, library, x, (upper, x),
                    (K, nb, hb, B, x.shape[1], G, _FLOAT_CODES[upper.dtype]), B,
-                   torch.promote_types(upper.dtype, torch.float32))
+                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None)
+
+
+def _slab_streamed(wrapper, plain, upper: Tensor, rows_per_step: int, x: Tensor, spill: bool):
+    """As _int8, for the streamed slab wrappers."""
+    x = _check_float(upper, x, slab=True, spill=spill)
+    G = _gather_rows(upper, x.shape[1], rows_per_step)
+    if x.device.type == "cpu":
+        return plain(upper, rows_per_step, x)
+    return _launch_rows(wrapper, "sym_slab_streamed", upper, x, G, spill)
 
 
 def sym_slab_matvec_streamed(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
     """y = R x per cohort over float slabs, streamed flavor; arguments as
     for sym_slab_matvec_streamed_ref. `sym_slab_matvec_streamed.launches`
     counts kernel launches."""
-    _check_float(upper, x, slab=True)
-    G = _gather_rows(upper, x.shape[1], rows_per_step)
-    if x.device.type == "cpu":
-        return sym_slab_matvec_streamed_ref(upper, rows_per_step, x)
-    return _launch_rows(sym_slab_matvec_streamed, "sym_slab_streamed", upper, x, G)
+    return _slab_streamed(sym_slab_matvec_streamed, sym_slab_matvec_streamed_ref, upper,
+                          rows_per_step, x, False)
+
+
+def sym_slab_matvec_streamed_spill(upper: Tensor, rows_per_step: int, x: Tensor) -> tuple:
+    """One shard's (y_l, carry) over float slabs; arguments as for
+    sym_slab_matvec_streamed_spill_ref.
+    `sym_slab_matvec_streamed_spill.launches` counts kernel launches."""
+    return _slab_streamed(sym_slab_matvec_streamed_spill, sym_slab_matvec_streamed_spill_ref,
+                          upper, rows_per_step, x, True)
 
 
 def sym_slab_matvec_resident(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
@@ -538,29 +708,43 @@ def sym_band_matvec_window(upper: Tensor, rows_per_step: int, x: Tensor) -> Tens
 BAND_KERNELS = (sym_band_matvec_int8, sym_band_matvec, sym_band_matvec_int4,
                 sym_band_matvec_hybrid, sym_slab_matvec_streamed,
                 sym_band_matvec_resident, sym_band_matvec_window,
-                sym_slab_matvec_resident)
+                sym_slab_matvec_resident,
+                sym_band_matvec_int8_spill, sym_band_matvec_spill,
+                sym_band_matvec_int4_spill, sym_band_matvec_hybrid_spill,
+                sym_slab_matvec_streamed_spill)
 for _w in BAND_KERNELS:
     _w.launches = 0
 
 
-def band_kernel_of(op: "SymBandedLD", S: int = 2) -> tuple:
+def band_kernel_of(op: "SymBandedLD", S: int = 2, spill: bool = False) -> tuple:
     """(wrapper, plain version, their arguments before x, dtype of x) for
     the operator's storage, layout and mode, routed as the JAX operator's
-    matvec routes; S lanes a cohort decide what "auto" fits."""
-    resident = op._use_resident(S)    # raises for a quantized resident operator
+    matvec routes; S lanes a cohort decide what "auto" fits. spill: `op` is
+    one shard of a sharded operator and takes the spill form of its
+    streamed kernel, whatever its mode and window say (as the JAX operator
+    does under a mesh)."""
+    # raises for a quantized resident operator
+    resident = False if spill else op._use_resident(S)
     G = op.rows_per_step
     if not resident and G and (op.nb % G or G < op.hb):
         raise ValueError(f"rows_per_step={G} must divide nb={op.nb} and be >= hb={op.hb}")
-    if op.hybrid:
-        return (sym_band_matvec_hybrid, sym_band_matvec_hybrid_ref,
-                (op.upper, op.scales), torch.bfloat16)
-    if op.packed:
-        return (sym_band_matvec_int4, sym_band_matvec_int4_ref,
-                (op.upper, op.scales), torch.bfloat16)
-    if op.quantized:
-        return (sym_band_matvec_int8, sym_band_matvec_int8_ref,
-                (op.upper, op.scales), torch.bfloat16)
+    if op.upper.dtype == torch.int8:
+        if op.hybrid:
+            pair = ((sym_band_matvec_hybrid_spill, sym_band_matvec_hybrid_spill_ref) if spill
+                    else (sym_band_matvec_hybrid, sym_band_matvec_hybrid_ref))
+        elif op.packed:
+            pair = ((sym_band_matvec_int4_spill, sym_band_matvec_int4_spill_ref) if spill
+                    else (sym_band_matvec_int4, sym_band_matvec_int4_ref))
+        else:
+            pair = ((sym_band_matvec_int8_spill, sym_band_matvec_int8_spill_ref) if spill
+                    else (sym_band_matvec_int8, sym_band_matvec_int8_ref))
+        return (*pair, (op.upper, op.scales), torch.bfloat16)
     xdt = op.upper.dtype
+    if spill:
+        if op.layout == "slab":
+            return (sym_slab_matvec_streamed_spill, sym_slab_matvec_streamed_spill_ref,
+                    (op.upper, G), xdt)
+        return sym_band_matvec_spill, sym_band_matvec_spill_ref, (op.upper,), xdt
     if op.layout == "slab":
         if resident:
             return sym_slab_matvec_resident, sym_slab_matvec_resident_ref, (op.upper, G), xdt
@@ -594,6 +778,14 @@ class SymBandedLD:
     window: the resident diag kernel's row part as one product over the
     (hb+1)*B window of x. Same matvec contract as the other operators: x is
     (S*K, M).
+
+    mesh, shards: set together by parallel/sharding.py::shard_inputs when
+    the mesh divides the block rows. shards[c][j] is the piece of mesh cell
+    (c, j) - cohorts c*K/n_cohort.., block rows j*nb/n_shard.. - a
+    SymBandedLD of its own on that cell's device; `upper` and `scales` then
+    keep the whole operator's shape and dtype without storage (meta
+    tensors), and matvec runs _matvec_sharded, the spill form of the
+    streamed kernel in every cell whatever mode and window say.
     """
 
     upper: Tensor
@@ -605,8 +797,13 @@ class SymBandedLD:
     window: bool = False
     layout: str = "diag"
     mode: str = "auto"
+    mesh: Any = None
+    shards: tuple = ()
 
     def __post_init__(self) -> None:
+        if (self.mesh is None) != (not self.shards):
+            raise ValueError("a mesh is pinned together with the operator's pieces: use "
+                             "sgvamp_torch.parallel.sharding.shard_inputs")
         if self.packed and self.hybrid:
             raise ValueError("packed (int4) and hybrid storage exclude each other")
         if self.layout not in ("diag", "slab"):
@@ -710,15 +907,67 @@ class SymBandedLD:
         # (K, S, M) lanes in bf16 for the quantized storages, in the block
         # dtype for float blocks; the caller's x stays unrounded for the
         # regularization term below.
-        kernel, _, args, comp = band_kernel_of(self, S)
-        xs = x.reshape(S, self.K, self.M).transpose(0, 1).to(comp).contiguous()
-        y = kernel(*args, xs).transpose(0, 1).reshape(x.shape).to(x.dtype)
+        comp = torch.bfloat16 if self.upper.dtype == torch.int8 else self.upper.dtype
+        xs = x.reshape(S, self.K, self.M).transpose(0, 1).to(comp)
+        if self.mesh is not None:
+            y = self._matvec_sharded(xs)
+        else:
+            kernel, _, args, _ = band_kernel_of(self, S)
+            y = kernel(*args, xs.contiguous())
+        y = y.transpose(0, 1).reshape(x.shape).to(x.dtype)
         if self.s != 0.0:
             y = (1.0 - self.s) * y + self.s * x
         return y
 
+    def _matvec_sharded(self, xs: Tensor) -> Tensor:
+        """y (K, S, M) from xs (K, S, M) over the mesh's pieces.
+
+        One process drives every cell, in turn. Cell (c, j) gets its
+        cohorts' slice of x with the next cell's first hb blocks appended
+        (the halo; zeros after the last cell, the wraparound leg) on its own
+        device, and runs the spill form of its streamed kernel there. The
+        carry it returns - its blocks' mirror terms that land in the next
+        cell's first hb block rows - moves to that cell's device and is
+        added into the head of its y_l; the last cell's carry is zeros
+        (blocks past the global end are) and goes nowhere. y is gathered on
+        the device of xs.
+        """
+        n_c, n = self.mesh.devices.shape
+        K_l, M_l, hbB = self.K // n_c, self.M // n, self.hb * self.B
+        K, S, _ = xs.shape
+        xpad = torch.cat([xs, xs.new_zeros(K, S, hbB)], dim=2) if hbB else xs
+        rows = []
+        for c in range(n_c):
+            ys, carry = [], None
+            for j in range(n):
+                piece = self.shards[c][j]
+                x_ext = xpad[c * K_l:(c + 1) * K_l, :, j * M_l:(j + 1) * M_l + hbB]
+                kernel, _, args, _ = band_kernel_of(piece, S, spill=True)
+                y_l, spilled = kernel(*args, x_ext.to(piece.upper.device).contiguous())
+                if j and hbB:
+                    y_l[:, :, :hbB] += carry.to(y_l.device)
+                carry = spilled
+                ys.append(y_l.to(xs.device))
+            rows.append(torch.cat(ys, dim=2))
+        return torch.cat(rows, dim=0)
+
+    def _gathered(self) -> "SymBandedLD":
+        """A sharded operator whole again, on the CPU and without its mesh
+        (the inverse of shard_inputs' cut, for to_dense)."""
+        def whole(field):
+            return torch.cat([torch.cat([getattr(p, field).cpu() for p in row], dim=1)
+                              for row in self.shards], dim=0)
+
+        return dataclasses.replace(self, upper=whole("upper"),
+                                   scales=None if self.scales is None else whole("scales"),
+                                   mesh=None, shards=())
+
     def _dequantized_d0(self) -> Tensor:
         """(K, nb, B, B) f32 d=0 blocks of R (before the s-regularization)."""
+        if self.mesh is not None:   # from the pieces, on the first cell's device
+            dev = self.shards[0][0].upper.device
+            return torch.cat([torch.cat([p._dequantized_d0().to(dev) for p in row], dim=1)
+                              for row in self.shards], dim=0)
         if self.hybrid:
             D = torch.cat([self.upper[:, :, 0], self.upper[:, :, 1]], dim=-1).float()
         elif self.packed:
@@ -747,7 +996,7 @@ class SymBandedLD:
     @staticmethod
     def from_band(band: np.ndarray, block_size: int, K: int = 1,
                   s: float = 0.0, dtype=None, layout: str = "diag",
-                  mesh=None, device=None) -> "SymBandedLD":
+                  device=None) -> "SymBandedLD":
         """Pack symmetric band storage (M, 2*bw+1) into upper blocks.
 
         dtype: None (the default) for the band's own float dtype, or
@@ -759,8 +1008,6 @@ class SymBandedLD:
         markers, which callers mask. The tensors go to `device` (None: the
         default CUDA device).
         """
-        if mesh is not None:
-            raise NotImplementedError("the sharded matvec is not ported (ROADMAP A14)")
         if layout not in ("diag", "slab"):
             raise ValueError(f"layout must be 'diag' or 'slab', got {layout!r}")
         band = np.asarray(band)
@@ -794,6 +1041,8 @@ class SymBandedLD:
     def to_dense(self) -> Tensor:
         """Materialize (K, M, M) on the CPU - tests only. f32 for the
         quantized and bf16 storages, else the blocks' dtype."""
+        if self.mesh is not None:
+            return self._gathered().to_dense()
         K, nb, hbp1, B = self.K, self.nb, self.hb + 1, self.B
         up = self.upper.cpu()
         sc = None if self.scales is None else self.scales.cpu().numpy()

@@ -6,6 +6,8 @@ bf16*int8 products in f32, in different orders, so the matvecs agree to
 a scaled 1e-5, the tolerance of tests/test_pallas_kernel.py.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -90,8 +92,11 @@ def test_cpu_wrapper_takes_the_plain_version():
 
 def test_unported_flavors_raise():
     band = _band(300, 100, seed=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # the sharded matvec
-        SymBandedLD.from_band(band, block_size=64, dtype="int8", device="cpu", mesh=object())
+    # the sharded matvec is ported: a mesh is pinned by shard_inputs, with the
+    # operator's pieces, and never alone
+    op = SymBandedLD.from_band(band, block_size=64, dtype="int8", device="cpu")
+    with pytest.raises(ValueError, match="shard_inputs"):
+        dataclasses.replace(op, mesh=object())
     # the slab layout is ported for float blocks and refused for quantized ones
     assert SymBandedLD.from_band(band, block_size=64, device="cpu", layout="slab").layout == "slab"
     with pytest.raises(ValueError, match="diag layout only"):

@@ -259,6 +259,116 @@ def test_slab_and_resident_kernels_reject_bad_input(cuda):
             kernel(wide, 8, x4)
 
 
+# The spill forms (one shard of a sharded operator): every shard's (y_l,
+# carry) against the plain version, then the shards composed on the card
+# against the unsharded kernel. (storage, layout) name the kernel.
+SPILL = {
+    "int8": ("int8", "diag", "sym_band_matvec_int8_spill"),
+    "bfloat16": ("bfloat16", "diag", "sym_band_matvec_spill"),
+    "float32": ("float32", "diag", "sym_band_matvec_spill"),
+    "float64": ("float64", "diag", "sym_band_matvec_spill"),
+    "int4": ("int4", "diag", "sym_band_matvec_int4_spill"),
+    "hybrid": ("hybrid", "diag", "sym_band_matvec_hybrid_spill"),
+    "slab-bfloat16": ("bfloat16", "slab", "sym_slab_matvec_streamed_spill"),
+    "slab-float32": ("float32", "slab", "sym_slab_matvec_streamed_spill"),
+    "slab-float64": ("float64", "slab", "sym_slab_matvec_streamed_spill"),
+}
+
+
+def _cut(op, j, n):
+    """Shard j of n of an unsharded operator: its block rows, contiguous."""
+    nb_l = op.nb // n
+    rows = slice(j * nb_l, (j + 1) * nb_l)
+    return dataclasses.replace(
+        op, upper=op.upper[:, rows].contiguous(),
+        scales=None if op.scales is None else op.scales[:, rows].contiguous())
+
+
+@pytest.mark.parametrize("B,bw,M,K,S,n", [
+    (128, 300, 1000, 2, 2, 2),   # ragged M, nb=8, hb=3
+    (64, 300, 1000, 2, 2, 2),    # nb=16, hb=5
+    (128, 100, 1024, 1, 1, 4),   # hb=1, two block rows a shard
+    (128, 0, 512, 2, 4, 2),      # hb=0: no halo, a carry of zeros
+    (64, 60, 640, 2, 3, 5),      # nb=10 over 5 shards
+    (256, 700, 4096, 1, 4, 4),   # hb=3
+    (256, 200, 2048, 2, 1, 8),   # hb=1, one block row a shard (nb_l == hb)
+])
+@pytest.mark.parametrize("storage", sorted(SPILL))
+def test_spill_kernels_match_plain_and_compose(cuda, storage, B, bw, M, K, S, n):
+    dtype, layout, name = SPILL[storage]
+    rng = np.random.default_rng(B + bw + M)
+    band = (simulate_ld_band(10000, M, bw, rng=rng)[0] if bw
+            else np.ones((M, 1), np.float32))
+    op = dataclasses.replace(
+        SymBandedLD.from_band(band, block_size=B, K=K, dtype=dtype, layout=layout,
+                              device=cuda), mode="streamed")
+    assert op.nb % n == 0 and op.nb // n >= op.hb
+    tol = 1e-12 if dtype == "float64" else SCALED_TOL
+    whole, _, wargs, xdt = band_kernel_of(op, S)
+    x = torch.from_numpy(rng.normal(size=(K, S, op.M))).to(cuda, xdt)
+    want = whole(*wargs, x)
+    scale = float(want.abs().max())
+    hbB, M_l = op.hb * B, op.M // n
+    xpad = torch.cat([x, x.new_zeros(K, S, hbB)], dim=2)
+    ys, carry = [], None
+    for j in range(n):
+        kernel, plain, args, _ = band_kernel_of(_cut(op, j, n), S, spill=True)
+        assert kernel.__name__ == name
+        x_ext = xpad[:, :, j * M_l:(j + 1) * M_l + hbB].contiguous()
+        before = [w.launches for w in BAND_KERNELS]
+        y_l, spilled = kernel(*args, x_ext)
+        torch.cuda.synchronize()
+        after = [w.launches for w in BAND_KERNELS]
+        assert sum(after) == sum(before) + 1
+        assert kernel.launches == before[BAND_KERNELS.index(kernel)] + 1
+        py, pc = plain(*args, x_ext)
+        assert y_l.dtype == py.dtype == want.dtype and y_l.shape == py.shape == (K, S, M_l)
+        assert spilled.dtype == pc.dtype and spilled.shape == pc.shape == (K, S, max(hbB, B))
+        assert float((y_l - py).abs().max()) / scale <= tol
+        assert float((spilled - pc).abs().max()) / scale <= tol
+        y2, c2 = kernel(*args, x_ext)   # no atomics: reproducible bits
+        assert torch.equal(y_l, y2) and torch.equal(spilled, c2)
+        if j and hbB:
+            y_l[:, :, :hbB] += carry
+        carry = spilled
+        ys.append(y_l)
+    assert float((torch.cat(ys, dim=2) - want).abs().max()) / scale <= tol
+    # what leaves the global panel is exact zeros
+    assert float(carry.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("storage", sorted(SPILL))
+def test_sharded_operator_on_one_card_matches_unsharded(cuda, storage):
+    """shard_inputs on a mesh whose four cells are one card: the sharded
+    matvec launches the spill kernel once a cell and no other band kernel,
+    and agrees with the unsharded operator."""
+    from sgvamp_torch.core.vamp import VampInputs
+    from sgvamp_torch.parallel.sharding import make_mesh, shard_inputs
+
+    dtype, layout, name = SPILL[storage]
+    rng = np.random.default_rng(7)
+    band, _, _ = simulate_ld_band(10000, 2000, 200, rng=rng)
+    op = SymBandedLD.from_band(band, block_size=128, K=2, dtype=dtype, layout=layout, s=0.05,
+                               device=cuda)       # nb=16, hb=2
+    x = torch.from_numpy(rng.normal(size=(4, op.M))).to(
+        cuda, torch.float64 if dtype == "float64" else torch.float32)
+    want = op.matvec(x)
+    for shape in ((1, 4), (2, 2)):
+        mesh = make_mesh(*shape, devices=[cuda] * 4)
+        sh = shard_inputs(VampInputs(op=op, r=x[:2], a=x.new_ones(2), N=x.new_ones(2)), mesh)
+        assert sh.op.mesh is mesh
+        for w in BAND_KERNELS:
+            w.launches = 0
+        got = sh.op.matvec(x)
+        torch.cuda.synchronize()
+        assert {w.__name__: w.launches for w in BAND_KERNELS if w.launches} == {name: 4}
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= (1e-12 if dtype == "float64" else SCALED_TOL), (shape, err)
+    with pytest.raises(ValueError):    # a spill wrapper never steps down to the CPU's version
+        kernel, _, args, xdt = band_kernel_of(sh.op.shards[0][0], 2, spill=True)
+        kernel(*args, torch.zeros((1, 2, 10 * 128), dtype=xdt))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
 def test_read_probe_matches_plain(cuda, dtype):
     pytest.importorskip("triton")

@@ -28,6 +28,8 @@ MODULES = [
     "sgvamp_torch.ops._build",
     "sgvamp_torch.ops.band_kernel",
     "sgvamp_torch.ops.membench",
+    "sgvamp_torch.parallel",
+    "sgvamp_torch.parallel.sharding",
     "sgvamp_torch.utils",
     "sgvamp_torch.utils.kernel_bench",
     "sgvamp_torch.utils.kernel_diag",
