@@ -6,10 +6,12 @@
 // second entry point): the d=0 block as two int8 column halves
 // in slots 0 and 1 (no mirror, x added back for the stripped unit
 // diagonal), diagonal d >= 1 as int4 in slot d+1, one f32 scale per block
-// row. The kernel, what it computes, its design and what bounds it (bytes
-// from HBM: about 4*S flops a byte on the int8 halves, 8*S on the int4
-// slots; the gather re-reads off-diagonal slots, up to (2hb+1)/(hb+1) of
-// bytes_per_pass()) are in sym_band_packed.cuh.
+// row. The kernel, what it computes and its design (the gather; both
+// products of every slot as mma.sync on the tensor cores, int8 and int4
+// decoded to bf16 without I2F) are in sym_band_packed.cuh. Bound: bytes
+// from HBM (about 4*S operations a byte on the int8 halves, 8*S on the
+// int4 slots); the gather re-reads off-diagonal slots, up to
+// (2hb+1)/(hb+1) of bytes_per_pass().
 
 #include "sym_band_packed.cuh"
 

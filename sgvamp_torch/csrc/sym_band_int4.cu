@@ -4,10 +4,12 @@
 // packed4=True flavor (spill=False, and spill=True through the
 // second entry point): two 4-bit values a byte as contiguous
 // column halves, one f32 scale per block row, the unit diagonal of the d=0
-// block stripped and x added back. The kernel, what it computes, its
-// design and what bounds it (bytes from HBM, about 8*S flops a byte; the
-// gather re-reads off-diagonal blocks, up to (2hb+1)/(hb+1) of
-// bytes_per_pass()) are in sym_band_packed.cuh.
+// block stripped and x added back. The kernel, what it computes and its
+// design (the gather; both products of every slot as mma.sync on the
+// tensor cores, the nibbles decoded to bf16 without I2F) are in
+// sym_band_packed.cuh. Bound: bytes from HBM (about 8*S operations a
+// byte); the gather re-reads off-diagonal blocks, up to (2hb+1)/(hb+1) of
+// bytes_per_pass().
 
 #include "sym_band_packed.cuh"
 

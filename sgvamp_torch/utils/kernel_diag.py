@@ -1,28 +1,38 @@
 """Where a band kernel's time goes: one JSON line per case, on one GPU.
 
     python -m sgvamp_torch.utils.kernel_diag [--bytes 201326592] [--out FILE]
+        [--storages int8,int4,hybrid,bfloat16,float32]
 
 For each storage of SymBandedLD (int8, int4, hybrid, bfloat16, float32) the
 streamed diag kernel, and for the two float storages also the streamed
 slab, resident diag and resident slab kernels, are timed on random blocks
-at B=128 whose total size is held near `--bytes`, for hb in (0, 2) and S
-in (1, 2, 4) lanes. hb=0 has no mirror
-blocks, so nothing is read twice; S scales the multiply-adds and leaves
-the bytes and the decoding of the blocks unchanged. Each line gives ms per
-pass (CUDA events over 100 launches after a warm-up), GB/s over
-bytes_per_pass(), the block elements decoded per second (every stored
-off-diagonal block is decoded twice, as a row and as a mirror block), and
-the same call's read-probe time for those bytes. A kernel bound by bytes
+at B=128 whose total size is held near `--bytes`, for hb in (0, 1, 2) and
+S in (1, 2, 4) lanes. hb=0 has no mirror blocks, so nothing is read twice;
+S scales the multiply-adds and leaves the bytes and the decoding of the
+blocks unchanged. Each line gives ms per pass (CUDA events over 100
+launches after a warm-up, the card asleep for 20 ms while the host queues
+them, so that launches shorter than their host-side cost run back to
+back), GB/s over bytes_per_pass(), the block elements decoded per second
+(every stored off-diagonal block is decoded twice, as a row and as a
+mirror block), and the same call's read-probe time for those bytes. Last,
+three lines per storage at the bench shape (M=524288, hb=2, S=2): the
+streamed diag kernel, its spill form on one shard of four (1024 block rows
+and the halo), and the chained operator pass of the operator cut four ways
+over a one-card mesh beside the unsharded one (utils/kernel_bench.py's
+time_passes, as chip_smoke.py's phase 6b times it: host dispatch
+included), three times each to show its spread. A kernel bound by bytes
 runs near the probe's time at hb=0 whatever S is; one bound by decoding
 keeps its elements per second from hb=0 to hb=2. The streamed kernels read
 every off-diagonal block twice, the resident ones once (plus hb/(2G) of
 them at the run boundaries): at hb=2 the difference between the two
-flavors of one storage is what the second read costs.
+flavors of one storage is what the second read costs. `--storages` times
+only the storages that a change touches (the whole run takes minutes).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import subprocess
 import sys
@@ -31,8 +41,12 @@ import torch
 
 from sgvamp_torch.ops import band_kernel as bk
 from sgvamp_torch.ops.membench import measure_read_gbps
+from sgvamp_torch.utils import kernel_bench
 
 B = 128
+STORAGES = ("int8", "int4", "hybrid", "bfloat16", "float32")
+BENCH_NB, BENCH_HB, BENCH_S, BENCH_SHARDS = 4096, 2, 2, 4   # M=524288, bandwidth 256
+PASSES = 20   # chained passes of a pass timing, as chip_smoke.py's BENCH_PASSES
 
 
 FLAVORS = {"streamed": ("diag", "streamed"), "slab-streamed": ("slab", "streamed"),
@@ -58,8 +72,12 @@ def _random_operator(storage: str, nb: int, hb: int, device,
 
 
 def _ms(fn, n: int = 100) -> float:
+    """CUDA events over n calls; the card sleeps first while the host
+    enqueues them, so short kernels run back to back."""
     fn()
+    torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(40_000_000)   # cycles: about 20 ms at 1.98 GHz
     start.record()
     for _ in range(n):
         fn()
@@ -68,12 +86,29 @@ def _ms(fn, n: int = 100) -> float:
     return start.elapsed_time(end) / n
 
 
+def _one_card_shards(op: bk.SymBandedLD, n: int) -> bk.SymBandedLD:
+    """op cut n ways by shard_inputs over a (1, n) mesh whose cells are all
+    the one card: its matvec runs the n spill launches a pass."""
+    from sgvamp_torch import VampInputs
+    from sgvamp_torch.parallel.sharding import make_mesh, shard_inputs
+
+    dev = op.upper.device
+    inputs = VampInputs(op=op, r=torch.zeros((op.K, op.M), device=dev),
+                        a=torch.ones(op.K, device=dev), N=torch.ones(op.K, device=dev))
+    return shard_inputs(inputs, make_mesh(1, n, devices=[dev] * n)).op
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bytes", type=int, default=201326592,
                     help="block bytes of every case (default: the bench's int8 blocks)")
     ap.add_argument("--out", default=None, help="also append the lines to this file")
+    ap.add_argument("--storages", default=",".join(STORAGES),
+                    help="comma-separated storages to time (default: all)")
     args = ap.parse_args(argv)
+    storages = args.storages.split(",")
+    if not set(storages) <= set(STORAGES):
+        raise SystemExit(f"--storages takes {', '.join(STORAGES)}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_diag needs a CUDA device: it reports device times only")
     device = torch.device("cuda")
@@ -81,12 +116,13 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     lines = []
-    cases = [(st, "streamed") for st in ("int8", "int4", "hybrid", "bfloat16", "float32")]
-    cases += [(st, fl) for st in ("bfloat16", "float32") for fl in FLAVORS if fl != "streamed"]
+    cases = [(st, "streamed") for st in storages]
+    cases += [(st, fl) for st in ("bfloat16", "float32") if st in storages
+              for fl in FLAVORS if fl != "streamed"]
     for storage, flavor in cases:
         per_elem = {"int8": 1.0, "int4": 0.5, "hybrid": 0.5, "bfloat16": 2.0,
                     "float32": 4.0}[storage]
-        for hb in (0, 2):
+        for hb in (0, 1, 2):
             nslot = hb + (2 if storage == "hybrid" else 1)
             slot_bytes = B * B * per_elem
             nb = max(int(args.bytes // (nslot * slot_bytes)), hb + 1)
@@ -107,6 +143,30 @@ def main(argv=None) -> int:
                     "probe_ms_for_the_blocks": probe_s * 1e3, "probe_gbps": gbps})
                 print(json.dumps(lines[-1]), flush=True)
             del op, k_args, x
+    for storage in storages:
+        op = _random_operator(storage, BENCH_NB, BENCH_HB, device)
+        nb_l = BENCH_NB // BENCH_SHARDS
+        piece = dataclasses.replace(  # an interior shard: a halo to read, a carry to write
+            op, upper=op.upper[:, nb_l:2 * nb_l].contiguous(),
+            scales=None if op.scales is None else op.scales[:, nb_l:2 * nb_l].contiguous())
+        for form, o, spill in (("whole", op, False), ("one shard of 4", piece, True)):
+            kernel, _, k_args, xdt = bk.band_kernel_of(o, BENCH_S, spill=spill)
+            x = torch.randn((1, BENCH_S, o.M + (o.hb * B if spill else 0)),
+                            device=device).to(xdt)
+            ms = _ms(lambda: kernel(*k_args, x))
+            lines.append({"card": smi, "storage": storage, "shape": "bench", "form": form,
+                          "kernel": kernel.__name__, "hb": o.hb, "nb": o.nb, "S": BENCH_S,
+                          "bytes_per_pass": o.bytes_per_pass(), "ms": ms})
+            print(json.dumps(lines[-1]), flush=True)
+        sh = _one_card_shards(op, BENCH_SHARDS)
+        lanes = torch.randn((BENCH_S, op.M), device=device)
+        passes = {name: [kernel_bench.time_passes(o, lanes, PASSES) * 1e3 for _ in range(3)]
+                  for name, o in (("sharded_pass_ms", sh), ("unsharded_pass_ms", op))}
+        lines.append({"card": smi, "storage": storage, "shape": "bench",
+                      "form": f"chained pass, {BENCH_SHARDS} shards on one card", "hb": op.hb,
+                      "nb": op.nb, "S": BENCH_S, "passes": PASSES, **passes})
+        print(json.dumps(lines[-1]), flush=True)
+        del op, piece, sh, k_args, x
     if args.out:
         with open(args.out, "a") as f:
             f.writelines(json.dumps(ln) + "\n" for ln in lines)

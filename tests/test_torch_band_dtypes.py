@@ -29,6 +29,8 @@ from sgvamp_tpu.core import vamp as jvamp
 from sgvamp_tpu.core.prior import PriorState as JPrior
 from sgvamp_tpu.data.simulate import simulate_ld_band
 from sgvamp_tpu.ops.band_kernel import SymBandedLD as JSym
+from sgvamp_tpu.ops.band_kernel import _sym_band_matvec_streamed
+from torch_packed_slots import packed_slots, term_magnitudes, worst_termwise_error
 
 SCALED_TOL = 1e-5
 DTYPES = ["float32", "bfloat16", "int4", "hybrid"]
@@ -145,6 +147,39 @@ def test_matvec_matches_jax_and_dense(dtype, B, bw, M, K):
     # mirror term, which the dense product does not
     dense_tol = 5e-3 if dtype in ("int4", "hybrid") else max(tol, 1e-12)
     np.testing.assert_allclose(y / scale, want / scale, rtol=0, atol=dense_tol)
+
+
+# The yardstick of the int4 and hybrid kernels on their hard cases: the
+# plain versions against the Pallas kernel (interpret mode) on the slots of
+# tests/test_torch_gpu.py::test_packed_kernels_on_every_byte_value (every
+# byte value in every position, so nibbles -8..7 and int8 -128..127; scales
+# 1e-4..1e2), at B=64, in both forms; scaled by max|y| and element by
+# element by the sum of the element's own |terms|.
+@pytest.mark.parametrize("hb", [0, 2])
+@pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])
+@pytest.mark.parametrize("storage", ["int4", "hybrid"])
+def test_packed_plain_versions_match_pallas_on_every_byte_value(storage, spill, hb):
+    B, nb, K, S, G = 64, 4, 1, 2, 2
+    upper, scales = packed_slots(B, hb, nb, K, storage == "hybrid", seed=hb)
+    # the spill form's x: the shard's own, then the halo padded to G blocks
+    x = np.random.default_rng(hb).normal(size=(K, S, (nb + (G if spill else 0)) * B))
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    jy, jc = _sym_band_matvec_streamed(
+        jnp.asarray(upper), jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16), nb,
+        interpret=True, rows_per_step=G, spill=spill, scales=jnp.asarray(scales),
+        packed4=storage == "int4", hybrid=storage == "hybrid")
+    plain = getattr(tbk, f"sym_band_matvec_{storage}{'_spill' if spill else ''}_ref")
+    got = plain(torch.from_numpy(upper), torch.from_numpy(scales), xb)
+    got, want = (got, (jy, jc)) if spill else ((got,), (jy,))
+    scale = float(np.abs(np.asarray(jy)).max())
+    for g, w in zip(got, want):
+        w = np.asarray(w, np.float64)
+        assert g.dtype == torch.float32 and tuple(g.shape) == w.shape
+        np.testing.assert_allclose(g.double().numpy() / scale, w / scale, rtol=0,
+                                   atol=SCALED_TOL)
+    mags = term_magnitudes(upper, scales, xb.float().numpy(), storage == "hybrid", spill)
+    err = worst_termwise_error(got, [np.asarray(w) for w in want], mags)
+    assert err <= SCALED_TOL, err
 
 
 @pytest.mark.parametrize("dtype", DTYPES + ["int8", "float64"])

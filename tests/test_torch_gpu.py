@@ -25,6 +25,7 @@ from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel
                                           sym_slab_matvec_resident,
                                           sym_slab_matvec_streamed)
 from sgvamp_torch.ops.membench import measure_read_gbps, read_max, read_max_ref
+from torch_packed_slots import packed_slots, term_magnitudes, worst_termwise_error
 
 pytestmark = pytest.mark.gpu
 
@@ -367,6 +368,74 @@ def test_sharded_operator_on_one_card_matches_unsharded(cuda, storage):
     with pytest.raises(ValueError):    # a spill wrapper never steps down to the CPU's version
         kernel, _, args, xdt = band_kernel_of(sh.op.shards[0][0], 2, spill=True)
         kernel(*args, torch.zeros((1, 2, 10 * 128), dtype=xdt))
+
+
+# The tensor-core decode and fragment maps of the int4 and hybrid kernels
+# (csrc/sym_band_packed.cuh) on slots that hold every byte value in every
+# position, at every block size, lane count and band up to hb = 3, in both
+# forms: scaled 1e-5 against the plain version (exact products, f32 sums in
+# another order), both by max|y| and element by element by the sum of the
+# element's own |terms|, and the same bits on a second run.
+@pytest.mark.parametrize("hb", range(4))
+@pytest.mark.parametrize("S", range(1, 5))
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])
+@pytest.mark.parametrize("storage", ["int4", "hybrid"])
+def test_packed_kernels_on_every_byte_value(cuda, storage, spill, B, S, hb):
+    from sgvamp_torch.ops import band_kernel
+
+    nb, K = 5, 1 + hb % 2
+    upper, scales = packed_slots(B, hb, nb, K, storage == "hybrid", seed=B + 10 * S + hb)
+    u, sc = torch.from_numpy(upper).to(cuda), torch.from_numpy(scales).to(cuda)
+    rng = np.random.default_rng(S + hb)
+    x = torch.from_numpy(rng.normal(size=(K, S, (nb + (hb if spill else 0)) * B))).to(
+        cuda, torch.bfloat16)
+    kernel = getattr(band_kernel, f"sym_band_matvec_{storage}{'_spill' if spill else ''}")
+    plain = getattr(band_kernel, kernel.__name__ + "_ref")
+    before = kernel.launches
+    got = kernel(u, sc, x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(u, sc, x)
+    got, want = (got, want) if spill else ((got,), (want,))
+    scale = float(want[0].abs().max())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        err = float((g - w).abs().max()) / scale
+        assert err <= SCALED_TOL, err
+    mags = term_magnitudes(upper, scales, x.float().cpu().numpy(), storage == "hybrid", spill)
+    err = worst_termwise_error([g.cpu() for g in got], [w.cpu() for w in want], mags)
+    assert err <= SCALED_TOL, err
+    again = kernel(u, sc, x)
+    again = again if spill else (again,)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("which", ["upper", "scales", "x"])
+@pytest.mark.parametrize("storage", ["int4", "hybrid"])
+def test_packed_kernels_refuse_unaligned_inputs(cuda, storage, which):
+    """The kernel copies upper, scales and x 16 bytes at a time: an array
+    that starts off a 16-byte boundary (a contiguous view one element into
+    a buffer) is refused with cudaErrorMisalignedAddress (716) and nothing
+    is launched."""
+    from sgvamp_torch.ops import band_kernel
+
+    B, hb, nb = 128, 2, 5
+    upper, scales = packed_slots(B, hb, nb, 1, storage == "hybrid", seed=3)
+    args = {"upper": torch.from_numpy(upper).to(cuda),
+            "scales": torch.from_numpy(scales).to(cuda),
+            "x": torch.from_numpy(np.random.default_rng(4).normal(size=(1, 1, nb * B))).to(
+                cuda, torch.bfloat16)}
+    t = args[which]
+    off = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)[1:].view(t.shape)
+    off.copy_(t)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    args[which] = off
+    kernel = getattr(band_kernel, f"sym_band_matvec_{storage}")
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match=r"\(error 716\)"):
+        kernel(args["upper"], args["scales"], args["x"])
+    assert kernel.launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
