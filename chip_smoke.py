@@ -17,9 +17,13 @@ Phases, a few lines of output each (and fail on the first that fails):
      bandwidth 256, B=128, K=1, S=2; bfloat16 and float32 for the float
      kernels), scaled error <= 1e-5 (1e-12 for float64); ms/pass of kernel
      and plain version at the full shape, and of BandedLD.matvec (one
-     einsum over full-band storage) on the same band. The Triton read probe
-     against its plain version, exactly. A small engine run on the GPU
-     against the same run on the CPU (plain versions).
+     einsum over full-band storage) on the same band. A wide band where
+     mode "auto" takes the streamed kernels (random bfloat16 blocks, hb=16,
+     M=524288, S=2): the streamed diag and slab kernels and the resident
+     kernel forced onto it (runs of 8 block rows), each against its plain
+     version and timed. The Triton read probe against its plain version,
+     exactly. A small engine run on the GPU against the same run on the CPU
+     (plain versions).
   3. the engine's library path: with the kernels' launch counts at zero,
      the bench's sequence at its geometry - the read-probe ceiling over the
      int8 LD blocks, then VampEngine.run (EM prior, fused 2K-lane CG with a
@@ -94,6 +98,7 @@ ITERATIONS = 6        # engine library path (fixed CG budget)
 FLAVOR_ITERATIONS = 4 # the same over the slab-streamed and the resident operator
 MESH_ITERATIONS = 4   # the same under the (1, 4) mesh
 MESH_SHARDS = 4
+WIDE_HB = 16          # the wide band: mode "auto" takes the streamed kernels from hb=15
 # sharded against unsharded engine run, same seed, per iteration: relative L2
 # of xhat1, relative difference of gam1 and gamw (on an H100 the runs differ
 # by at most 6.3e-14 in xhat1 and not at all in gam1 and gamw: only the head
@@ -203,9 +208,13 @@ def bound_ms(op, S: int, storage: str) -> tuple:
 
 def block_bytes_read(op, S: int) -> int:
     """Bytes of blocks the operator's kernel reads a pass (all cohorts). The
-    streamed kernels gather: every off-diagonal block twice. The resident
-    kernels read every block once, and at each run boundary the blocks of
-    the previous run's last hb rows whose mirror terms cross it once more."""
+    streamed kernels over float blocks read every block once (their partial
+    sums are not blocks); the quantized ones gather: every off-diagonal
+    block twice. The resident kernels read every block once, and at each run
+    boundary the blocks of the previous run's last hb rows whose mirror
+    terms cross it once more."""
+    import torch
+
     from sgvamp_torch.ops.band_kernel import _resident_rows
 
     nb, hb = op.nb, op.hb
@@ -214,12 +223,55 @@ def block_bytes_read(op, S: int) -> int:
         G = _resident_rows(op.upper, S, op.rows_per_step)
         off += sum(1 for r0 in range(G, nb, G) for a in range(1, min(hb, r0) + 1)
                    for d in range(a, hb + 1) if d - a < G and r0 + d - a < nb)
-    else:
+    elif op.upper.dtype == torch.int8:
         off *= 2
     full_block = op.B * op.B * op.upper.element_size()
     far_block = full_block // 2 if op.packed or op.hybrid else full_block
     d0_block = far_block if op.packed else full_block
     return op.K * (nb * d0_block + off * far_block)
+
+
+def wide_band(dev, S: int) -> dict:
+    """The wide-band case: random bfloat16 blocks at hb=16, M=524288 (zero
+    past the panel's end, as from_band leaves them), where mode "auto" takes
+    the streamed kernels. The streamed diag and slab kernels and the
+    resident diag kernel forced onto the band (runs of 8 block rows), each
+    against its plain version (scaled error <= SCALED_TOL) and timed beside
+    it; their bounds and the block bytes each reads."""
+    import torch
+
+    from sgvamp_torch.ops.band_kernel import SymBandedLD, band_kernel_of
+
+    nb, hb = M_FULL // B_FULL, WIDE_HB
+    g = torch.Generator(dev).manual_seed(16)
+    upper = torch.randn((1, nb, hb + 1, B_FULL, B_FULL), generator=g, device=dev,
+                        dtype=torch.bfloat16)
+    for d in range(1, hb + 1):
+        upper[:, nb - d:, d] = 0
+    op = SymBandedLD(upper=upper, mode="streamed")
+    if SymBandedLD.fits_shared_memory(hb, B_FULL, S, 2):
+        fail(f"mode 'auto' would take the resident kernel at hb={hb}")
+    res = {}
+    for name, o in (("streamed", op), ("slab-streamed", with_flavor(op, "slab-streamed")),
+                    ("resident", dataclasses.replace(op, mode="resident", rows_per_step=8))):
+        abs_err, rel = kernel_vs_plain(o, S, 16, f"{name}, wide band hb={hb}")
+        kernel, plain, args, xdt = band_kernel_of(o, S)
+        x = torch.randn((1, S, o.M), generator=torch.Generator(dev).manual_seed(0),
+                        device=dev).to(xdt)
+        ms_kern, ms_plain = kernel_and_plain_ms(lambda: kernel(*args, x),
+                                                lambda: plain(*args, x), n_kernel=20,
+                                                n_plain=2)
+        b_ms, b_by, nbytes = bound_ms(o, S, "bfloat16")
+        res[name] = {"kernel": kernel.__name__, "hb": hb, "M": o.M, "S": S,
+                     "abs_err": abs_err, "rel_err": rel, "ms": ms_kern, "plain_ms": ms_plain,
+                     "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
+                     "block_bytes_read": block_bytes_read(o, S)}
+        print(f"[2 wide band] {kernel.__name__}, random bfloat16 blocks, hb={hb}, M={o.M}, "
+              f"S={S}: scaled error {rel:.2e} (tol {SCALED_TOL}); kernel {ms_kern:.4f} ms/pass, "
+              f"plain {ms_plain:.4f}, bound {b_ms:.4f} ms ({b_by}), "
+              f"{res[name]['block_bytes_read']} block bytes read of "
+              f"{o.bytes_per_pass()} stored", flush=True)
+    return res
 
 
 def shard_bound_ms(piece, S: int, storage: str) -> tuple:
@@ -820,6 +872,10 @@ def main() -> None:
             del full_band, sym, xl
             torch.cuda.empty_cache()
     seconds["kernels_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wide = wide_band(dev, S)
+    torch.cuda.empty_cache()
+    seconds["wide_band"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     uf = torch.randn(16 << 20, generator=torch.Generator(dev).manual_seed(2), device=dev)
@@ -983,6 +1039,7 @@ def main() -> None:
     print(json.dumps({"seconds": {k: round(v, 2) for k, v in seconds.items()},
                       "cli": list(cli.values()) + list(mesh_cli.values()),
                       "kernel_bench": list(bench_rows.values()),
+                      "wide_band": wide,
                       "engine_paths": {
                           "int8": {k: int8_run[k] for k in ("executed", "s_per_iteration",
                                                             "alignment")},
@@ -1002,14 +1059,14 @@ def main() -> None:
                      "bound_by": f["bound_by"], "library_ms": library,
                      "bytes": f["bytes"], "block_bytes_read": f["block_bytes_read"]}, **extra)
 
-    def float_entry(name, flavor, source, line, n_launch):
+    def float_entry(name, flavor, source, line, n_launch, **extra):
         """A float kernel's entry: timed in bfloat16 at the top level, its
         float32 numbers beside; BandedLD.matvec as the library call."""
         k16 = f"{flavor} bfloat16".strip()
         k32 = f"{flavor} float32".strip()
         return band_entry(
             name, k16, source, line, n_launch, library=full["einsum bfloat16"]["ms"],
-            timed_storage="bfloat16", library_call="BandedLD.matvec",
+            timed_storage="bfloat16", library_call="BandedLD.matvec", **extra,
             library_bytes=full["einsum bfloat16"]["bytes_per_pass"],
             float32=dict({k: full[k32][k] for k in
                           ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "abs_err",
@@ -1035,19 +1092,24 @@ def main() -> None:
 
     csrc = "sgvamp_torch/csrc/"
     packed = {"design": "mma.sync m16n8k16 bf16 on slots decoded without I2F, gather, cp.async"}
+    read_once = {"design": "read once: a warp a block row walks each block once (16-byte "
+                           "loads), runs of G rows keep their own mirror sums in shared "
+                           "memory, the rest go through a scratch of partial sums and a "
+                           "second launch"}
 
     print(smi)
     print(json.dumps({"kernels": [
         band_entry("sym_band_matvec_int8", "int8", csrc + "sym_band_int8.cu", 179,
                    launches["sym_band_matvec_int8"]),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
-                    bench_launches["streamed"]),
+                    bench_launches["streamed"], **read_once),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
                    cli["int4"]["launches"], **packed),
         band_entry("sym_band_matvec_hybrid", "hybrid", csrc + "sym_band_hybrid.cu", 179,
                    cli["hybrid"]["launches"], **packed),
         float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
-                    333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"]),
+                    333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"],
+                    **read_once),
         float_entry("sym_band_matvec_resident", "resident", csrc + "sym_band_resident.cu", 46,
                     flavor_runs["resident"]["launches"]["sym_band_matvec_resident"]),
         float_entry("sym_band_matvec_window", "window", csrc + "sym_band_resident.cu", 83,
@@ -1065,7 +1127,7 @@ def main() -> None:
                     mesh_runs["int8"]["launches"]["sym_band_matvec_int8_spill"]),
         spill_entry("sym_band_matvec_spill", "bfloat16", csrc + "sym_band_float.cu", 197,
                     mesh_cli["bfloat16"]["launches"], timed_storage="bfloat16",
-                    float32=spill32("float32")),
+                    float32=spill32("float32"), **read_once),
         spill_entry("sym_band_matvec_int4_spill", "int4", csrc + "sym_band_int4.cu", 197,
                     mesh_cli["int4"]["launches"], **packed),
         spill_entry("sym_band_matvec_hybrid_spill", "hybrid", csrc + "sym_band_hybrid.cu", 197,
@@ -1075,7 +1137,8 @@ def main() -> None:
                     csrc + "sym_slab_streamed.cu", 380,
                     mesh_runs["bfloat16 slab-streamed"]["launches"][
                         "sym_slab_matvec_streamed_spill"],
-                    timed_storage="bfloat16", float32=spill32("slab-streamed float32")),
+                    timed_storage="bfloat16", float32=spill32("slab-streamed float32"),
+                    **read_once),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,7 @@
 // Shared pieces of the float-block kernels in which ONE WARP walks a (B, B)
 // row-major block of the LD matrix once and takes both products of it:
-// sym_slab_streamed.cu, sym_band_resident.cu, sym_slab_resident.cu.
+// sym_band_float.cu, sym_slab_streamed.cu, sym_band_resident.cu,
+// sym_slab_resident.cu.
 //
 // A warp reads the block in 16-byte vectors, 32 lanes on 512 consecutive
 // bytes (8 bfloat16, 4 float32 or 2 float64 values a lane), a few loads
@@ -18,6 +19,12 @@
 // Which of the two is the "row part" and which the "mirror part" of the
 // symmetric matvec depends on the storage: in diag layout a block is
 // U[i,d][p, q], in slab layout it is its transpose.
+//
+// The streamed kernels (sym_band_float.cu, sym_slab_streamed.cu) also share
+// the second launch of their pass: mirror sums that land outside the CTA's
+// run of block rows are written to a scratch of partial sums (`Partials`),
+// and fold_partials adds them into y (or writes them to the spill form's
+// carry) in a fixed order of d.
 
 #pragma once
 
@@ -126,12 +133,51 @@ __device__ __forceinline__ void add_cols(typename AccOf<T>::type* dst, int strid
         dst[s * stride + c * L::TILE + col0 + v] += cacc[s][c * L::V + v];
 }
 
+// xc[s][..] = src[s * stride + the lane's columns], read from device memory
+// in the block type (the streamed diag kernel's x_{i+d}).
+template <typename T, int B, int S>
+__device__ __forceinline__ void load_cols_global(const T* __restrict__ src, size_t stride,
+                                                 int lane,
+                                                 typename AccOf<T>::type (&xc)[S][Tile<T, B>::CV]) {
+  using L = Tile<T, B>;
+  const int col0 = (lane % L::LPR) * L::V;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int c = 0; c < L::C; ++c)
+#pragma unroll
+      for (int v = 0; v < L::V; ++v)
+        xc[s][c * L::V + v] = to_acc(src[s * stride + c * L::TILE + col0 + v]);
+}
+
+// dst[s * stride + the lane's columns] = cacc, by the lanes of row position 0
+// (call combine_cols first); dst may hold nothing yet.
+template <typename T, int B, int S>
+__device__ __forceinline__ void store_cols(
+    typename AccOf<T>::type* dst, size_t stride, int lane,
+    const typename AccOf<T>::type (&cacc)[S][Tile<T, B>::CV]) {
+  using L = Tile<T, B>;
+  if (lane >= L::LPR) return;
+  const int col0 = lane * L::V;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+#pragma unroll
+    for (int c = 0; c < L::C; ++c)
+#pragma unroll
+      for (int v = 0; v < L::V; ++v)
+        dst[s * stride + c * L::TILE + col0 + v] = cacc[s][c * L::V + v];
+}
+
 // One warp walks the (B, B) row-major block g once.
 //   ROWS: rout[s * rstride + p] += sum_q g[p, q] * xc[s][q]   (rout in shared
-//         memory; a row is always added by the same lane of the same warp)
+//         memory; a row is always added by the same lane of the same warp);
+//         with STORE the sum is stored instead of added (rout may then be
+//         device memory that holds nothing yet)
 //   COLS: cacc[s][q] += sum_p g[p, q] * xr[s * xstride + p]   (xr in shared
 //         memory; cacc is per row position until combine_cols)
-template <typename T, int B, int S, bool ROWS, bool COLS>
+// AHEAD row groups are loaded before their arithmetic (AHEAD divides NRG).
+template <typename T, int B, int S, bool ROWS, bool COLS, bool STORE = false,
+          int AHEAD = Tile<T, B>::U>
 __device__ __forceinline__ void walk_block(
     const T* __restrict__ g, int lane,
     const typename AccOf<T>::type (&xc)[S][Tile<T, B>::CV],
@@ -144,16 +190,17 @@ __device__ __forceinline__ void walk_block(
   const int col0 = (lane % L::LPR) * L::V;     // first column of the lane
   const T* base = g + static_cast<size_t>(sub) * B + col0;
 
-  for (int rg0 = 0; rg0 < L::NRG; rg0 += L::U) {
-    uint4 raw[L::U][L::C];
+  static_assert(L::NRG % AHEAD == 0, "AHEAD must divide the row groups");
+  for (int rg0 = 0; rg0 < L::NRG; rg0 += AHEAD) {
+    uint4 raw[AHEAD][L::C];
 #pragma unroll
-    for (int u = 0; u < L::U; ++u)
+    for (int u = 0; u < AHEAD; ++u)
 #pragma unroll
       for (int c = 0; c < L::C; ++c)
         raw[u][c] = *reinterpret_cast<const uint4*>(
             base + static_cast<size_t>(rg0 + u) * L::R * B + c * L::TILE);
 #pragma unroll
-    for (int u = 0; u < L::U; ++u) {
+    for (int u = 0; u < AHEAD; ++u) {
       const int p = (rg0 + u) * L::R + sub;
       A xrow[S];
       A part[S];
@@ -184,7 +231,10 @@ __device__ __forceinline__ void walk_block(
             part[s] += __shfl_xor_sync(0xffffffffu, part[s], off);
         if (lane % L::LPR == 0) {
 #pragma unroll
-          for (int s = 0; s < S; ++s) rout[s * rstride + p] += part[s];
+          for (int s = 0; s < S; ++s) {
+            if constexpr (STORE) rout[s * rstride + p] = part[s];
+            else rout[s * rstride + p] += part[s];
+          }
         }
       }
     }
@@ -259,6 +309,71 @@ __device__ __forceinline__ void run_end(typename AccOf<T>::type* __restrict__ yk
   }
 }
 
+// Row groups the streamed kernels load ahead of their arithmetic: twice the
+// walker's default, since a streamed CTA keeps no run's worth of blocks in
+// flight otherwise (one warp a block row, and a shard of 1024 block rows is
+// about 8 warps an SM).
+template <typename T, int B>
+constexpr int kStreamAhead = 2 * Tile<T, B>::U;
+
+// The scratch of partial sums of a streamed pass, (K, S, F, hb, B) in the
+// accumulation type. A CTA owns the run of G block rows c G .. c G + G - 1;
+// the mirror sum of block (i, d) lands in block row t = i + d, and goes to
+// the scratch when t lies in a later run (d > t mod G) or past the end of a
+// shard (the spill form, t >= nb): to row f(t), slot d - 1, with
+//   f(t) = (t / G) H + t mod G  for t < nb (only the first H = min(hb, G)
+//                                block rows of a run receive such sums),
+//   f(t) = C H + t - nb         for the carry's block rows nb .. nb + hb - 1,
+// C = ceil(nb / G) runs. Every (t, d) slot has one writer, and the wrapper
+// sizes the scratch by the same F (ops/band_kernel.py::_partials_shape).
+struct Partials {
+  int G, H, C, F, nb;
+  __host__ __device__ Partials(int nb_, int hb, int G_, bool spill)
+      : G(G_), H(hb < G_ ? hb : G_), C((nb_ + G_ - 1) / G_), nb(nb_) {
+    F = C * H + (spill ? hb : 0);
+  }
+  __device__ int row(int t) const { return t >= nb ? C * H + t - nb : (t / G) * H + t % G; }
+};
+
+// The second launch of a streamed pass: CTA (f, k) takes scratch row f of
+// cohort k. A row of a run, t = c G + o: y_t += the partials of d = o + 1 ..
+// min(hb, t) in that order. A carry row nb + j: carry_j = the partials of
+// d = j + 1 .. hb in that order.
+template <typename A>
+__global__ void __launch_bounds__(128)
+fold_partials_kernel(const A* __restrict__ part, A* __restrict__ y, A* __restrict__ carry,
+                     int nb, int hb, int G, int B, int S) {
+  const Partials pp(nb, hb, G, carry != nullptr);
+  const int f = blockIdx.x;
+  const int k = blockIdx.y;
+  int t, dlo;
+  A* out;
+  size_t ostride;
+  if (f < pp.C * pp.H) {
+    t = (f / pp.H) * G + f % pp.H;
+    if (t >= nb) return;
+    dlo = f % pp.H + 1;
+    ostride = static_cast<size_t>(nb) * B;
+    out = y + static_cast<size_t>(k) * S * ostride + static_cast<size_t>(t) * B;
+  } else {
+    const int j = f - pp.C * pp.H;
+    t = nb + j;
+    dlo = j + 1;
+    ostride = static_cast<size_t>(hb) * B;
+    out = carry + static_cast<size_t>(k) * S * ostride + static_cast<size_t>(j) * B;
+  }
+  const bool add = t < nb;
+  const int dhi = hb < t ? hb : t;
+  for (int e = threadIdx.x; e < S * B; e += blockDim.x) {
+    const int s = e / B;
+    const int c = e - s * B;
+    const A* src = part + ((static_cast<size_t>(k) * S + s) * pp.F + f) * hb * B + c;
+    A v = add ? out[s * ostride + c] : A(0);
+    for (int d = dlo; d <= dhi; ++d) v += src[static_cast<size_t>(d - 1) * B];
+    out[s * ostride + c] = v;
+  }
+}
+
 // The arguments every launcher takes, and the switch from run-time
 // (dtype, B, S) to a template instance Launch<T, B, S>::run(args).
 struct Args {
@@ -267,7 +382,8 @@ struct Args {
   void* y;
   int K, nb, hb, G;
   cudaStream_t stream;
-  void* carry = nullptr;  // the spill form's second output (sym_slab_streamed.cu)
+  void* carry = nullptr;     // the spill form's second output (the streamed kernels)
+  void* partials = nullptr;  // the streamed kernels' scratch (Partials)
 };
 
 template <template <typename, int, int> class Launch, typename T, int B>
@@ -317,6 +433,29 @@ int reserve_shared(Kernel kernel, size_t smem) {
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return 0;
+}
+
+// The streamed kernels' launches: `kernel` over (ceil(nb / G), K) CTAs of G
+// warps with `smem` bytes of dynamic shared memory, then fold_partials on the
+// same stream. 0 or the first error; cudaErrorMisalignedAddress (716) with
+// nothing launched when upper does not start on a 16-byte boundary (the
+// walker reads it 16 bytes at a time).
+template <typename T, typename A, typename Kernel>
+int launch_streamed(Kernel kernel, const Args& a, int B, int S, size_t smem) {
+  if (reinterpret_cast<uintptr_t>(a.upper) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (const int err = reserve_shared(kernel, smem)) return err;
+  const bool spill = a.carry != nullptr;
+  kernel<<<dim3((a.nb + a.G - 1) / a.G, a.K), 32 * a.G, smem, a.stream>>>(
+      static_cast<const T*>(a.upper), static_cast<const T*>(a.x), static_cast<A*>(a.y),
+      static_cast<A*>(a.partials), a.nb, a.hb, a.G, spill);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  if (a.hb == 0) return 0;   // no mirror terms: nothing to fold; the carry is the caller's zeros
+  const Partials pp(a.nb, a.hb, a.G, spill);
+  fold_partials_kernel<A><<<dim3(pp.F, a.K), 128, 0, a.stream>>>(
+      static_cast<const A*>(a.partials), static_cast<A*>(a.y), static_cast<A*>(a.carry), a.nb,
+      a.hb, a.G, B, S);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Launches `kernel` with G warps a CTA over (ceil(nb / G), K) CTAs and

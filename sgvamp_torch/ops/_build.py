@@ -28,8 +28,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _QUANT = [_P] * 4 + [_I] * 5 + [_P]
-_FLOAT = [_P] * 3 + [_I] * 6 + [_P]
 _ROWS = [_P] * 3 + [_I] * 7 + [_P]
+_STREAMED = [_P] * 4 + [_I] * 7 + [_P]
 
 
 def _spill(argtypes: list, n_in: int) -> list:
@@ -47,12 +47,13 @@ ENTRY_POINTS = {
                       "sgv_sym_band_int4_spill": _spill(_QUANT, 3)},
     "sym_band_hybrid": {"sgv_sym_band_hybrid_matvec": _QUANT,
                         "sgv_sym_band_hybrid_spill": _spill(_QUANT, 3)},
-    # upper, x, y, [carry,] K, nb, hb, B, S, dtype code, stream
-    "sym_band_float": {"sgv_sym_band_float_matvec": _FLOAT,
-                       "sgv_sym_band_float_spill": _spill(_FLOAT, 2)},
-    # upper, x, y, [carry,] K, nb, hb, B, S, block rows a CTA, dtype code, stream
-    "sym_slab_streamed": {"sgv_sym_slab_streamed_matvec": _ROWS,
-                          "sgv_sym_slab_streamed_spill": _spill(_ROWS, 2)},
+    # upper, x, y, [carry,] partials, K, nb, hb, B, S, block rows a CTA,
+    # dtype code, stream
+    "sym_band_float": {"sgv_sym_band_float_matvec": _STREAMED,
+                       "sgv_sym_band_float_spill": _spill(_STREAMED, 2)},
+    "sym_slab_streamed": {"sgv_sym_slab_streamed_matvec": _STREAMED,
+                          "sgv_sym_slab_streamed_spill": _spill(_STREAMED, 2)},
+    # upper, x, y, K, nb, hb, B, S, block rows a CTA, dtype code, stream
     "sym_band_resident": {"sgv_sym_band_resident_matvec": _ROWS},
     "sym_slab_resident": {"sgv_sym_slab_resident_matvec": _ROWS},
 }

@@ -22,10 +22,13 @@ and the mirrored part U[i,d]^T @ x_i. Five storage types:
 
 The quantized types take x in bf16 and sum in f32, in diag layout and the
 streamed flavor only. Float blocks have two flavors in either layout
-(SymBandedLD.mode): "streamed" gathers every output block row on its own
-and reads each off-diagonal block twice; "resident" keeps the x and y of a
-run of block rows in a CTA's shared memory, reads each block once and
-takes both its terms, and is limited by that shared memory
+(SymBandedLD.mode), and both read each stored block once and take both its
+terms. "streamed" keeps only a run's own mirror sums on chip and hands the
+mirror sums that cross into the next run to a second, short launch through
+a scratch of partial sums, so it takes any band; "resident" keeps the x
+and y of a run of block rows in a CTA's shared memory, reads the
+neighbour's last blocks again for the mirror terms that cross into its
+run, and is limited by that shared memory
 (SymBandedLD.fits_shared_memory); "auto" takes the resident flavor where
 it fits.
 
@@ -409,12 +412,15 @@ def _check_quantized(upper: Tensor, scales: Tensor, x: Tensor,
 
 
 def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
-            out_dtype: torch.dtype, spill_hb: Optional[int] = None):
-    """Launch one band kernel on x's CUDA device and count the launch on
+            out_dtype: torch.dtype, spill_hb: Optional[int] = None,
+            partials: Optional[tuple] = None):
+    """Run one band kernel's pass on x's CUDA device and count it on
     `wrapper`. tensors: the device arrays before y in the C signature;
     dims: the ints after the outputs. spill_hb None: the library's
     `matvec` entry, returns y shaped as x. spill_hb = hb: its `spill`
-    entry over a halo-extended x, returns (y_l, carry)."""
+    entry over a halo-extended x, returns (y_l, carry). partials: the shape
+    of the streamed float kernels' scratch (_partials_shape), allocated
+    here in y's type and passed after the outputs."""
     if x.device.type != "cuda":
         raise ValueError(f"no band kernel for device {x.device}")
     if not all(t.is_contiguous() for t in tensors):
@@ -435,6 +441,8 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
         carry = (torch.empty((K, S, spill_hb * B), dtype=out_dtype, device=x.device)
                  if spill_hb else torch.zeros((K, S, B), dtype=out_dtype, device=x.device))
         outs = (y, carry)
+    if partials is not None:
+        outs += (torch.empty(partials, dtype=out_dtype, device=x.device),)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(load_library(library), entry)(
@@ -442,7 +450,7 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed (error {err})")
     wrapper.launches += 1
-    return outs[0] if spill_hb is None else outs
+    return outs[0] if spill_hb is None else outs[:2]
 
 
 def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool):
@@ -480,12 +488,9 @@ def sym_band_matvec_int8_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tupl
 def _float(wrapper, plain, upper: Tensor, x: Tensor, spill: bool):
     """As _int8, for the float-block wrappers of the diag layout."""
     x = _check_float(upper, x, slab=False, spill=spill)
-    K, nb, hb, B = _geometry(upper)
     if x.device.type == "cpu":
         return plain(upper, x)
-    return _launch(wrapper, "sym_band_float", x, (upper, x),
-                   (K, nb, hb, B, x.shape[1], _FLOAT_CODES[upper.dtype]), B,
-                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None)
+    return _launch_streamed(wrapper, "sym_band_float", upper, x, DIAG_RUN_ROWS, spill)
 
 
 def sym_band_matvec(upper: Tensor, x: Tensor) -> Tensor:
@@ -561,6 +566,18 @@ def sym_band_matvec_hybrid_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tu
 # of G block rows may ask for on an H100 (csrc/sym_band_tile.cuh)
 SHARED_MEMORY_BYTES = 232448
 MAX_ROWS_PER_CTA = 16
+# block rows a CTA of the streamed diag kernel takes: its shared memory, 3 G
+# S B accumulator words, fits for every B, S and type, and whatever hb is
+DIAG_RUN_ROWS = 8
+
+
+def _partials_shape(K: int, S: int, nb: int, hb: int, G: int, B: int, spill: bool) -> tuple:
+    """The streamed float kernels' scratch of partial sums, (K, S, F, hb, B)
+    in y's type (csrc/sym_band_tile.cuh::Partials): one row for each of the
+    first min(hb, G) block rows of each run of G, and in the spill form one
+    for each of the carry's hb block rows."""
+    F = -(-nb // G) * min(hb, G) + (hb if spill else 0)
+    return (K, S, F, hb, B)
 
 
 def _geometry(upper: Tensor) -> tuple:
@@ -608,8 +625,10 @@ def _resident_rows(upper: Tensor, S: int, rows_per_step: int) -> int:
 def _gather_rows(upper: Tensor, S: int, rows_per_step: int) -> int:
     """Block rows (warps) a CTA of the streamed slab kernel takes.
     rows_per_step is checked as the JAX package checks its chunk (it must
-    divide nb and be >= hb); the kernel carries nothing between block rows,
-    so any count up to MAX_ROWS_PER_CTA whose x window fits will do."""
+    divide nb and be >= hb); mirror sums that cross a run go through the
+    scratch of partial sums, so any count up to MAX_ROWS_PER_CTA whose x
+    window fits will do (the kernel needs S B (2 G + hb) accumulator words,
+    within the S B (2 G + 2 hb) checked here)."""
     _, nb, hb, B = _geometry(upper)
     G = rows_per_step
     if G and (nb % G or G < hb):
@@ -637,12 +656,22 @@ def _check_float(upper: Tensor, x: Tensor, slab: bool, spill: bool = False) -> T
     return _check_x(x, K, nb, hb, B, upper.dtype, spill)
 
 
-def _launch_rows(wrapper, library: str, upper: Tensor, x: Tensor, G: int,
-                 spill: bool = False):
+def _launch_rows(wrapper, library: str, upper: Tensor, x: Tensor, G: int):
     K, nb, hb, B = _geometry(upper)
     return _launch(wrapper, library, x, (upper, x),
                    (K, nb, hb, B, x.shape[1], G, _FLOAT_CODES[upper.dtype]), B,
-                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None)
+                   torch.promote_types(upper.dtype, torch.float32))
+
+
+def _launch_streamed(wrapper, library: str, upper: Tensor, x: Tensor, G: int, spill: bool):
+    """A pass of a streamed float kernel (the kernel and its fold of the
+    partial sums, counted once) with runs of G block rows."""
+    K, nb, hb, B = _geometry(upper)
+    S = x.shape[1]
+    return _launch(wrapper, library, x, (upper, x),
+                   (K, nb, hb, B, S, G, _FLOAT_CODES[upper.dtype]), B,
+                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None,
+                   partials=_partials_shape(K, S, nb, hb, G, B, spill))
 
 
 def _slab_streamed(wrapper, plain, upper: Tensor, rows_per_step: int, x: Tensor, spill: bool):
@@ -651,7 +680,7 @@ def _slab_streamed(wrapper, plain, upper: Tensor, rows_per_step: int, x: Tensor,
     G = _gather_rows(upper, x.shape[1], rows_per_step)
     if x.device.type == "cpu":
         return plain(upper, rows_per_step, x)
-    return _launch_rows(wrapper, "sym_slab_streamed", upper, x, G, spill)
+    return _launch_streamed(wrapper, "sym_slab_streamed", upper, x, G, spill)
 
 
 def sym_slab_matvec_streamed(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:
@@ -877,14 +906,16 @@ class SymBandedLD:
 
     @staticmethod
     def fits_shared_memory(hb: int, B: int, S: int = 2, storage_bytes: int = 2) -> bool:
-        """The size rule of mode="auto" on this card: whether a resident
-        kernel's run is long enough to read fewer bytes than the streamed
-        gather. A run of G block rows reads 1 + hb/(2G) of the stored
-        blocks (its neighbour's last rows once more), the gather
-        (2hb+1)/(hb+1), so the resident kernel is taken when
-        2 * resident_rows(...) > hb + 1, with 232,448 bytes of shared
-        memory a CTA. The rule does not depend on M: no CTA holds more
-        than its run."""
+        """The size rule of mode="auto" on this card, the JAX package's
+        routing: the resident kernel is taken when 2 * resident_rows(...) >
+        hb + 1, with 232,448 bytes of shared memory a CTA. The rule was
+        drawn against a streamed gather that read (2hb+1)/(hb+1) of the
+        stored blocks; a run of G block rows of the resident kernel reads
+        1 + hb/(2G) (its neighbour's last rows once more), and the streamed
+        kernels now read every block once plus their partial sums, so at
+        every hb they read fewer bytes than the resident kernel (whether
+        that makes them faster is measured in PERF.md). The rule does not
+        depend on M: no CTA holds more than its run."""
         return 2 * SymBandedLD.resident_rows(hb, B, S, storage_bytes) > hb + 1
 
     def _use_resident(self, S: int) -> bool:

@@ -1,13 +1,16 @@
 """Where a band kernel's time goes: one JSON line per case, on one GPU.
 
     python -m sgvamp_torch.utils.kernel_diag [--bytes 201326592] [--out FILE]
-        [--storages int8,int4,hybrid,bfloat16,float32]
+        [--storages int8,int4,hybrid,bfloat16,float32] [--hb 0,1,2]
+        [--bench-hb 2]
 
 For each storage of SymBandedLD (int8, int4, hybrid, bfloat16, float32) the
 streamed diag kernel, and for the two float storages also the streamed
 slab, resident diag and resident slab kernels, are timed on random blocks
-at B=128 whose total size is held near `--bytes`, for hb in (0, 1, 2) and
-S in (1, 2, 4) lanes. hb=0 has no mirror blocks, so nothing is read twice;
+at B=128 whose total size is held near `--bytes`, for each hb of `--hb`
+(default 0, 1, 2) and S in (1, 2, 4) lanes; the resident kernels take the
+most block rows a CTA that fit (SymBandedLD.resident_rows), so a wide band
+(hb=16) can be timed on them too. hb=0 has no mirror blocks;
 S scales the multiply-adds and leaves the bytes and the decoding of the
 blocks unchanged. Each line gives ms per pass (CUDA events over 100
 launches after a warm-up, the card asleep for 20 ms while the host queues
@@ -15,18 +18,21 @@ them, so that launches shorter than their host-side cost run back to
 back), GB/s over bytes_per_pass(), the block elements decoded per second
 (every stored off-diagonal block is decoded twice, as a row and as a
 mirror block), and the same call's read-probe time for those bytes. Last,
-three lines per storage at the bench shape (M=524288, hb=2, S=2): the
-streamed diag kernel, its spill form on one shard of four (1024 block rows
-and the halo), and the chained operator pass of the operator cut four ways
-over a one-card mesh beside the unsharded one (utils/kernel_bench.py's
-time_passes, as chip_smoke.py's phase 6b times it: host dispatch
-included), three times each to show its spread. A kernel bound by bytes
-runs near the probe's time at hb=0 whatever S is; one bound by decoding
-keeps its elements per second from hb=0 to hb=2. The streamed kernels read
-every off-diagonal block twice, the resident ones once (plus hb/(2G) of
-them at the run boundaries): at hb=2 the difference between the two
-flavors of one storage is what the second read costs. `--storages` times
-only the storages that a change touches (the whole run takes minutes).
+for each hb of `--bench-hb` (default 2), lines per storage at the bench
+shape (M=524288, S=2): the streamed diag kernel (for the float storages
+also the streamed slab kernel), its spill form on one shard of four (1024
+block rows and the halo), and the chained operator pass of the operator cut
+four ways over a one-card mesh beside the unsharded one
+(utils/kernel_bench.py's time_passes, as chip_smoke.py's phase 6b times
+it: host dispatch included), three times each to show its spread. A kernel
+bound by bytes runs near the probe's time at hb=0 whatever S is; one bound
+by decoding keeps its elements per second from hb=0 to hb=2. The quantized
+streamed kernels read every off-diagonal block twice, the float streamed
+kernels once (plus their partial sums), the resident ones once plus
+hb/(2G) of them at the run boundaries. `--storages` times only the
+storages that a change touches (the whole run takes minutes). Run from
+another checkout's root with this file's path, the script times that
+checkout's package (PYTHONPATH=. python /path/to/kernel_diag.py).
 """
 
 from __future__ import annotations
@@ -45,7 +51,7 @@ from sgvamp_torch.utils import kernel_bench
 
 B = 128
 STORAGES = ("int8", "int4", "hybrid", "bfloat16", "float32")
-BENCH_NB, BENCH_HB, BENCH_S, BENCH_SHARDS = 4096, 2, 2, 4   # M=524288, bandwidth 256
+BENCH_NB, BENCH_S, BENCH_SHARDS = 4096, 2, 4   # M=524288
 PASSES = 20   # chained passes of a pass timing, as chip_smoke.py's BENCH_PASSES
 
 
@@ -105,8 +111,15 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None, help="also append the lines to this file")
     ap.add_argument("--storages", default=",".join(STORAGES),
                     help="comma-separated storages to time (default: all)")
+    ap.add_argument("--hb", default="0,1,2",
+                    help="comma-separated block diagonals of the random cases")
+    ap.add_argument("--bench-hb", default="2",
+                    help="comma-separated block diagonals of the bench-shape cases "
+                         "(2 is the bench's bandwidth 256)")
     args = ap.parse_args(argv)
     storages = args.storages.split(",")
+    hbs = [int(v) for v in args.hb.split(",")]
+    bench_hbs = [int(v) for v in args.bench_hb.split(",")]
     if not set(storages) <= set(STORAGES):
         raise SystemExit(f"--storages takes {', '.join(STORAGES)}")
     if not torch.cuda.is_available():
@@ -122,15 +135,21 @@ def main(argv=None) -> int:
     for storage, flavor in cases:
         per_elem = {"int8": 1.0, "int4": 0.5, "hybrid": 0.5, "bfloat16": 2.0,
                     "float32": 4.0}[storage]
-        for hb in (0, 1, 2):
+        for hb in hbs:
             nslot = hb + (2 if storage == "hybrid" else 1)
             slot_bytes = B * B * per_elem
             nb = max(int(args.bytes // (nslot * slot_bytes)), hb + 1)
+            nb -= nb % 16 if nb > 16 else 0   # any run of the resident kernels divides it
             op = _random_operator(storage, nb, hb, device, flavor)
             gbps, probe_s = measure_read_gbps(op.upper, n=20)
             # decoded block products: nb diagonal + 2 per stored off-diagonal
             decoded = (op.nb + 2 * sum(op.nb - d for d in range(1, hb + 1))) * B * B
             for S in (1, 2, 4):
+                if flavor in ("resident", "slab-resident"):
+                    G = bk.SymBandedLD.resident_rows(hb, B, S, op.upper.element_size())
+                    if not G:
+                        continue
+                    op = dataclasses.replace(op, rows_per_step=G)
                 kernel, _, k_args, xdt = bk.band_kernel_of(op, S)
                 x = torch.randn((1, S, op.M), device=device).to(xdt)
                 ms = _ms(lambda: kernel(*k_args, x))
@@ -143,8 +162,11 @@ def main(argv=None) -> int:
                     "probe_ms_for_the_blocks": probe_s * 1e3, "probe_gbps": gbps})
                 print(json.dumps(lines[-1]), flush=True)
             del op, k_args, x
-    for storage in storages:
-        op = _random_operator(storage, BENCH_NB, BENCH_HB, device)
+    bench = [(st, "streamed", hb) for hb in bench_hbs for st in storages]
+    bench += [(st, "slab-streamed", hb) for hb in bench_hbs for st in ("bfloat16", "float32")
+              if st in storages]
+    for storage, flavor, hb in bench:
+        op = _random_operator(storage, BENCH_NB, hb, device, flavor)
         nb_l = BENCH_NB // BENCH_SHARDS
         piece = dataclasses.replace(  # an interior shard: a halo to read, a carry to write
             op, upper=op.upper[:, nb_l:2 * nb_l].contiguous(),
@@ -154,15 +176,18 @@ def main(argv=None) -> int:
             x = torch.randn((1, BENCH_S, o.M + (o.hb * B if spill else 0)),
                             device=device).to(xdt)
             ms = _ms(lambda: kernel(*k_args, x))
-            lines.append({"card": smi, "storage": storage, "shape": "bench", "form": form,
-                          "kernel": kernel.__name__, "hb": o.hb, "nb": o.nb, "S": BENCH_S,
-                          "bytes_per_pass": o.bytes_per_pass(), "ms": ms})
+            lines.append({"card": smi, "storage": storage, "flavor": flavor, "shape": "bench",
+                          "form": form, "kernel": kernel.__name__, "hb": o.hb, "nb": o.nb,
+                          "S": BENCH_S, "bytes_per_pass": o.bytes_per_pass(), "ms": ms})
             print(json.dumps(lines[-1]), flush=True)
+        if flavor != "streamed":
+            del op, piece, k_args, x
+            continue
         sh = _one_card_shards(op, BENCH_SHARDS)
         lanes = torch.randn((BENCH_S, op.M), device=device)
         passes = {name: [kernel_bench.time_passes(o, lanes, PASSES) * 1e3 for _ in range(3)]
                   for name, o in (("sharded_pass_ms", sh), ("unsharded_pass_ms", op))}
-        lines.append({"card": smi, "storage": storage, "shape": "bench",
+        lines.append({"card": smi, "storage": storage, "flavor": flavor, "shape": "bench",
                       "form": f"chained pass, {BENCH_SHARDS} shards on one card", "hb": op.hb,
                       "nb": op.nb, "S": BENCH_S, "passes": PASSES, **passes})
         print(json.dumps(lines[-1]), flush=True)

@@ -16,6 +16,9 @@ import torch
 from sgvamp_torch.data.simulate import simulate_ld_band
 from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel_of,
                                           sym_band_matvec,
+                                          sym_band_matvec_ref,
+                                          sym_band_matvec_spill,
+                                          sym_band_matvec_spill_ref,
                                           sym_band_matvec_hybrid,
                                           sym_band_matvec_int4,
                                           sym_band_matvec_int8,
@@ -23,7 +26,10 @@ from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel
                                           sym_band_matvec_resident,
                                           sym_band_matvec_window,
                                           sym_slab_matvec_resident,
-                                          sym_slab_matvec_streamed)
+                                          sym_slab_matvec_streamed,
+                                          sym_slab_matvec_streamed_ref,
+                                          sym_slab_matvec_streamed_spill,
+                                          sym_slab_matvec_streamed_spill_ref)
 from sgvamp_torch.ops.membench import measure_read_gbps, read_max, read_max_ref
 from torch_packed_slots import packed_slots, term_magnitudes, worst_termwise_error
 
@@ -368,6 +374,132 @@ def test_sharded_operator_on_one_card_matches_unsharded(cuda, storage):
     with pytest.raises(ValueError):    # a spill wrapper never steps down to the CPU's version
         kernel, _, args, xdt = band_kernel_of(sh.op.shards[0][0], 2, spill=True)
         kernel(*args, torch.zeros((1, 2, 10 * 128), dtype=xdt))
+
+
+# The streamed float kernels (csrc/sym_band_float.cu, csrc/sym_slab_streamed.cu)
+# read every stored block once: mirror sums that leave a CTA's run of block
+# rows go through a scratch of partial sums and a second launch. Held against
+# their plain versions on random blocks (zero past the panel's end, as
+# from_band leaves them): wide bands where mode="auto" routes here (hb 15,
+# 16), hb=0 (no partials), runs cut short by a ragged nb, and in the spill
+# form shards narrower than a run; the same bits on a repeat; the last
+# shard's carry exactly zero. (layout) -> (wrapper, plain, spill wrapper,
+# spill plain).
+STREAMED_FLOAT = {
+    "diag": (sym_band_matvec, sym_band_matvec_ref, sym_band_matvec_spill,
+             sym_band_matvec_spill_ref),
+    "slab": (sym_slab_matvec_streamed, sym_slab_matvec_streamed_ref,
+             sym_slab_matvec_streamed_spill, sym_slab_matvec_streamed_spill_ref),
+}
+
+
+def _random_blocks(layout, dtype, K, nb, hb, B, seed, device):
+    """Random float blocks U[i, d], zero where i + d >= nb, in `layout`."""
+    g = torch.Generator(device).manual_seed(seed)
+    up = torch.randn((K, nb, hb + 1, B, B), generator=g, device=device)
+    for d in range(1, hb + 1):
+        up[:, max(nb - d, 0):, d] = 0.0
+    if layout == "slab":
+        up = up.transpose(-1, -2).reshape(K, nb, (hb + 1) * B, B)
+    return up.to(getattr(torch, dtype)).contiguous()
+
+
+def _streamed_args(layout, upper, G=0):
+    return (upper,) if layout == "diag" else (upper, G)
+
+
+@pytest.mark.parametrize("B,hb,nb,K,S,G", [
+    (64, 15, 40, 1, 2, 0),     # wide: "auto" takes the streamed kernel
+    (64, 16, 37, 2, 1, 0),     # wide, ragged nb: the last run is short
+    (128, 15, 32, 1, 4, 0),
+    (128, 16, 48, 1, 2, 16),   # slab: runs of 16 block rows
+    (128, 0, 9, 2, 3, 0),      # hb=0: no mirror blocks, no partials
+    (256, 3, 11, 1, 2, 0),
+    (256, 1, 5, 1, 4, 0),      # fewer block rows than a run
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+@pytest.mark.parametrize("layout", sorted(STREAMED_FLOAT))
+def test_streamed_float_kernels_read_once_match_plain(cuda, layout, dtype, B, hb, nb, K, S, G):
+    kernel, plain, _, _ = STREAMED_FLOAT[layout]
+    upper = _random_blocks(layout, dtype, K, nb, hb, B, B + hb + nb, cuda)
+    args = _streamed_args(layout, upper, G)
+    x = torch.from_numpy(np.random.default_rng(nb + S).normal(size=(K, S, nb * B))).to(
+        cuda, upper.dtype)
+    before = [w.launches for w in BAND_KERNELS]
+    y = kernel(*args, x)
+    torch.cuda.synchronize()
+    after = [w.launches for w in BAND_KERNELS]
+    # one pass, two launches on the card (the kernel and its fold), counted once
+    assert sum(after) == sum(before) + 1 and kernel.launches == before[
+        BAND_KERNELS.index(kernel)] + 1
+    want = plain(*args, x)
+    assert y.dtype == want.dtype and y.shape == want.shape == (K, S, nb * B)
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= (1e-12 if dtype == "float64" else SCALED_TOL), err
+    assert torch.equal(y, kernel(*args, x))  # no atomics: reproducible bits
+
+
+@pytest.mark.parametrize("B,hb,nb,n,K,S", [
+    (64, 15, 60, 4, 1, 2),     # wide, shards of hb block rows
+    (128, 16, 64, 4, 2, 1),    # wide
+    (128, 3, 12, 3, 1, 4),     # shards of 4 block rows: narrower than a run
+    (64, 5, 10, 2, 2, 3),      # shards of 5, hb=5
+    (128, 1, 8, 8, 1, 2),      # one block row a shard
+    (256, 2, 9, 3, 1, 1),
+    (128, 0, 6, 3, 2, 2),      # hb=0: no halo, a carry of one zero block
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+@pytest.mark.parametrize("layout", sorted(STREAMED_FLOAT))
+def test_streamed_float_spill_kernels_read_once_match_plain(cuda, layout, dtype, B, hb, nb, n,
+                                                             K, S):
+    whole, _, kernel, plain = STREAMED_FLOAT[layout]
+    upper = _random_blocks(layout, dtype, K, nb, hb, B, B + hb + nb + n, cuda)
+    tol = 1e-12 if dtype == "float64" else SCALED_TOL
+    x = torch.from_numpy(np.random.default_rng(nb + n).normal(size=(K, S, nb * B))).to(
+        cuda, upper.dtype)
+    want = whole(*_streamed_args(layout, upper), x)
+    scale = float(want.abs().max())
+    nb_l, hbB = nb // n, hb * B
+    xpad = torch.cat([x, x.new_zeros(K, S, hbB)], dim=2)
+    ys, carry = [], None
+    for j in range(n):
+        args = _streamed_args(layout, upper[:, j * nb_l:(j + 1) * nb_l].contiguous())
+        x_ext = xpad[:, :, j * nb_l * B:((j + 1) * nb_l + hb) * B].contiguous()
+        before = kernel.launches
+        y_l, spilled = kernel(*args, x_ext)
+        torch.cuda.synchronize()
+        assert kernel.launches == before + 1
+        py, pc = plain(*args, x_ext)
+        assert y_l.shape == py.shape == (K, S, nb_l * B)
+        assert spilled.shape == pc.shape == (K, S, max(hbB, B))
+        assert float((y_l - py).abs().max()) / scale <= tol
+        assert float((spilled - pc).abs().max()) / scale <= tol
+        y2, c2 = kernel(*args, x_ext)   # no atomics: reproducible bits
+        assert torch.equal(y_l, y2) and torch.equal(spilled, c2)
+        if j and hbB:
+            y_l[:, :, :hbB] += carry
+        carry = spilled
+        ys.append(y_l)
+    assert float(carry.abs().max()) == 0.0
+    assert float((torch.cat(ys, dim=2) - want).abs().max()) / scale <= tol
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+@pytest.mark.parametrize("layout", sorted(STREAMED_FLOAT))
+def test_streamed_float_kernels_refuse_unaligned_upper(cuda, layout, dtype):
+    """The walker reads the blocks 16 bytes at a time: blocks that start off
+    a 16-byte boundary are refused with cudaErrorMisalignedAddress (716)
+    and nothing is launched."""
+    kernel = STREAMED_FLOAT[layout][0]
+    upper = _random_blocks(layout, dtype, 1, 4, 1, 64, 0, cuda)
+    off = torch.empty(upper.numel() + 1, dtype=upper.dtype, device=cuda)[1:].view(upper.shape)
+    off.copy_(upper)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    x = torch.zeros((1, 2, 4 * 64), dtype=upper.dtype, device=cuda)
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match=r"\(error 716\)"):
+        kernel(*_streamed_args(layout, off), x)
+    assert kernel.launches == before
 
 
 # The tensor-core decode and fragment maps of the int4 and hybrid kernels

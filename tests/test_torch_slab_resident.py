@@ -30,6 +30,7 @@ from sgvamp_tpu.core import vamp as jvamp
 from sgvamp_tpu.core.prior import PriorState as JPrior
 from sgvamp_tpu.data.simulate import band_to_dense, simulate_ld_band
 from sgvamp_tpu.ops.band_kernel import SymBandedLD as JSym
+from sgvamp_tpu.ops.band_kernel import _sym_band_matvec_streamed, _sym_slab_matvec_streamed
 
 SCALED_TOL = 1e-5
 M_RAGGED = 700   # deliberately not a block multiple
@@ -161,6 +162,69 @@ def test_f32_bf16_plain_versions_match_jax(dtype, layout, mode, window, B, bw, G
     y_jax = np.asarray(jop.matvec(jnp.asarray(x)), np.float64)
     scale = np.abs(y_jax).max()
     np.testing.assert_allclose(y / scale, y_jax / scale, rtol=0, atol=SCALED_TOL)
+
+
+# Wide bands, where mode="auto" takes the streamed kernels (hb >= 15): the
+# plain versions that the kernels are held against on the card, against the
+# Pallas streamed kernels in interpret mode and the dense product, in
+# float64 to 1e-10. B=8 keeps the unrolled Pallas loops small; M is ragged
+# (nb=32), the Pallas chunk is 16 block rows (>= hb, as it must be), and the
+# spill form cuts the panel into two shards of 16 block rows.
+WIDE_B, WIDE_M, WIDE_G = 8, 253, 16
+
+
+@pytest.mark.parametrize("layout,form,bw", [
+    ("diag", "matvec", 123),   # hb=16
+    ("slab", "matvec", 118),   # hb=15
+    ("diag", "spill", 127),    # hb=16
+    ("slab", "spill", 121),    # hb=16
+])
+def test_wide_band_plain_versions_match_jax_and_dense(layout, form, bw):
+    B, G, K, S = WIDE_B, WIDE_G, 1, 2
+    band = _band(WIDE_M, bw, seed=bw)
+    R = band_to_dense(band)
+    jop = JSym.from_band(band, block_size=B, K=K, layout=layout)
+    op = SymBandedLD.from_band(band, block_size=B, K=K, layout=layout, device="cpu")
+    np.testing.assert_array_equal(op.upper.numpy(), np.asarray(jop.upper))
+    assert (op.nb, op.hb) == (32, -(-bw // B)) and op.hb >= 15
+    x = np.random.default_rng(bw).normal(size=(K, S, op.M))
+    dense = op.to_dense()[0].numpy()
+    np.testing.assert_array_equal(dense, np.asarray(jop.to_dense())[0])
+    want = x[0] @ dense.T                                  # (S, M)
+    np.testing.assert_allclose(want[:, :WIDE_M], x[0, :, :WIDE_M] @ R.T, rtol=1e-10,
+                               atol=1e-12)
+    jfun = _sym_slab_matvec_streamed if layout == "slab" else _sym_band_matvec_streamed
+    if form == "matvec":
+        plain = tbk.sym_slab_matvec_streamed_ref if layout == "slab" else tbk.sym_band_matvec_ref
+        args = (op.upper, 0) if layout == "slab" else (op.upper,)
+        y = plain(*args, torch.from_numpy(x)).numpy()
+        jy, _ = jfun(jop.upper, jnp.asarray(x), op.nb, interpret=True, rows_per_step=G)
+        np.testing.assert_allclose(y, np.asarray(jy), rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(y[0], want, rtol=1e-10, atol=1e-12)
+        return
+    plain = (tbk.sym_slab_matvec_streamed_spill_ref if layout == "slab"
+             else tbk.sym_band_matvec_spill_ref)
+    nb_l, hbB = op.nb // 2, op.hb * B
+    xpad = np.concatenate([x, np.zeros((K, S, G * B))], axis=2)
+    ys, carry = [], None
+    for j in range(2):
+        rows = slice(j * nb_l, (j + 1) * nb_l)
+        x_ext = xpad[:, :, j * nb_l * B:(j * nb_l + nb_l + G) * B]   # halo, padded to a chunk
+        piece = op.upper[:, rows].contiguous()
+        y_l, spilled = plain(*((piece, 0) if layout == "slab" else (piece,)),
+                             torch.from_numpy(x_ext))
+        jy, jc = jfun(jop.upper[:, rows], jnp.asarray(x_ext), nb_l, interpret=True,
+                      rows_per_step=G, spill=True)
+        np.testing.assert_allclose(y_l.numpy(), np.asarray(jy), rtol=1e-10, atol=1e-12)
+        np.testing.assert_allclose(spilled.numpy(), np.asarray(jc), rtol=1e-10, atol=1e-12)
+        assert spilled.shape == (K, S, hbB)
+        y_l = y_l.numpy()
+        if j:
+            y_l[:, :, :hbB] += carry
+        carry = spilled.numpy()
+        ys.append(y_l)
+    assert np.all(carry == 0)   # what leaves the panel: exact zeros
+    np.testing.assert_allclose(np.concatenate(ys, axis=2)[0], want, rtol=1e-10, atol=1e-12)
 
 
 def test_diagonal_only_band_has_no_mirrors():
