@@ -7,7 +7,8 @@ Phases, a few lines of output each (and fail on the first that fails):
   0. device: needs CUDA (there is no CPU fallback); prints the card's name
      and power limit as nvidia-smi reports them.
   1. build: compiles the seven sgvamp_torch/csrc/*.cu with nvcc (sm_90a),
-     one process per source, all started together.
+     and sym_band_int8.cu a second time with its counter of block bytes,
+     one process per library, all started together.
   2. kernels against their plain PyTorch versions on the card: the five
      storages of the streamed diag matvec (int8, float blocks in bfloat16 /
      float32 / float64, int4, hybrid) and, for the three float types, the
@@ -206,29 +207,45 @@ def bound_ms(op, S: int, storage: str) -> tuple:
             nbytes)
 
 
-def block_bytes_read(op, S: int) -> int:
-    """Bytes of blocks the operator's kernel reads a pass (all cohorts). The
-    streamed kernels over float blocks read every block once (their partial
-    sums are not blocks); the quantized ones gather: every off-diagonal
-    block twice. The resident kernels read every block once, and at each run
-    boundary the blocks of the previous run's last hb rows whose mirror
-    terms cross it once more."""
-    import torch
-
+def design_block_bytes(op, S: int, spill: bool = False) -> int:
+    """Bytes of blocks the operator's kernel reads a pass (all cohorts) by
+    its design, worked out here, not measured; with spill, of the spill form
+    over the shard `op` (whose blocks past its end multiply the halo, so it
+    reads them too). The streamed kernels over float and int8 blocks read
+    every block once (their partial sums are not blocks); the int4 and
+    hybrid ones gather: every off-diagonal slot twice. The resident kernels
+    read every block once, and at each run boundary the blocks of the
+    previous run's last hb rows whose mirror terms cross it once more. The
+    int8 kernel's count is also measured (counted_block_bytes)."""
     from sgvamp_torch.ops.band_kernel import _resident_rows
 
     nb, hb = op.nb, op.hb
-    off = sum(nb - d for d in range(1, hb + 1))      # stored off-diagonal blocks
-    if op._use_resident(S):
+    # stored off-diagonal blocks that hold data
+    off = nb * hb if spill else sum(nb - d for d in range(1, hb + 1))
+    if not spill and op._use_resident(S):
         G = _resident_rows(op.upper, S, op.rows_per_step)
         off += sum(1 for r0 in range(G, nb, G) for a in range(1, min(hb, r0) + 1)
                    for d in range(a, hb + 1) if d - a < G and r0 + d - a < nb)
-    elif op.upper.dtype == torch.int8:
+    elif op.packed or op.hybrid:
         off *= 2
     full_block = op.B * op.B * op.upper.element_size()
     far_block = full_block // 2 if op.packed or op.hybrid else full_block
     d0_block = far_block if op.packed else full_block
     return op.K * (nb * d0_block + off * far_block)
+
+
+def counted_block_bytes(op, S: int, kernel, args, x, spill: bool = False) -> int:
+    """The block bytes the int8 kernel copies in one pass over x, counted by
+    the kernel itself (band_kernel.int8_block_bytes: the build of
+    csrc/sym_band_int8.cu with a counter); fails unless the count is the
+    design's, every stored block that holds data once."""
+    from sgvamp_torch.ops.band_kernel import int8_block_bytes
+
+    read = int8_block_bytes(lambda: kernel(*args, x))
+    design = design_block_bytes(op, S, spill)
+    if read != design:
+        fail(f"{kernel.__name__} copied {read} block bytes in a pass, its design {design}")
+    return read
 
 
 def wide_band(dev, S: int) -> dict:
@@ -265,11 +282,11 @@ def wide_band(dev, S: int) -> dict:
         res[name] = {"kernel": kernel.__name__, "hb": hb, "M": o.M, "S": S,
                      "abs_err": abs_err, "rel_err": rel, "ms": ms_kern, "plain_ms": ms_plain,
                      "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
-                     "block_bytes_read": block_bytes_read(o, S)}
+                     "design_block_bytes": design_block_bytes(o, S)}
         print(f"[2 wide band] {kernel.__name__}, random bfloat16 blocks, hb={hb}, M={o.M}, "
               f"S={S}: scaled error {rel:.2e} (tol {SCALED_TOL}); kernel {ms_kern:.4f} ms/pass, "
               f"plain {ms_plain:.4f}, bound {b_ms:.4f} ms ({b_by}), "
-              f"{res[name]['block_bytes_read']} block bytes read of "
+              f"{res[name]['design_block_bytes']} block bytes read by its design of "
               f"{o.bytes_per_pass()} stored", flush=True)
     return res
 
@@ -653,7 +670,7 @@ def main() -> None:
     from sgvamp_torch.core.operators import BandedLD
     from sgvamp_torch.data.simulate import simulate_ld_band
     from sgvamp_torch.ops import _build
-    from sgvamp_torch.ops.band_kernel import SymBandedLD, band_kernel_of
+    from sgvamp_torch.ops.band_kernel import SymBandedLD, _int8_runs, band_kernel_of
     from sgvamp_torch.ops.membench import (_prep, measure_read_gbps, read_max,
                                            read_max_ref)
     from sgvamp_torch.utils import kernel_bench
@@ -690,8 +707,9 @@ def main() -> None:
                      f"<= {max(spills, default=0)} bytes spilled")
     print(f"[1 build] {seconds['build']:.2f} s for {len(libs)} libraries; " + "; ".join(ptxas),
           flush=True)
-    if len(libs) != 7:
-        fail(f"expected seven kernel libraries, built {sorted(libs)}")
+    if len(libs) != 8:
+        fail(f"expected eight kernel libraries (seven sources and the int8 kernel's "
+             f"counting build), built {sorted(libs)}")
 
     # ---- 2. kernels vs their plain versions ----
     t0 = time.perf_counter()
@@ -793,15 +811,20 @@ def main() -> None:
         ms_kern, ms_plain = kernel_and_plain_ms(lambda: kernel(*args, xf),
                                                 lambda: plain(*args, xf))
         b_ms, b_by, nbytes = bound_ms(op, S, storage)
-        read = block_bytes_read(op, S)
+        read = design_block_bytes(op, S)
         full[key] = {"abs_err": abs_err, "rel_err": rel, "ms": ms_kern,
                      "plain_ms": ms_plain, "bound_ms": b_ms, "bound_by": b_by,
                      "bytes": nbytes, "bytes_per_pass": op.bytes_per_pass(),
-                     "block_bytes_read": read, "kernel": kernel.__name__}
+                     "kernel": kernel.__name__}
+        counted = ""
+        if key == "int8":
+            full[key]["block_bytes_read"] = counted_block_bytes(op, S, kernel, args, xf)
+            counted = f", {full[key]['block_bytes_read']} counted by the kernel"
         print(f"[2 {key}] {kernel.__name__}, full shape upper {tuple(op.upper.shape)} "
               f"{str(op.upper.dtype).split('.')[-1]} ({label}), "
               f"{op.bytes_per_pass()} bytes per pass, {nbytes} with x and y, {read} block "
-              f"bytes read by the kernel: scaled error {rel:.2e} (max abs {abs_err:.3e}, tol "
+              f"bytes read by the kernel's design{counted}: scaled error {rel:.2e} (max abs "
+              f"{abs_err:.3e}, tol "
               f"{SCALED_TOL}); kernel {ms_kern:.4f} ms/pass = "
               f"{op.bytes_per_pass() / ms_kern / 1e6:.1f} GB/s over bytes_per_pass, "
               f"plain {ms_plain:.4f} ms/pass, bound {b_ms:.4f} ms ({b_by} at "
@@ -824,16 +847,23 @@ def main() -> None:
                             device=dev)
         pass_ms = kernel_bench.time_passes(sh, lanes, BENCH_PASSES) * 1e3
         whole_ms = kernel_bench.time_passes(op, lanes, BENCH_PASSES) * 1e3
+        read = design_block_bytes(piece, S, spill=True)
         spill[key] = {"abs_err": abs_err, "rel_err": rel, "ms": ms_kern, "plain_ms": ms_plain,
                       "bound_ms": b_ms, "bound_by": b_by, "bytes": nbytes,
                       "pass_ms": pass_ms, "unsharded_pass_ms": whole_ms,
                       "kernel": kernel.__name__}
+        counted = ""
+        if key == "int8":
+            spill[key]["block_bytes_read"] = counted_block_bytes(piece, S, kernel, args, xe,
+                                                                 spill=True)
+            counted = f", {spill[key]['block_bytes_read']} counted by the kernel"
         print(f"[6a 6b {key}] {kernel.__name__}, one shard of {MESH_SHARDS} at the full shape, "
               f"upper {tuple(piece.upper.shape)}: worst scaled error of y_l, carry, the "
               f"composition and the sharded operator {rel:.2e} (max abs {abs_err:.3e}, tol "
               f"{SCALED_TOL}), last carry exactly zero; kernel {ms_kern:.4f} ms/launch "
               f"(unsharded kernel {full[key]['ms']:.4f} ms/pass), plain {ms_plain:.4f}, bound "
-              f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s); "
+              f"{b_ms:.4f} ms ({b_by}, {nbytes} bytes at {HBM_BYTES_PER_S / 1e12} TB/s), "
+              f"{read} block bytes read by the kernel's design{counted}; "
               f"chained operator pass: sharded {pass_ms:.4f} ms ({MESH_SHARDS} launches, the "
               f"x slices, the carries and the gather), unsharded {whole_ms:.4f} ms", flush=True)
 
@@ -1056,8 +1086,8 @@ def main() -> None:
                      "replaces": f"sgvamp_tpu/ops/band_kernel.py:{line}",
                      "launches": n_launch, "max_abs_err": f["abs_err"], "ms": f["ms"],
                      "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-                     "bound_by": f["bound_by"], "library_ms": library,
-                     "bytes": f["bytes"], "block_bytes_read": f["block_bytes_read"]}, **extra)
+                     "bound_by": f["bound_by"], "library_ms": library},
+                **{k: f[k] for k in ("block_bytes_read",) if k in f}, **extra)
 
     def float_entry(name, flavor, source, line, n_launch, **extra):
         """A float kernel's entry: timed in bfloat16 at the top level, its
@@ -1067,12 +1097,9 @@ def main() -> None:
         return band_entry(
             name, k16, source, line, n_launch, library=full["einsum bfloat16"]["ms"],
             timed_storage="bfloat16", library_call="BandedLD.matvec", **extra,
-            library_bytes=full["einsum bfloat16"]["bytes_per_pass"],
             float32=dict({k: full[k32][k] for k in
-                          ("ms", "plain_ms", "bound_ms", "bound_by", "bytes", "abs_err",
-                           "block_bytes_read")},
-                         library_ms=full["einsum float32"]["ms"],
-                         library_bytes=full["einsum float32"]["bytes_per_pass"]))
+                          ("ms", "plain_ms", "bound_ms", "bound_by", "abs_err")},
+                         library_ms=full["einsum float32"]["ms"]))
 
     def spill_entry(name, key, source, line, n_launch, **extra):
         """A spill kernel's entry: ms per launch on one shard of MESH_SHARDS
@@ -1082,13 +1109,14 @@ def main() -> None:
                      "replaces": f"sgvamp_tpu/ops/band_kernel.py:{line}",
                      "launches": n_launch, "max_abs_err": f["abs_err"], "ms": f["ms"],
                      "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
-                     "bound_by": f["bound_by"], "library_ms": None, "bytes": f["bytes"],
+                     "bound_by": f["bound_by"], "library_ms": None,
                      "shards": MESH_SHARDS, "sharded_pass_ms": f["pass_ms"],
-                     "unsharded_pass_ms": f["unsharded_pass_ms"]}, **extra)
+                     "unsharded_pass_ms": f["unsharded_pass_ms"]},
+                **{k: f[k] for k in ("block_bytes_read",) if k in f}, **extra)
 
     def spill32(key):
-        return {k: spill[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bytes",
-                                           "abs_err", "pass_ms", "unsharded_pass_ms")}
+        return {k: spill[key][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "abs_err",
+                                           "pass_ms", "unsharded_pass_ms")}
 
     csrc = "sgvamp_torch/csrc/"
     packed = {"design": "mma.sync m16n8k16 bf16 on slots decoded without I2F, gather, cp.async"}
@@ -1096,11 +1124,18 @@ def main() -> None:
                            "loads), runs of G rows keep their own mirror sums in shared "
                            "memory, the rest go through a scratch of partial sums and a "
                            "second launch"}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def int8_once(nb):
+        return {"design": f"read once: runs of G={_int8_runs(nb, sms)} block rows, a warp a "
+                          "block row walks each int8 block once (cp.async ring, decoded "
+                          "without I2F), dot then scale, mirror sums that leave the run "
+                          "through a scratch of partial sums and a second launch"}
 
     print(smi)
     print(json.dumps({"kernels": [
         band_entry("sym_band_matvec_int8", "int8", csrc + "sym_band_int8.cu", 179,
-                   launches["sym_band_matvec_int8"]),
+                   launches["sym_band_matvec_int8"], **int8_once(M_FULL // B_FULL)),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
                     bench_launches["streamed"], **read_once),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
@@ -1122,9 +1157,10 @@ def main() -> None:
          "launches": launches["read_max"], "max_abs_err": probe_err,
          "ms": probe_s * 1e3, "plain_ms": probe_plain_ms,
          "bound_ms": probe_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": probe_library_ms, "bytes": probe_bytes},
+         "library_ms": probe_library_ms},
         spill_entry("sym_band_matvec_int8_spill", "int8", csrc + "sym_band_int8.cu", 197,
-                    mesh_runs["int8"]["launches"]["sym_band_matvec_int8_spill"]),
+                    mesh_runs["int8"]["launches"]["sym_band_matvec_int8_spill"],
+                    **int8_once(M_FULL // B_FULL // MESH_SHARDS)),
         spill_entry("sym_band_matvec_spill", "bfloat16", csrc + "sym_band_float.cu", 197,
                     mesh_cli["bfloat16"]["launches"], timed_storage="bfloat16",
                     float32=spill32("float32"), **read_once),

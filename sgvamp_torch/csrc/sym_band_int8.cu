@@ -12,180 +12,335 @@
 // by the block's f32 scale, as the TPU kernel does. A bf16 times an int8 is
 // exact in f32, so only the order of the sums differs from the TPU.
 //
-// Design. The TPU kernel walks chunks of block rows in grid order and
-// carries the mirror terms that cross a chunk in VMEM; that is race-free
-// only because TPU grid steps run one after another. Here CTAs run
-// concurrently in no order, so the kernel GATHERS instead: one CTA per
-// (output block row i, cohort k) reads every block that lands in y_i (row
-// blocks U[i,0..hb], mirror blocks U[i-d,d] for d=1..hb), accumulates in
-// registers and writes y_i once. No atomics, no second pass, and the
-// result is the same bits on every run.
+// Bound. A pass must read every stored block once (1 byte an element) and
+// takes 2 S multiply-adds an element (row and mirror product), far below
+// the tensor cores' rate: bytes from HBM bound it on paper. Two things
+// stand in the way on this card. (1) The first design, a gather (one CTA an
+// output block row), read every off-diagonal block twice, (2hb+1)/(hb+1) of
+// the blocks, and already streamed that at the read probe's rate. (2) Once
+// the blocks are read once, the instructions an element, the decode and
+// the 2 S FMAs with the row sums' cross-lane adds, come close to the byte
+// bound: an int8 -> f32 conversion (I2F) issues at a fraction of the FMA
+// rate, so it is not used; and at S >= 2 the arithmetic, not the loads,
+// is what is left (PERF.md: utils/kernel_diag.py over S).
 //
-// Spill form (one shard of a sharded operator; `carry` is not null). upper
-// holds the shard's nb block rows, x its nb x blocks followed by the next
-// shard's first hb (the halo). Two things change. The row part of the last
-// hb block rows multiplies the halo where the whole operator ends: inside a
-// shard the blocks U[i,d] with i+d >= nb are ordinary data, so nothing past
-// the local end may be skipped. And hb more CTAs a cohort, for the output
-// block rows nb .. nb+hb-1 that belong to the next shard, sum the mirror
-// terms of this shard's blocks that land there (d > i-nb) and write them to
-// carry; the caller adds carry into the head of the next shard's y. Mirror
-// terms from the previous shard are not in y: they arrive as its carry. The
-// gather needs nothing else: no CTA waits for another in either form.
+// Design: the read-once scheme of sym_band_float.cu over int8 blocks.
+//  * Runs. A CTA owns a run of G consecutive block rows, one warp a block
+//    row; the wrapper chooses G from nb and the card's SM count
+//    (ops/band_kernel.py::_int8_runs), so that a 1024-row shard still gives
+//    every SM a CTA.
+//  * One read. In phase d the warp of block row i walks block (i, d) once in
+//    row groups (sym_band_tile.cuh's Tile: 16 int8 a lane, 4 block rows a
+//    warp load at B = 128) and takes both products from the same
+//    registers. The bytes come through a ring of kStages slots in shared
+//    memory that each warp fills by cp.async, chunks ahead and across its
+//    blocks and the phases' barriers.
+//  * Decode without I2F: sgv::int8_at puts byte ^ 0x80 under 0x4B000000, the
+//    f32 2^23 + (b + 128), and one FADD makes b.
+//  * Row sums. A row's sum is spread over the LPR lanes that share it; one
+//    transposed butterfly adds a chunk's row groups over those lanes (3
+//    shuffles where a butterfly a row group takes 12, B = 128), then the
+//    sum is multiplied by sc[i,d] (dot, then scale) and added into the run's
+//    row sums in shared memory, one writer a row.
+//  * Column sums (the mirror term, into block row t = i + d): x_i one value
+//    a row from a permuted copy of the run's x (4 rows a load), the sums of
+//    the lane's 16 columns in registers, added over the lanes' row positions
+//    by shuffles, multiplied by sc[i,d], then added into the run's mirror
+//    sums where t lies in the run (one writer a row a phase, a barrier
+//    between the phases that write there) or stored to the scratch of partial sums
+//    (sym_band_tile.cuh::Partials) where t lies in a later run or past the
+//    end of a shard.
+//  * The CTA writes y of its run once; the second launch, fold_partials,
+//    adds the partial sums into y in a fixed order of d, or writes them to
+//    the spill form's carry. No atomics (but the counting build's, below),
+//    no CTA waits on another: the same bits on every run.
 //
-// Bound. About 4*S flops per int8 byte: far below where tensor cores
-// matter, so bytes from HBM bound it. The gather reads every off-diagonal
-// block twice, once as a row block (CTA i) and once as a mirror block
-// (CTA i+d), which is up to (2hb+1)/(hb+1) of bytes_per_pass() from HBM.
-// CTAs are launched in block-row order (blockIdx.x = i), so CTA i+d runs
-// in the same wave as CTA i and its second read of U[i,d] can hit L2;
-// timing on an H100 says about a third of them do (PERF.md). A read-once
-// scheme is later work.
+// Spill form (one shard of a sharded operator; `carry` is not null): x
+// carries the next shard's first hb blocks after the shard's own nb (the
+// halo), the row part of the last hb block rows multiplies them (blocks
+// with i+d >= nb are ordinary data inside a shard), and their mirror terms,
+// which land in block rows nb .. nb+hb-1 of the next shard, are the carry;
+// the caller adds it into the head of the next shard's y. Mirror terms from
+// the previous shard are not in y: they arrive as its carry.
 //
-// Each block is staged through shared memory with 16-byte loads, coalesced
-// across the CTA, into rows padded to B+16 bytes so that the row
-// orientation (thread = output row p, 16-byte reads along q) is free of
-// bank conflicts; the mirror orientation (thread = output column q) reads
-// consecutive bytes of one row per step.
+// Shared memory: the warps' rings (kStages x 2 KB a warp), x of the run,
+// its row sums and its mirror sums (3 G S B floats): 72 KB at G = 8,
+// B = 128, S = 2 (two CTAs an SM; registers bound it).
+//
+// Built with -DSGV_COUNT_BLOCK_BYTES (ops/_build.py's library
+// sym_band_int8_counted), each warp also adds the bytes of every chunk of
+// blocks it copies to a counter on the device, which
+// sgv_sym_band_int8_block_bytes reads: what a pass reads of the blocks,
+// counted by the kernel itself. The default build has no counter.
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "sym_band_tile.cuh"
 
 namespace {
 
-__device__ __forceinline__ float bf16_to_f32(uint16_t v) {
-  return __uint_as_float(static_cast<uint32_t>(v) << 16);
-}
+using namespace sgv;
 
-template <int B, int S>
-__global__ void __launch_bounds__(B)
-sym_band_int8_kernel(const int8_t* __restrict__ upper,
-                     const float* __restrict__ scales,
-                     const uint16_t* __restrict__ x,
-                     float* __restrict__ y, float* __restrict__ carry, int nb, int hb) {
-  constexpr int ROW = B + 16;    // padded shared-memory row, bytes
-  constexpr int VEC = B / 16;    // 16-byte vectors per block row
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* blk = reinterpret_cast<int8_t*>(smem);          // B * ROW bytes
-  float* xs = reinterpret_cast<float*>(smem + B * ROW);   // S * B floats
+// the longest run, G block rows of one warp each: the wrapper's
+// INT8_MAX_RUN_ROWS (ops/band_kernel.py). At S <= 2 two such CTAs share an
+// SM (128 registers a thread), at S = 3, 4 one (255).
+constexpr int kMaxRunRows = 8;
+// A warp streams its blocks through a ring of kStages slots in shared
+// memory, kChunk row groups (2 KB) a slot, by cp.async: kStages - 1 chunks
+// in flight while it computes one, in no registers.
+constexpr int kChunk = 4;
+constexpr int kStages = 3;
 
-  const int i = blockIdx.x;
-  const int k = blockIdx.y;
-  const int t = threadIdx.x;
-  const int nslot = hb + 1;
-  const int nx = carry ? nb + hb : nb;  // x block rows: with the halo in the spill form
-  const size_t M = static_cast<size_t>(nb) * B;
-  const size_t Mx = static_cast<size_t>(nx) * B;
-  const int8_t* uk = upper + static_cast<size_t>(k) * nb * nslot * B * B;
-  const float* sk = scales + static_cast<size_t>(k) * nb * nslot;
-  const uint16_t* xk = x + static_cast<size_t>(k) * S * Mx;
+#ifdef SGV_COUNT_BLOCK_BYTES
+__device__ unsigned long long g_block_bytes;   // block bytes the warps copied
+#endif
 
-  float acc[S];
+// The stream of one warp over its blocks d = 0 .. n / NCH - 1 of block row
+// i: chunk c is row groups (c % NCH) CH .. + CH - 1 of block (i, c / NCH),
+// in slot c % kStages. Every lane copies and reads its own 16 bytes of each
+// row group, so a lane waits for its own copies only.
+template <int B>
+struct Stream {
+  using L = Tile<int8_t, B>;
+  static constexpr int NRG = L::NRG;                        // row groups of a block
+  static constexpr int CH = kChunk < NRG ? kChunk : NRG;    // row groups a chunk
+  static constexpr int NCH = NRG / CH;                      // chunks a block
+  static constexpr int BYTES = kStages * CH * 32 * 16;      // the ring of a warp
+  uint4* ring;          // the lane's vector in slot 0
+  const int8_t* src;    // the lane's first byte of block (i, 0)
+  int n;                // chunks of the warp's blocks
+
+  // copies chunk c (if there is one) and commits a group
+  __device__ __forceinline__ void fetch(int c) const {
+    if (c < n) {
+      const int8_t* g = src + static_cast<size_t>(c / NCH) * B * B +
+                        static_cast<size_t>(c % NCH) * CH * L::R * B;
+      uint4* dst = ring + (c % kStages) * CH * 32;
+      unsigned copied = 0;
 #pragma unroll
-  for (int s = 0; s < S; ++s) acc[s] = 0.0f;
-
-  for (int step = 0; step < 2 * hb + 1; ++step) {
-    const bool mirror = step > hb;
-    const int d = mirror ? step - hb : step;
-    const int src = mirror ? i - d : i;     // block row that stores the block
-    const int xb = mirror ? i - d : i + d;  // x block it multiplies
-    // the same for every thread; src >= nb only for the carry's block rows
-    if (src < 0 || src >= nb || xb >= nx) continue;
-    const int4* g = reinterpret_cast<const int4*>(
-        uk + (static_cast<size_t>(src) * nslot + d) * B * B);
-
-    __syncthreads();  // the previous block's readers are done
-#pragma unroll
-    for (int n = 0; n < VEC; ++n) {
-      const int v = n * B + t;
-      *reinterpret_cast<int4*>(blk + (v / VEC) * ROW + (v % VEC) * 16) = g[v];
+      for (int u = 0; u < CH; ++u) {
+        cp_async16(dst + u * 32, g + static_cast<size_t>(u) * L::R * B);
+        copied += 16;
+      }
+#ifdef SGV_COUNT_BLOCK_BYTES
+      // c and n are the same in every lane: the whole warp is here
+      copied = __reduce_add_sync(0xffffffffu, copied);
+      if ((threadIdx.x & 31) == 0) atomicAdd(&g_block_bytes, copied);
+#endif
     }
-#pragma unroll
-    for (int s = 0; s < S; ++s)
-      xs[s * B + t] = bf16_to_f32(xk[s * Mx + static_cast<size_t>(xb) * B + t]);
-    __syncthreads();
+    cp_async_commit();
+  }
+  // starts chunk c + kStages - 1 and returns chunk c's slot once it has landed
+  __device__ __forceinline__ const uint4* next(int c) const {
+    fetch(c + kStages - 1);
+    cp_async_wait<kStages - 1>();
+    return ring + (c % kStages) * CH * 32;
+  }
+};
 
-    float part[S];
+// Both products of block (i, d), chunk by chunk (COLS:
+// d >= 1). Column sums go into cacc as in sym_band_tile.cuh's walker, with
+// x_i at the chunk's rows read 4 at a time from the run's x, which the
+// kernel stores permuted (xp: row p = g R + r of a block at r NRG + g, so
+// that a lane's rows in consecutive row groups are adjacent). The row sums
+// of the chunk's CH row groups are added over the LPR lanes of a row by a
+// transposed butterfly: at each of the first log2 CH levels a lane sends
+// half of its sums and keeps the other half, CH - 1 shuffles in all where
+// one butterfly a row group takes CH log2 LPR; then plain levels. Row group
+// u's total ends in the lanes l = u LPR / CH .. (u + 1) LPR / CH - 1 of its
+// row position, and the first of them adds it, times the scale, into rout.
+template <int B, int S, bool COLS>
+__device__ __forceinline__ void walk_stream(const Stream<B>& st, int d, int lane,
+                                            const float (&xc)[S][Tile<int8_t, B>::CV],
+                                            const float* xp, float* rout, int stride,
+                                            float (&cacc)[S][Tile<int8_t, B>::CV], float sc) {
+  using L = Tile<int8_t, B>;
+  using St = Stream<B>;
+  constexpr int CH = St::CH;
+  constexpr int SPREAD = L::LPR / CH;   // lanes of a row that end with one row group's total
+  static_assert(CH == 4 || CH == 2, "a chunk is 2 or 4 row groups");
+  const int sub = lane / L::LPR;
+  const int l = lane % L::LPR;
+  for (int b = 0; b < St::NCH; ++b) {
+    const uint4* slot = st.next(d * St::NCH + b);
+    uint4 v[CH];
 #pragma unroll
-    for (int s = 0; s < S; ++s) part[s] = 0.0f;
-    if (!mirror) {
-      // thread t is output row p: sum_q U[p, q] x[q]
-      const int8_t* rowp = blk + t * ROW;
-#pragma unroll 2
-      for (int c = 0; c < VEC; ++c) {
-        const int4 w = *reinterpret_cast<const int4*>(rowp + c * 16);
-        const uint32_t words[4] = {static_cast<uint32_t>(w.x), static_cast<uint32_t>(w.y),
-                                   static_cast<uint32_t>(w.z), static_cast<uint32_t>(w.w)};
+    for (int u = 0; u < CH; ++u) v[u] = slot[u * 32];
+    float xrow[S][CH];
+    if constexpr (COLS) {
 #pragma unroll
-        for (int e = 0; e < 16; ++e) {
-          const float u = static_cast<float>(
-              static_cast<int8_t>(words[e / 4] >> (8 * (e % 4))));
-#pragma unroll
-          for (int s = 0; s < S; ++s)
-            part[s] = fmaf(u, xs[s * B + c * 16 + e], part[s]);
+      for (int s = 0; s < S; ++s) {
+        const float* src = xp + s * stride + sub * L::NRG + b * CH;
+        if constexpr (CH == 4) {
+          const float4 q = *reinterpret_cast<const float4*>(src);
+          xrow[s][0] = q.x; xrow[s][1] = q.y; xrow[s][2] = q.z; xrow[s][3] = q.w;
+        } else {
+          const float2 q = *reinterpret_cast<const float2*>(src);
+          xrow[s][0] = q.x; xrow[s][1] = q.y;
         }
       }
-    } else {
-      // thread t is output column q: sum_p U[p, q] x[p]
-#pragma unroll 8
-      for (int p = 0; p < B; ++p) {
-        const float u = static_cast<float>(blk[p * ROW + t]);
-#pragma unroll
-        for (int s = 0; s < S; ++s) part[s] = fmaf(u, xs[s * B + p], part[s]);
-      }
     }
-    const float sc = sk[static_cast<size_t>(src) * nslot + d];
+    float part[CH][S];
 #pragma unroll
-    for (int s = 0; s < S; ++s) acc[s] += sc * part[s];
+    for (int u = 0; u < CH; ++u) {
+      float uv[L::V];
+      unpack(v[u], uv, int8_t{});
+#pragma unroll
+      for (int s = 0; s < S; ++s) part[u][s] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < L::V; ++e)
+#pragma unroll
+        for (int s = 0; s < S; ++s) {
+          part[u][s] = fmaf(uv[e], xc[s][e], part[u][s]);
+          if constexpr (COLS) cacc[s][e] = fmaf(uv[e], xrow[s][u], cacc[s][e]);
+        }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+#pragma unroll
+      for (int n = CH, off = L::LPR / 2; n > 1; n >>= 1, off >>= 1) {
+        const bool hi = l & off;
+#pragma unroll
+        for (int j = 0; j < n / 2; ++j) {
+          const float send = hi ? part[j][s] : part[j + n / 2][s];
+          const float keep = hi ? part[j + n / 2][s] : part[j][s];
+          part[j][s] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+        }
+      }
+#pragma unroll
+      for (int off = SPREAD / 2; off > 0; off >>= 1)
+        part[0][s] += __shfl_xor_sync(0xffffffffu, part[0][s], off);
+    }
+    if (l % SPREAD == 0) {
+      const int p = (b * CH + l / SPREAD) * L::R + sub;
+#pragma unroll
+      for (int s = 0; s < S; ++s) rout[s * stride + p] += part[0][s] * sc;
+    }
   }
-
-  // block rows past nb are the carry (K, S, hb * B)
-  const size_t Mo = i < nb ? M : static_cast<size_t>(hb) * B;
-  float* ok = (i < nb ? y + static_cast<size_t>(i) * B : carry + static_cast<size_t>(i - nb) * B)
-              + static_cast<size_t>(k) * S * Mo + t;
-#pragma unroll
-  for (int s = 0; s < S; ++s) ok[s * Mo] = acc[s];
 }
 
 template <int B, int S>
-int launch(const int8_t* upper, const float* scales, const uint16_t* x,
-           float* y, float* carry, int K, int nb, int hb, cudaStream_t stream) {
-  const int smem = B * (B + 16) + S * B * static_cast<int>(sizeof(float));
-  auto kernel = sym_band_int8_kernel<B, S>;
-  if (smem > 48 * 1024) {  // above the default limit (B=256) it must be asked for
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+__global__ void __launch_bounds__(32 * kMaxRunRows, S <= 2 ? 2 : 1)
+sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__ scales,
+                     const bf16_t* __restrict__ x, float* __restrict__ y,
+                     float* __restrict__ part, int nb, int hb, int G, bool spill) {
+  using L = Tile<int8_t, B>;
+  using St = Stream<B>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int gstride = G * B;                        // between right-hand sides
+  float* xs = reinterpret_cast<float*>(smem_raw + static_cast<size_t>(G) * St::BYTES);
+  float* yr = xs + S * gstride;                     // S x G x B: row sums (xs: x of the run)
+  float* ym = yr + S * gstride;                     // S x G x B: mirror sums from the run
+  const int r0 = blockIdx.x * G;
+  const int k = blockIdx.y;
+  const int nx = spill ? nb + hb : nb;              // x block rows: with the halo in the spill form
+  const size_t Mx = static_cast<size_t>(nx) * B;
+  const int8_t* uk = upper + static_cast<size_t>(k) * nb * (hb + 1) * B * B;
+  const float* sk = scales + static_cast<size_t>(k) * nb * (hb + 1);
+  const bf16_t* xk = x + static_cast<size_t>(k) * S * Mx;
+  const Partials pp(nb, hb, G, spill);
+  const size_t pstride = static_cast<size_t>(pp.F) * hb * B;
+  float* pk = part + static_cast<size_t>(k) * S * pstride;
+
+  // the warp's blocks: d = 0 .. min(hb, nx - 1 - i), none past the end
+  const int i = r0 + warp;
+  const St st{reinterpret_cast<uint4*>(smem_raw + static_cast<size_t>(warp) * St::BYTES) + lane,
+              uk + static_cast<size_t>(i) * (hb + 1) * B * B +
+                  static_cast<size_t>(lane / L::LPR) * B + (lane % L::LPR) * L::V,
+              i < nb ? ((hb < nx - 1 - i ? hb : nx - 1 - i) + 1) * St::NCH : 0};
+  for (int c = 0; c < kStages - 1; ++c) st.fetch(c);
+
+  // x of the run, permuted within each block row for walk_stream; zeros past x
+  for (int e = threadIdx.x; e < S * gstride; e += blockDim.x) {
+    const int s = e / gstride;
+    const int w = e - s * gstride;   // (block row of the run) * B + row p of the block
+    const int p = w % B;
+    const size_t m = static_cast<size_t>(r0) * B + w;
+    xs[s * gstride + (w - p) + (p % L::R) * L::NRG + p / L::R] =
+        m < Mx ? to_acc(xk[s * Mx + m]) : 0.0f;
   }
-  kernel<<<dim3(carry ? nb + hb : nb, K), B, smem, stream>>>(upper, scales, x, y, carry, nb,
-                                                             hb);
-  return static_cast<int>(cudaGetLastError());
+  for (int e = threadIdx.x; e < 2 * S * gstride; e += blockDim.x) yr[e] = 0.0f;
+  __syncthreads();
+
+  for (int d = 0; d <= hb; ++d) {
+    const int t = i + d;   // the block's mirror term lands in block row t
+    const bool live = i < nb && t < nx;
+    const bool in_run = t < r0 + G && t < nb;
+    if (live) {
+      const float sc = sk[static_cast<size_t>(i) * (hb + 1) + d];
+      float xc[S][L::CV];
+      float cacc[S][L::CV];
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int c = 0; c < L::CV; ++c) cacc[s][c] = 0.0f;
+      load_cols_global<int8_t, B, S, bf16_t>(xk + static_cast<size_t>(t) * B, Mx, lane, xc);
+      if (d == 0) {
+        walk_stream<B, S, false>(st, d, lane, xc, nullptr, yr + warp * B, gstride, cacc, sc);
+      } else {
+        walk_stream<B, S, true>(st, d, lane, xc, xs + warp * B, yr + warp * B, gstride, cacc,
+                                sc);
+        combine_cols<int8_t, B, S>(cacc);
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+#pragma unroll
+          for (int c = 0; c < L::CV; ++c) cacc[s][c] *= sc;
+        if (in_run)
+          add_cols<int8_t, B, S>(ym + (t - r0) * B, gstride, lane, cacc);
+        else
+          store_cols<int8_t, B, S>(pk + (static_cast<size_t>(pp.row(t)) * hb + d - 1) * B,
+                                   pstride, lane, cacc);
+      }
+    }
+    // phase d's adds into ym are done before phase d + 1's begin
+    if (d >= 1 && d + 1 < G) __syncthreads();
+  }
+  __syncthreads();
+
+  // y of the run: row sums + the mirror sums from inside the run
+  const size_t M = static_cast<size_t>(nb) * B;
+  float* yk = y + static_cast<size_t>(k) * S * M + static_cast<size_t>(r0) * B;
+  for (int e = threadIdx.x; e < S * gstride; e += blockDim.x) {
+    const int s = e / gstride;
+    const int w = e - s * gstride;   // (block row of the run) * B + column
+    if (r0 + w / B >= nb) continue;
+    yk[s * M + w] = yr[e] + ym[e];
+  }
+}
+
+template <int B, int S>
+int launch(const Args& a, const float* scales) {
+  if (a.G < 1 || a.G > kMaxRunRows) return -1;
+  if (reinterpret_cast<uintptr_t>(a.upper) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  auto kernel = sym_band_int8_kernel<B, S>;
+  const size_t smem = static_cast<size_t>(a.G) * Stream<B>::BYTES +
+                      static_cast<size_t>(3) * S * B * a.G * sizeof(float);
+  if (const int err = reserve_shared(kernel, smem)) return err;
+  kernel<<<dim3((a.nb + a.G - 1) / a.G, a.K), 32 * a.G, smem, a.stream>>>(
+      static_cast<const int8_t*>(a.upper), scales, static_cast<const bf16_t*>(a.x),
+      static_cast<float*>(a.y), static_cast<float*>(a.partials), a.nb, a.hb, a.G,
+      a.carry != nullptr);
+  return launch_fold<float>(a, B, S);
 }
 
 template <int B>
-int launch_b(const int8_t* upper, const float* scales, const uint16_t* x,
-             float* y, float* carry, int K, int nb, int hb, int S, cudaStream_t stream) {
+int launch_s(const Args& a, const float* scales, int S) {
   switch (S) {
-    case 1: return launch<B, 1>(upper, scales, x, y, carry, K, nb, hb, stream);
-    case 2: return launch<B, 2>(upper, scales, x, y, carry, K, nb, hb, stream);
-    case 3: return launch<B, 3>(upper, scales, x, y, carry, K, nb, hb, stream);
-    case 4: return launch<B, 4>(upper, scales, x, y, carry, K, nb, hb, stream);
+    case 1: return launch<B, 1>(a, scales);
+    case 2: return launch<B, 2>(a, scales);
+    case 3: return launch<B, 3>(a, scales);
+    case 4: return launch<B, 4>(a, scales);
     default: return -1;
   }
 }
 
-int matvec(const void* upper, const void* scales, const void* x, void* y, void* carry,
-           int K, int nb, int hb, int B, int S, void* stream) {
-  const auto* u = static_cast<const int8_t*>(upper);
+int matvec(const Args& a, const void* scales, int B, int S) {
   const auto* sc = static_cast<const float*>(scales);
-  const auto* xv = static_cast<const uint16_t*>(x);
-  auto* yv = static_cast<float*>(y);
-  auto* cv = static_cast<float*>(carry);
-  auto st = static_cast<cudaStream_t>(stream);
   switch (B) {
-    case 64: return launch_b<64>(u, sc, xv, yv, cv, K, nb, hb, S, st);
-    case 128: return launch_b<128>(u, sc, xv, yv, cv, K, nb, hb, S, st);
-    case 256: return launch_b<256>(u, sc, xv, yv, cv, K, nb, hb, S, st);
+    case 64: return launch_s<64>(a, sc, S);
+    case 128: return launch_s<128>(a, sc, S);
+    case 256: return launch_s<256>(a, sc, S);
     default: return -1;
   }
 }
@@ -193,22 +348,46 @@ int matvec(const void* upper, const void* scales, const void* x, void* y, void* 
 }  // namespace
 
 // upper (K, nb, hb+1, B, B) int8, scales (K, nb, hb+1) f32, x (K, S, nb*B)
-// bf16 as raw 16-bit words, y (K, S, nb*B) f32; all contiguous on the
-// device. Launches on `stream` and returns cudaGetLastError() after the
-// launch, or -1 for a block size or S the kernel is not built for.
+// bf16 as raw 16-bit words, y (K, S, nb*B) f32, partials the scratch
+// (K, S, F, hb, B) f32 (sym_band_tile.cuh::Partials for runs of G; nothing
+// for hb = 0); all contiguous on the device, upper on a 16-byte boundary.
+// Runs of G block rows a CTA (1 <= G <= 8; any nb). Launches the kernel
+// and fold_partials on `stream`; returns 0 or the first launch's error
+// (cudaGetLastError() after each), 716 (cudaErrorMisalignedAddress) with
+// nothing launched for an unaligned upper, -1 for a block size, S or G the
+// kernel is not built for.
 extern "C" int sgv_sym_band_int8_matvec(const void* upper, const void* scales,
-                                        const void* x, void* y, int K, int nb,
-                                        int hb, int B, int S, void* stream) {
-  return matvec(upper, scales, x, y, nullptr, K, nb, hb, B, S, stream);
+                                        const void* x, void* y, void* partials, int K,
+                                        int nb, int hb, int B, int S, int G, void* stream) {
+  const sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), nullptr,
+                    partials};
+  return matvec(a, scales, B, S);
 }
 
 // The spill form: upper and scales of one shard's nb block rows, x
-// (K, S, (nb+hb)*B) with the halo, y (K, S, nb*B) and carry (K, S, hb*B) f32.
-// With hb = 0 nothing is written to carry (the caller's is one block of
-// zeros). Returns as above.
+// (K, S, (nb+hb)*B) with the halo, y (K, S, nb*B) and carry (K, S, hb*B)
+// f32, the scratch with the carry's hb rows. With hb = 0 nothing is written
+// to carry (the caller's is one block of zeros). Returns as above.
 extern "C" int sgv_sym_band_int8_spill(const void* upper, const void* scales,
-                                       const void* x, void* y, void* carry, int K,
-                                       int nb, int hb, int B, int S, void* stream) {
+                                       const void* x, void* y, void* carry, void* partials,
+                                       int K, int nb, int hb, int B, int S, int G,
+                                       void* stream) {
   if (carry == nullptr) return -1;
-  return matvec(upper, scales, x, y, carry, K, nb, hb, B, S, stream);
+  const sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), carry,
+                    partials};
+  return matvec(a, scales, B, S);
 }
+
+#ifdef SGV_COUNT_BLOCK_BYTES
+// The block bytes the kernel's warps have copied since the count was last
+// reset, into *out, after the device has finished its work; then resets
+// the count to 0 if `reset` is not 0. Returns 0 or the first CUDA error.
+extern "C" int sgv_sym_band_int8_block_bytes(unsigned long long* out, int reset) {
+  if (const cudaError_t err = cudaDeviceSynchronize()) return static_cast<int>(err);
+  if (const cudaError_t err = cudaMemcpyFromSymbol(out, g_block_bytes, sizeof(*out)))
+    return static_cast<int>(err);
+  const unsigned long long zero = 0;
+  if (reset) return static_cast<int>(cudaMemcpyToSymbol(g_block_bytes, &zero, sizeof(zero)));
+  return 0;
+}
+#endif

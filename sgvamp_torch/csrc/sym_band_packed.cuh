@@ -87,7 +87,14 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sym_band_tile.cuh"   // the int8 decode and cp.async
+
 namespace sgv_packed {
+
+using sgv::cp_async16;
+using sgv::cp_async_commit;
+using sgv::cp_async_wait;
+using sgv::int8_at;
 
 constexpr int WARPS = 4;
 constexpr int THREADS = 32 * WARPS;
@@ -119,10 +126,6 @@ __device__ __forceinline__ void decode4(uint32_t w, uint32_t r[4]) {
   r[3] = minus136(__byte_perm(hi, 0x43434343u, 0x4342));
 }
 
-__device__ __forceinline__ float int8_at(uint32_t biased, uint32_t sel) {
-  return __uint_as_float(__byte_perm(biased, 0x4B000000u, sel)) - 8388736.0f;
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float first, float second) {
   uint32_t r;  // cvt puts its first source in the upper half
   asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(second), "f"(first));
@@ -143,18 +146,6 @@ __device__ __forceinline__ void mma16816(float c[4], uint32_t a0, uint32_t a1, u
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // Shared memory of one CTA, bytes: NBUF stages of [slot | x block as bf16,

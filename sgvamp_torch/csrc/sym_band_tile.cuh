@@ -1,13 +1,16 @@
-// Shared pieces of the float-block kernels in which ONE WARP walks a (B, B)
-// row-major block of the LD matrix once and takes both products of it:
-// sym_band_float.cu, sym_slab_streamed.cu, sym_band_resident.cu,
-// sym_slab_resident.cu.
+// Shared pieces of the kernels in which ONE WARP walks a (B, B) row-major
+// block of the LD matrix once (or its share of the block's rows) and takes
+// both products of it: over float blocks sym_band_float.cu,
+// sym_slab_streamed.cu, sym_band_resident.cu, sym_slab_resident.cu; over
+// int8 blocks with one scale a block, sym_band_int8.cu.
 //
 // A warp reads the block in 16-byte vectors, 32 lanes on 512 consecutive
-// bytes (8 bfloat16, 4 float32 or 2 float64 values a lane), a few loads
-// ahead of the arithmetic. Depending on B and the type one such load covers
-// R >= 1 whole block rows (LPR = 32 / R lanes a row) or 1 / C of a row, so a
-// lane always owns the same C * V columns of every row it meets:
+// bytes (16 int8, 8 bfloat16, 4 float32 or 2 float64 values a lane), a few
+// loads ahead of the arithmetic. int8 values are decoded without I2F (the
+// 2^23 trick of int8_at) and multiply an x that arrives in bfloat16.
+// Depending on B and the type one such load covers R >= 1 whole block rows
+// (LPR = 32 / R lanes a row) or 1 / C of a row, so a lane always owns the
+// same C * V columns of every row it meets:
 //   row sums     sum_q g[p, q] * xc[q]: the x values at the lane's columns
 //                sit in registers (xc), the partial sums of the lanes that
 //                share row p are added by shuffles, and the first of them
@@ -20,11 +23,11 @@
 // symmetric matvec depends on the storage: in diag layout a block is
 // U[i,d][p, q], in slab layout it is its transpose.
 //
-// The streamed kernels (sym_band_float.cu, sym_slab_streamed.cu) also share
-// the second launch of their pass: mirror sums that land outside the CTA's
-// run of block rows are written to a scratch of partial sums (`Partials`),
-// and fold_partials adds them into y (or writes them to the spill form's
-// carry) in a fixed order of d.
+// The streamed kernels (sym_band_float.cu, sym_slab_streamed.cu,
+// sym_band_int8.cu) also share the second launch of their pass: mirror sums
+// that land outside the CTA's run of block rows are written to a scratch of
+// partial sums (`Partials`), and fold_partials adds them into y (or writes
+// them to the spill form's carry) in a fixed order of d.
 
 #pragma once
 
@@ -39,7 +42,7 @@ constexpr int kMaxRowsPerCta = 16;       // one warp a block row, 512 threads at
 
 struct bf16_t { uint16_t bits; };
 
-template <typename T> struct AccOf { using type = float; };
+template <typename T> struct AccOf { using type = float; };   // int8_t too
 template <> struct AccOf<double> { using type = double; };
 
 __device__ __forceinline__ float to_acc(bf16_t v) {
@@ -51,7 +54,40 @@ __device__ __forceinline__ double to_acc(double v) { return v; }
 __device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
 __device__ __forceinline__ double fma_acc(double a, double b, double c) { return fma(a, b, c); }
 
+// A byte b (b ^ 0x80 in `biased`, picked by byte_perm selector `sel`: 0x7440
+// for byte 0 .. 0x7443 for byte 3) as the signed value it stores, without
+// I2F: the byte under 0x4B000000 is the float 2^23 + (b + 128), and one FADD
+// takes 2^23 + 128 away. Exact for -128..127.
+__device__ __forceinline__ float int8_at(uint32_t biased, uint32_t sel) {
+  return __uint_as_float(__byte_perm(biased, 0x4B000000u, sel)) - 8388736.0f;
+}
+
+// 16 bytes from device to shared memory without registers (cp.async: both
+// addresses on a 16-byte boundary), and its groups
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
 // the values of one 16-byte vector, in the accumulation type
+__device__ __forceinline__ void unpack(const uint4& w, float (&o)[16], int8_t) {
+  const uint32_t words[4] = {w.x ^ 0x80808080u, w.y ^ 0x80808080u, w.z ^ 0x80808080u,
+                             w.w ^ 0x80808080u};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    o[4 * e + 0] = int8_at(words[e], 0x7440);
+    o[4 * e + 1] = int8_at(words[e], 0x7441);
+    o[4 * e + 2] = int8_at(words[e], 0x7442);
+    o[4 * e + 3] = int8_at(words[e], 0x7443);
+  }
+}
 __device__ __forceinline__ void unpack(const uint4& w, float (&o)[8], bf16_t) {
   o[0] = __uint_as_float(w.x << 16);
   o[1] = __uint_as_float(w.x & 0xffff0000u);
@@ -134,9 +170,10 @@ __device__ __forceinline__ void add_cols(typename AccOf<T>::type* dst, int strid
 }
 
 // xc[s][..] = src[s * stride + the lane's columns], read from device memory
-// in the block type (the streamed diag kernel's x_{i+d}).
-template <typename T, int B, int S>
-__device__ __forceinline__ void load_cols_global(const T* __restrict__ src, size_t stride,
+// in x's type X: the block type, or bfloat16 for int8 blocks (the streamed
+// diag kernels' x_{i+d}).
+template <typename T, int B, int S, typename X = T>
+__device__ __forceinline__ void load_cols_global(const X* __restrict__ src, size_t stride,
                                                  int lane,
                                                  typename AccOf<T>::type (&xc)[S][Tile<T, B>::CV]) {
   using L = Tile<T, B>;
@@ -435,6 +472,21 @@ int reserve_shared(Kernel kernel, size_t smem) {
   return 0;
 }
 
+// The second launch of a streamed pass, after the kernel's on the same
+// stream: fold_partials over the scratch of runs of a.G block rows. 0 or the
+// first error (the kernel's launch included); nothing to do when hb = 0 (no
+// mirror terms; the spill form's carry is then the caller's zeros).
+template <typename A>
+int launch_fold(const Args& a, int B, int S) {
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  if (a.hb == 0) return 0;
+  const Partials pp(a.nb, a.hb, a.G, a.carry != nullptr);
+  fold_partials_kernel<A><<<dim3(pp.F, a.K), 128, 0, a.stream>>>(
+      static_cast<const A*>(a.partials), static_cast<A*>(a.y), static_cast<A*>(a.carry), a.nb,
+      a.hb, a.G, B, S);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // The streamed kernels' launches: `kernel` over (ceil(nb / G), K) CTAs of G
 // warps with `smem` bytes of dynamic shared memory, then fold_partials on the
 // same stream. 0 or the first error; cudaErrorMisalignedAddress (716) with
@@ -449,13 +501,7 @@ int launch_streamed(Kernel kernel, const Args& a, int B, int S, size_t smem) {
   kernel<<<dim3((a.nb + a.G - 1) / a.G, a.K), 32 * a.G, smem, a.stream>>>(
       static_cast<const T*>(a.upper), static_cast<const T*>(a.x), static_cast<A*>(a.y),
       static_cast<A*>(a.partials), a.nb, a.hb, a.G, spill);
-  if (const int err = static_cast<int>(cudaGetLastError())) return err;
-  if (a.hb == 0) return 0;   // no mirror terms: nothing to fold; the carry is the caller's zeros
-  const Partials pp(a.nb, a.hb, a.G, spill);
-  fold_partials_kernel<A><<<dim3(pp.F, a.K), 128, 0, a.stream>>>(
-      static_cast<const A*>(a.partials), static_cast<A*>(a.y), static_cast<A*>(a.carry), a.nb,
-      a.hb, a.G, B, S);
-  return static_cast<int>(cudaGetLastError());
+  return launch_fold<A>(a, B, S);
 }
 
 // Launches `kernel` with G warps a CTA over (ceil(nb / G), K) CTAs and

@@ -6,7 +6,8 @@ ctypes. The first load builds every source that has no library yet, one
 nvcc process per source, all started together. The libraries go into
 sgvamp_torch/build/ (ignored by git) under names that carry a hash of the
 source, the shared headers and the flags, so an edited source is rebuilt
-and an unchanged one is reused.
+and an unchanged one is reused. A library of VARIANTS is built from another
+library's source with flags of its own.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _QUANT = [_P] * 4 + [_I] * 5 + [_P]
+_QUANT_RUNS = [_P] * 5 + [_I] * 6 + [_P]
 _ROWS = [_P] * 3 + [_I] * 7 + [_P]
 _STREAMED = [_P] * 4 + [_I] * 7 + [_P]
 
@@ -40,9 +42,15 @@ def _spill(argtypes: list, n_in: int) -> list:
 # entry points and argument types of each library: pointers (the stream
 # last) as c_void_p, or ctypes passes them as 32-bit ints
 ENTRY_POINTS = {
+    # upper, scales, x, y, [carry,] partials, K, nb, hb, B, S, block rows a
+    # CTA, stream
+    "sym_band_int8": {"sgv_sym_band_int8_matvec": _QUANT_RUNS,
+                      "sgv_sym_band_int8_spill": _spill(_QUANT_RUNS, 3)},
+    # the same, and (count out, reset): the block bytes its warps copied
+    "sym_band_int8_counted": {"sgv_sym_band_int8_matvec": _QUANT_RUNS,
+                              "sgv_sym_band_int8_spill": _spill(_QUANT_RUNS, 3),
+                              "sgv_sym_band_int8_block_bytes": [_P, _I]},
     # upper, scales, x, y, [carry,] K, nb, hb, B, S, stream
-    "sym_band_int8": {"sgv_sym_band_int8_matvec": _QUANT,
-                      "sgv_sym_band_int8_spill": _spill(_QUANT, 3)},
     "sym_band_int4": {"sgv_sym_band_int4_matvec": _QUANT,
                       "sgv_sym_band_int4_spill": _spill(_QUANT, 3)},
     "sym_band_hybrid": {"sgv_sym_band_hybrid_matvec": _QUANT,
@@ -58,6 +66,9 @@ ENTRY_POINTS = {
     "sym_slab_resident": {"sgv_sym_slab_resident_matvec": _ROWS},
 }
 
+# library: (the library whose source it is built from, its extra nvcc flags)
+VARIANTS = {"sym_band_int8_counted": ("sym_band_int8", ["-DSGV_COUNT_BLOCK_BYTES"])}
+
 
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
@@ -72,11 +83,15 @@ def _nvcc() -> str:
 
 
 def _source(name: str) -> str:
-    return os.path.join(CSRC, name + ".cu")
+    return os.path.join(CSRC, VARIANTS.get(name, (name,))[0] + ".cu")
+
+
+def _flags(name: str) -> list:
+    return NVCC_FLAGS + VARIANTS.get(name, (name, []))[1]
 
 
 def library_path(name: str) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(name)).encode())
     for src in [_source(name)] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
         with open(src, "rb") as f:
             h.update(f.read())
@@ -99,7 +114,7 @@ def build() -> dict:
             fd, tmps[name] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
             os.close(fd)
             procs[name] = subprocess.Popen(
-                [nvcc, *NVCC_FLAGS, "-I", CSRC, "-o", tmps[name], _source(name)],
+                [nvcc, *_flags(name), "-I", CSRC, "-o", tmps[name], _source(name)],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         failed = []
         for name, proc in procs.items():

@@ -25,7 +25,9 @@ streamed flavor only. Float blocks have two flavors in either layout
 (SymBandedLD.mode), and both read each stored block once and take both its
 terms. "streamed" keeps only a run's own mirror sums on chip and hands the
 mirror sums that cross into the next run to a second, short launch through
-a scratch of partial sums, so it takes any band; "resident" keeps the x
+a scratch of partial sums, so it takes any band; the int8 kernel does the
+same (int4 and hybrid gather: one CTA an output block row, which reads
+every off-diagonal slot twice). "resident" keeps the x
 and y of a run of block rows in a CTA's shared memory, reads the
 neighbour's last blocks again for the mirror terms that cross into its
 run, and is limited by that shared memory
@@ -67,7 +69,9 @@ kernels), with wrappers, plain versions and launch counts of their own:
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -419,8 +423,8 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
     dims: the ints after the outputs. spill_hb None: the library's
     `matvec` entry, returns y shaped as x. spill_hb = hb: its `spill`
     entry over a halo-extended x, returns (y_l, carry). partials: the shape
-    of the streamed float kernels' scratch (_partials_shape), allocated
-    here in y's type and passed after the outputs."""
+    of the streamed kernels' scratch (_partials_shape), allocated here in
+    y's type and passed after the outputs."""
     if x.device.type != "cuda":
         raise ValueError(f"no band kernel for device {x.device}")
     if not all(t.is_contiguous() for t in tensors):
@@ -429,13 +433,14 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
     if B not in (64, 128, 256) or not 1 <= S <= 4:
         raise ValueError(f"the band kernels take B in (64, 128, 256) and "
                          f"S in 1..4, got B={B}, S={S}")
-    from sgvamp_torch.ops._build import load_library
+    from sgvamp_torch.ops._build import VARIANTS, load_library
 
+    stem = VARIANTS.get(library, (library,))[0]   # the source's entry names
     if spill_hb is None:
-        entry = f"sgv_{library}_matvec"
+        entry = f"sgv_{stem}_matvec"
         outs = (torch.empty(x.shape, dtype=out_dtype, device=x.device),)
     else:
-        entry = f"sgv_{library}_spill"
+        entry = f"sgv_{stem}_spill"
         y = torch.empty((K, S, Mx - spill_hb * B), dtype=out_dtype, device=x.device)
         # the kernel writes all of the carry, except that hb = 0 has none
         carry = (torch.empty((K, S, spill_hb * B), dtype=out_dtype, device=x.device)
@@ -454,8 +459,9 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
 
 
 def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool):
-    """The int8 wrappers' body: `plain` on CPU tensors, else the kernel,
-    counted on `wrapper`."""
+    """The int8 wrappers' body: `plain` on CPU tensors, else the kernel (a
+    pass of the read-once kernel and its fold of the partial sums, counted
+    once), counted on `wrapper`."""
     _check_quantized(upper, scales, x, lambda u: u.shape[-1] == u.shape[-2],
                      lambda u: tuple(u.shape[:3]), "(K, nb, hb+1, B, B)")
     K, nb, nslot, B, _ = upper.shape
@@ -463,8 +469,39 @@ def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool)
     x = _check_x(x, K, nb, hb, B, torch.bfloat16, spill)
     if x.device.type == "cpu":
         return plain(upper, scales, x)
-    return _launch(wrapper, "sym_band_int8", x, (upper, scales, x),
-                   (K, nb, hb, B, x.shape[1]), B, torch.float32, hb if spill else None)
+    S = x.shape[1]
+    G = _int8_runs(nb, _sm_count(x.device))
+    return _launch(wrapper, _int8_library, x, (upper, scales, x),
+                   (K, nb, hb, B, S, G), B, torch.float32, hb if spill else None,
+                   partials=_partials_shape(K, S, nb, hb, G, B, spill))
+
+
+# the library the int8 wrappers launch: its build that counts block bytes
+# while int8_block_bytes runs
+_int8_library = "sym_band_int8"
+
+
+def int8_block_bytes(fn: Callable[[], Any]) -> int:
+    """The bytes of int8 blocks that the int8 kernel copies from device
+    memory while fn() runs, counted by the kernel itself: fn's int8 passes
+    (either wrapper) launch the build of csrc/sym_band_int8.cu that counts
+    them (ops/_build.py VARIANTS; the same kernel, the same results), and
+    the count is read once the device has finished."""
+    from sgvamp_torch.ops._build import load_library
+
+    global _int8_library
+    lib = load_library("sym_band_int8_counted")
+    count = ctypes.c_ulonglong(0)
+    if err := lib.sgv_sym_band_int8_block_bytes(ctypes.addressof(count), 1):
+        raise RuntimeError(f"sgv_sym_band_int8_block_bytes failed (error {err})")
+    _int8_library = "sym_band_int8_counted"
+    try:
+        fn()
+    finally:
+        _int8_library = "sym_band_int8"
+    if err := lib.sgv_sym_band_int8_block_bytes(ctypes.addressof(count), 1):
+        raise RuntimeError(f"sgv_sym_band_int8_block_bytes failed (error {err})")
+    return count.value
 
 
 def sym_band_matvec_int8(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
@@ -571,8 +608,36 @@ MAX_ROWS_PER_CTA = 16
 DIAG_RUN_ROWS = 8
 
 
+# the int8 kernel's longest run of block rows, one warp each
+# (csrc/sym_band_int8.cu kMaxRunRows)
+INT8_MAX_RUN_ROWS = 8
+
+
+def _int8_runs(nb: int, sms: int) -> int:
+    """G, the block rows a CTA of the int8 kernel takes over nb block rows
+    on a card of `sms` SMs: the longest run of INT8_MAX_RUN_ROWS halved
+    until it still gives every SM a CTA (or 1). Longer runs send fewer
+    mirror sums through the scratch of partial sums; a 1024-row shard at
+    G = 8 would leave 4 of an H100's 132 SMs idle. A CTA's shared memory
+    (each warp's ring of 3 chunks of 2 KB, and 3 G S B floats) is at most
+    147,456 bytes (B = 256, S = 4), so it fits at every B and S, and hb
+    does not enter."""
+    G = INT8_MAX_RUN_ROWS
+    while G > 1 and -(-nb // G) < sms:
+        G //= 2
+    return G
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    """SMs of a CUDA device (1 for any other: _launch refuses it)."""
+    if device.type != "cuda":
+        return 1
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def _partials_shape(K: int, S: int, nb: int, hb: int, G: int, B: int, spill: bool) -> tuple:
-    """The streamed float kernels' scratch of partial sums, (K, S, F, hb, B)
+    """The streamed kernels' scratch of partial sums, (K, S, F, hb, B)
     in y's type (csrc/sym_band_tile.cuh::Partials): one row for each of the
     first min(hb, G) block rows of each run of G, and in the spill form one
     for each of the carry's hb block rows."""

@@ -2,7 +2,7 @@
 
     python -m sgvamp_torch.utils.kernel_diag [--bytes 201326592] [--out FILE]
         [--storages int8,int4,hybrid,bfloat16,float32] [--hb 0,1,2]
-        [--bench-hb 2]
+        [--bench-hb 2] [--int8-runs 8,4,2]
 
 For each storage of SymBandedLD (int8, int4, hybrid, bfloat16, float32) the
 streamed diag kernel, and for the two float storages also the streamed
@@ -16,8 +16,9 @@ blocks unchanged. Each line gives ms per pass (CUDA events over 100
 launches after a warm-up, the card asleep for 20 ms while the host queues
 them, so that launches shorter than their host-side cost run back to
 back), GB/s over bytes_per_pass(), the block elements decoded per second
-(every stored off-diagonal block is decoded twice, as a row and as a
-mirror block), and the same call's read-probe time for those bytes. Last,
+(the int4 and hybrid gathers decode every stored off-diagonal slot twice,
+as a row and as a mirror block; the other kernels every stored element
+once), and the same call's read-probe time for those bytes. Last,
 for each hb of `--bench-hb` (default 2), lines per storage at the bench
 shape (M=524288, S=2): the streamed diag kernel (for the float storages
 also the streamed slab kernel), its spill form on one shard of four (1024
@@ -26,11 +27,14 @@ four ways over a one-card mesh beside the unsharded one
 (utils/kernel_bench.py's time_passes, as chip_smoke.py's phase 6b times
 it: host dispatch included), three times each to show its spread. A kernel
 bound by bytes runs near the probe's time at hb=0 whatever S is; one bound
-by decoding keeps its elements per second from hb=0 to hb=2. The quantized
-streamed kernels read every off-diagonal block twice, the float streamed
-kernels once (plus their partial sums), the resident ones once plus
-hb/(2G) of them at the run boundaries. `--storages` times only the
-storages that a change touches (the whole run takes minutes). Run from
+by decoding keeps its elements per second from hb=0 to hb=2. The int4 and
+hybrid kernels read every off-diagonal slot twice, the int8 and float
+streamed kernels every block once (plus their partial sums), the resident
+ones once plus hb/(2G) of them at the run boundaries. `--int8-runs` also
+times the int8 kernel at the bench shape (whole and one shard) with each
+listed run length G in place of the wrapper's choice
+(ops/band_kernel.py::_int8_runs). `--storages` times only
+the storages that a change touches (the whole run takes minutes). Run from
 another checkout's root with this file's path, the script times that
 checkout's package (PYTHONPATH=. python /path/to/kernel_diag.py).
 """
@@ -116,6 +120,9 @@ def main(argv=None) -> int:
     ap.add_argument("--bench-hb", default="2",
                     help="comma-separated block diagonals of the bench-shape cases "
                          "(2 is the bench's bandwidth 256)")
+    ap.add_argument("--int8-runs", default="",
+                    help="comma-separated run lengths G (block rows a CTA) at which to "
+                         "time the int8 kernel at the bench shape too")
     args = ap.parse_args(argv)
     storages = args.storages.split(",")
     hbs = [int(v) for v in args.hb.split(",")]
@@ -142,8 +149,10 @@ def main(argv=None) -> int:
             nb -= nb % 16 if nb > 16 else 0   # any run of the resident kernels divides it
             op = _random_operator(storage, nb, hb, device, flavor)
             gbps, probe_s = measure_read_gbps(op.upper, n=20)
-            # decoded block products: nb diagonal + 2 per stored off-diagonal
-            decoded = (op.nb + 2 * sum(op.nb - d for d in range(1, hb + 1))) * B * B
+            # decoded block elements: the gathers decode a stored off-diagonal
+            # slot twice, the other kernels once
+            twice = 2 if storage in ("int4", "hybrid") else 1
+            decoded = (op.nb + twice * sum(op.nb - d for d in range(1, hb + 1))) * B * B
             for S in (1, 2, 4):
                 if flavor in ("resident", "slab-resident"):
                     G = bk.SymBandedLD.resident_rows(hb, B, S, op.upper.element_size())
@@ -162,6 +171,28 @@ def main(argv=None) -> int:
                     "probe_ms_for_the_blocks": probe_s * 1e3, "probe_gbps": gbps})
                 print(json.dumps(lines[-1]), flush=True)
             del op, k_args, x
+    forced = [int(g) for g in args.int8_runs.split(",") if g]
+    for G, hb in [(g, hb) for hb in bench_hbs for g in forced]:
+        op = _random_operator("int8", BENCH_NB, hb, device)
+        nb_l = BENCH_NB // BENCH_SHARDS
+        piece = dataclasses.replace(op, upper=op.upper[:, nb_l:2 * nb_l].contiguous(),
+                                    scales=op.scales[:, nb_l:2 * nb_l].contiguous())
+        chosen = bk._int8_runs
+        bk._int8_runs = lambda nb, sms: G
+        try:
+            for form, o, spill in (("whole", op, False), ("one shard of 4", piece, True)):
+                kernel, _, k_args, xdt = bk.band_kernel_of(o, BENCH_S, spill=spill)
+                x = torch.randn((1, BENCH_S, o.M + (o.hb * B if spill else 0)),
+                                device=device).to(xdt)
+                ms = _ms(lambda: kernel(*k_args, x))
+                lines.append({"card": smi, "storage": "int8", "flavor": "streamed",
+                              "shape": "bench", "form": form, "runs": G,
+                              "kernel": kernel.__name__, "hb": o.hb, "nb": o.nb, "S": BENCH_S,
+                              "bytes_per_pass": o.bytes_per_pass(), "ms": ms})
+                print(json.dumps(lines[-1]), flush=True)
+        finally:
+            bk._int8_runs = chosen
+        del op, piece, k_args, x
     bench = [(st, "streamed", hb) for hb in bench_hbs for st in storages]
     bench += [(st, "slab-streamed", hb) for hb in bench_hbs for st in ("bfloat16", "float32")
               if st in storages]

@@ -23,6 +23,8 @@ from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel
                                           sym_band_matvec_int4,
                                           sym_band_matvec_int8,
                                           sym_band_matvec_int8_ref,
+                                          sym_band_matvec_int8_spill,
+                                          sym_band_matvec_int8_spill_ref,
                                           sym_band_matvec_resident,
                                           sym_band_matvec_window,
                                           sym_slab_matvec_resident,
@@ -69,8 +71,7 @@ def test_band_kernel_matches_plain(cuda, B, bw, M, K, S):
     assert y.dtype == torch.float32 and y.shape == want.shape
     err = float((y - want).abs().max() / want.abs().max())
     assert err <= SCALED_TOL, err
-    # the gather design writes every output once, with no atomics: the
-    # same bits on every run
+    # no atomics, sums in a fixed order: the same bits on every run
     assert torch.equal(y, sym_band_matvec_int8(op.upper, op.scales, x))
 
 
@@ -568,6 +569,231 @@ def test_packed_kernels_refuse_unaligned_inputs(cuda, storage, which):
     with pytest.raises(RuntimeError, match=r"\(error 716\)"):
         kernel(args["upper"], args["scales"], args["x"])
     assert kernel.launches == before
+
+
+# The int8 kernel reads every stored block once (csrc/sym_band_int8.cu): runs
+# of G block rows a CTA, one warp a block row, mirror sums that leave a run
+# through the scratch of partial sums and a second launch. Held against the
+# plain versions (scaled 1e-5: exact bf16*int8 products, f32 sums in another
+# order, dot then scale in both) at the wrapper's own G and at forced ones,
+# so that every design edge is reached at a small nb: hb 0..3 and 16, nb not
+# a multiple of G and nb < G, shards narrower than a run, K up to 3, S 1..4,
+# B 64/128/256; the same bits on a repeat, the last carry of a chain exactly
+# zero. None: the wrapper's choice (ops/band_kernel.py::_int8_runs).
+INT8_RUNS = [None, 8, 4, 2, 3, 5, 1]
+
+
+def _runs_id(runs):
+    return "chosen" if runs is None else f"G{runs}"
+
+
+def _int8_blocks(K, nb, hb, B, seed, device, every_byte=False):
+    """int8 blocks U[i, d], zero where i + d >= nb (as from_band leaves
+    them), and per-block scales log-uniform on 1e-4..1e2. every_byte: down
+    the nb*B >= 256 rows of the stored blocks every column of every slot
+    runs through all 256 byte values, the first and the last column too."""
+    rng = np.random.default_rng(seed)
+    if every_byte:
+        n, sl, p, q = np.ix_(np.arange(nb), np.arange(hb + 1), np.arange(B), np.arange(B))
+        up = ((n * B + p + 97 * sl + 29 * q) % 256).astype(np.uint8).view(np.int8)
+        up = np.broadcast_to(up, (K, nb, hb + 1, B, B)).copy()
+    else:
+        up = rng.integers(-128, 128, size=(K, nb, hb + 1, B, B), dtype=np.int8)
+        for d in range(1, hb + 1):
+            up[:, max(nb - d, 0):, d] = 0
+    scales = (10.0 ** rng.uniform(-4, 2, size=(K, nb, hb + 1))).astype(np.float32)
+    return torch.from_numpy(up).to(device), torch.from_numpy(scales).to(device)
+
+
+@pytest.fixture
+def force_int8_runs(monkeypatch):
+    """force(runs): the int8 wrappers take runs of G = runs block rows, or
+    their own choice for None."""
+    from sgvamp_torch.ops import band_kernel
+
+    def force(runs):
+        if runs is not None:
+            monkeypatch.setattr(band_kernel, "_int8_runs", lambda nb, sms: runs)
+    return force
+
+
+def _int8_termwise(upper, scales, x, spill):
+    """Per output element, the sum of the absolute values of its terms: the
+    plain version over |U|, |x| (as in torch_packed_slots.term_magnitudes)."""
+    from sgvamp_torch.ops.band_kernel import _int8_ref
+
+    got = _int8_ref(upper.float().abs().cpu(), scales.cpu(), x.float().abs().cpu(), spill)
+    return got if spill else (got,)
+
+
+@pytest.mark.parametrize("runs", INT8_RUNS, ids=_runs_id)
+@pytest.mark.parametrize("B,hb,nb,K,S", [
+    (64, 16, 37, 2, 1),     # wide, ragged: the last run is short
+    (128, 16, 40, 1, 2),
+    (128, 2, 11, 3, 3),     # K=3
+    (256, 3, 13, 1, 4),
+    (128, 0, 9, 2, 2),      # hb=0: no mirror blocks, no partials, one launch
+    (64, 1, 5, 1, 4),       # fewer block rows than a run
+    (256, 2, 3, 2, 1),
+])
+def test_int8_kernel_reads_once_matches_plain(cuda, force_int8_runs, runs, B, hb, nb, K, S):
+    force_int8_runs(runs)
+    upper, scales = _int8_blocks(K, nb, hb, B, B + hb + nb, cuda)
+    x = torch.from_numpy(np.random.default_rng(nb + S).normal(size=(K, S, nb * B))).to(
+        cuda, torch.bfloat16)
+    before = [w.launches for w in BAND_KERNELS]
+    y = sym_band_matvec_int8(upper, scales, x)
+    torch.cuda.synchronize()
+    after = [w.launches for w in BAND_KERNELS]
+    # one pass, two launches on the card (the kernel and its fold), counted once
+    assert sum(after) == sum(before) + 1
+    assert sym_band_matvec_int8.launches == before[BAND_KERNELS.index(sym_band_matvec_int8)] + 1
+    want = sym_band_matvec_int8_ref(upper, scales, x)
+    assert y.dtype == want.dtype == torch.float32 and y.shape == want.shape == (K, S, nb * B)
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= SCALED_TOL, err
+    assert torch.equal(y, sym_band_matvec_int8(upper, scales, x))  # no atomics
+
+
+@pytest.mark.parametrize("runs", INT8_RUNS[:5], ids=_runs_id)
+@pytest.mark.parametrize("B,hb,nb,n,K,S", [
+    (128, 2, 4096, 4, 1, 2),   # the bench shape cut four ways: shards of 1024 block rows
+    (64, 16, 64, 4, 2, 1),     # wide, shards of hb block rows
+    (128, 3, 12, 3, 1, 4),     # shards of 4 block rows: narrower than a run
+    (64, 5, 10, 2, 3, 3),      # shards of 5, hb=5, K=3
+    (128, 1, 8, 8, 1, 2),      # one block row a shard
+    (256, 2, 9, 3, 1, 1),
+    (128, 0, 6, 3, 2, 2),      # hb=0: no halo, a carry of one zero block
+])
+def test_int8_spill_kernel_reads_once_matches_plain(cuda, force_int8_runs, runs, B, hb, nb, n,
+                                                    K, S):
+    force_int8_runs(runs)
+    upper, scales = _int8_blocks(K, nb, hb, B, B + hb + nb + n, cuda)
+    x = torch.from_numpy(np.random.default_rng(nb + n).normal(size=(K, S, nb * B))).to(
+        cuda, torch.bfloat16)
+    want = sym_band_matvec_int8_ref(upper, scales, x)
+    scale = float(want.abs().max())
+    nb_l, hbB = nb // n, hb * B
+    xpad = torch.cat([x, x.new_zeros(K, S, hbB)], dim=2)
+    ys, carry = [], None
+    for j in range(n):
+        rows = slice(j * nb_l, (j + 1) * nb_l)
+        u, sc = upper[:, rows].contiguous(), scales[:, rows].contiguous()
+        x_ext = xpad[:, :, j * nb_l * B:((j + 1) * nb_l + hb) * B].contiguous()
+        before = sym_band_matvec_int8_spill.launches
+        y_l, spilled = sym_band_matvec_int8_spill(u, sc, x_ext)
+        torch.cuda.synchronize()
+        assert sym_band_matvec_int8_spill.launches == before + 1
+        py, pc = sym_band_matvec_int8_spill_ref(u, sc, x_ext)
+        assert y_l.shape == py.shape == (K, S, nb_l * B)
+        assert spilled.shape == pc.shape == (K, S, max(hbB, B))
+        assert float((y_l - py).abs().max()) / scale <= SCALED_TOL
+        assert float((spilled - pc).abs().max()) / scale <= SCALED_TOL
+        y2, c2 = sym_band_matvec_int8_spill(u, sc, x_ext)   # no atomics
+        assert torch.equal(y_l, y2) and torch.equal(spilled, c2)
+        if j and hbB:
+            y_l[:, :, :hbB] += carry
+        carry = spilled
+        ys.append(y_l)
+    assert float(carry.abs().max()) == 0.0
+    assert float((torch.cat(ys, dim=2) - want).abs().max()) / scale <= SCALED_TOL
+
+
+# Every byte value -128..127 in every position of every slot, at every
+# block size, lane count and band up to hb = 3, in both forms, with a
+# run length G that varies with the case: scaled 1e-5 by max|y| and element by
+# element by the sum of the element's own |terms| (the scales span six
+# decades), and the same bits on a second run.
+@pytest.mark.parametrize("hb", range(4))
+@pytest.mark.parametrize("S", range(1, 5))
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])
+def test_int8_kernel_on_every_byte_value(cuda, force_int8_runs, spill, B, S, hb):
+    force_int8_runs(INT8_RUNS[(B // 64 + S + hb) % len(INT8_RUNS)])
+    nb, K = 5, 1 + hb % 2
+    upper, scales = _int8_blocks(K, nb, hb, B, B + 10 * S + hb, cuda, every_byte=True)
+    rng = np.random.default_rng(S + hb)
+    x = torch.from_numpy(rng.normal(size=(K, S, (nb + (hb if spill else 0)) * B))).to(
+        cuda, torch.bfloat16)
+    kernel = sym_band_matvec_int8_spill if spill else sym_band_matvec_int8
+    plain = sym_band_matvec_int8_spill_ref if spill else sym_band_matvec_int8_ref
+    before = kernel.launches
+    got = kernel(upper, scales, x)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    want = plain(upper, scales, x)
+    got, want = (got, want) if spill else ((got,), (want,))
+    scale = float(want[0].abs().max())
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == torch.float32 and g.shape == w.shape
+        err = float((g - w).abs().max()) / scale
+        assert err <= SCALED_TOL, err
+    mags = _int8_termwise(upper, scales, x, spill)
+    err = worst_termwise_error([g.cpu() for g in got], [w.cpu() for w in want],
+                               [m.numpy() for m in mags])
+    assert err <= SCALED_TOL, err
+    again = kernel(upper, scales, x)
+    again = again if spill else (again,)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))  # no atomics
+
+
+@pytest.mark.parametrize("runs", [None, 3], ids=_runs_id)
+@pytest.mark.parametrize("B,hb,nb,K", [
+    (128, 2, 1024, 1),   # one shard of the bench shape's four
+    (64, 16, 37, 2),     # wide, ragged
+    (256, 1, 5, 1),
+    (128, 0, 9, 2),      # hb=0: the diagonal blocks alone
+])
+@pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])
+def test_int8_kernel_reads_every_block_once(cuda, force_int8_runs, spill, B, hb, nb, K, runs):
+    """The build that counts the block bytes its warps copy
+    (band_kernel.int8_block_bytes) copies each stored block that holds data
+    once a pass: the blocks (i, d) with i + d < nb, and in the spill form
+    every block of the shard (those past its end multiply the halo). Its
+    results are the default build's, bit for bit."""
+    from sgvamp_torch.ops.band_kernel import int8_block_bytes
+
+    force_int8_runs(runs)
+    upper, scales = _int8_blocks(K, nb, hb, B, nb + hb, cuda)
+    x = torch.from_numpy(np.random.default_rng(hb).normal(
+        size=(K, 2, (nb + (hb if spill else 0)) * B))).to(cuda, torch.bfloat16)
+    kernel = sym_band_matvec_int8_spill if spill else sym_band_matvec_int8
+    got = []
+    n = int8_block_bytes(lambda: got.append(kernel(upper, scales, x)))
+    blocks = nb * (hb + 1) if spill else sum(min(hb, nb - 1 - i) + 1 for i in range(nb))
+    assert n == K * blocks * B * B
+    want = kernel(upper, scales, x)
+    got, want = (got[0], want) if spill else ((got[0],), (want,))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])
+def test_int8_kernel_refuses_unaligned_upper(cuda, spill):
+    """The walker reads the blocks 16 bytes at a time: blocks that start off
+    a 16-byte boundary are refused with cudaErrorMisalignedAddress (716)
+    and nothing is launched. scales and x are read a value at a time and
+    need no alignment."""
+    B, hb, nb = 64, 1, 4
+    upper, scales = _int8_blocks(1, nb, hb, B, 0, cuda)
+    off = torch.empty(upper.numel() + 1, dtype=upper.dtype, device=cuda)[1:].view(upper.shape)
+    off.copy_(upper)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    x = torch.zeros((1, 2, (nb + (hb if spill else 0)) * B), dtype=torch.bfloat16, device=cuda)
+    kernel = sym_band_matvec_int8_spill if spill else sym_band_matvec_int8
+    before = kernel.launches
+    with pytest.raises(RuntimeError, match=r"\(error 716\)"):
+        kernel(off, scales, x)
+    assert kernel.launches == before
+    xo = torch.empty(x.numel() + 1, dtype=x.dtype, device=cuda)[1:].view(x.shape)
+    xo.copy_(torch.ones_like(x))
+    so = torch.empty(scales.numel() + 1, dtype=scales.dtype, device=cuda)[1:].view(scales.shape)
+    so.copy_(scales)
+    got = kernel(upper, so, xo)
+    plain = sym_band_matvec_int8_spill_ref if spill else sym_band_matvec_int8_ref
+    want = plain(upper, so, xo)
+    got, want = (got, want) if spill else ((got,), (want,))
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) <= SCALED_TOL * float(want[0].abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8])
