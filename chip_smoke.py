@@ -8,7 +8,9 @@ Phases, a few lines of output each (and fail on the first that fails):
      and power limit as nvidia-smi reports them.
   1. build: compiles the seven sgvamp_torch/csrc/*.cu with nvcc (sm_90a),
      and sym_band_int8.cu a second time with its counter of block bytes,
-     one process per library, all started together.
+     one process per library, all started together; then the host C++ of
+     the ingestion (sgvamp_torch/native/ldparse.cpp) with g++, and fails
+     unless it builds and loads.
   2. kernels against their plain PyTorch versions on the card: the five
      storages of the streamed diag matvec (int8, float blocks in bfloat16 /
      float32 / float64, int4, hybrid) and, for the three float types, the
@@ -40,7 +42,25 @@ Phases, a few lines of output each (and fail on the first that fails):
      with --operator banded --ld-dtype bfloat16 (no band kernel), at
      M=65536. Each run starts with the launch counts at zero and must
      launch its own kernel once per LD pass and no other band kernel, write
-     the reference-format files and reach a best-iterate alignment >= 0.9.
+     the reference-format files, ingest through the native library only
+     (its log names the path of every step) and reach a best-iterate
+     alignment >= 0.9. After the hybrid run, on the host at M=524288: its
+     load/R in parts (.npz load, CSR -> band, packing, copy to the card),
+     the native band and the native hybrid and int8 packs held bitwise
+     against their numpy versions, both timed; then where the run's
+     precond/eig goes (torch.linalg.eigh over the 8192 64 x 64 blocks on
+     the card and on the host, in one chunk and in chunks of 2048, and
+     block_jacobi_eig under torch.profiler).
+  4b. the .ld path: from the M=65536 panel, two cohorts' PLINK files (.ld
+     tables with PLINK's header and the band's one-sided pairs, .bim files
+     on two chromosomes that share positions, each cohort without its own
+     2% of the markers and with its own N, r over its own markers), then
+     sgvamp_torch.cli.main --ld-files --bim-files --operator sym --ld-dtype
+     int8 with the biobank flags (no --bandwidth: the merged panel sorts
+     the chromosomes' markers together, which doubles the band): phase 4's
+     checks with the int8 kernel, both tables parsed, assembled and packed
+     natively, the merged .bim holding every marker once in the panel's
+     order; the parse rate of the .ld text.
   5. the operator-flavor path at the bench shape, over the band of phase 2:
      with the launch counts at zero, sgvamp_torch.utils.kernel_bench.main
      over einsum, streamed, resident, window, slab, slabstreamed and
@@ -106,6 +126,7 @@ WIDE_HB = 16          # the wide band: mode "auto" takes the streamed kernels fr
 # rows of a shard sum in another order)
 MESH_XHAT_TOL, MESH_PARAM_TOL = 1e-5, 1e-4
 CLI_ITERATIONS = 10
+PROFILED_BLOCKS = 512  # of the 8192 64 x 64 blocks whose eigh torch.profiler traces
 CG_MAXIT = 100
 MIN_ALIGNMENT = 0.9
 STORAGES = ("int8", "bfloat16", "float32", "int4", "hybrid")
@@ -487,13 +508,18 @@ class LogCapture(logging.Handler):
 
 
 def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
-            operator: str = "sym", K: int = 1, per_pass: int = 1, tag: str = "") -> dict:
+            operator: str = "sym", K: int = 1, per_pass: int = 1, tag: str = "",
+            inputs=None, truth=None) -> dict:
     """One production-mode run of sgvamp_torch.cli.main over the panel
     files at `prefix` (the README's biobank flags), with its checks.
     `own` is the name of the wrapper this storage must launch, None for an
     operator that launches no band kernel (--operator banded). K > 1 gives
     the panel K times; per_pass is the launches an LD pass makes (the mesh
-    cells of a sharded run); tag goes into the output files' name."""
+    cells of a sharded run); tag goes into the output files' name.
+    `inputs` replaces the data flags (LD, r and signal files, --N, --M,
+    --bandwidth) and `truth` the true signal of the reference panel, both
+    for the .ld path of phase 4b. Every ingestion step must have taken the
+    native library."""
     import torch
 
     from sgvamp_torch.cli import main as cli_main
@@ -502,14 +528,16 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
 
     name = f"bb_{operator}_{ld_dtype}{tag}"
     cm = max(int(M * LAM), 1)
-    argv = ["--ld-files", ",".join([prefix + "_R.npz"] * K),
-            "--r-files", ",".join([prefix + "_r.npy"] * K),
-            "--true-signal-file", prefix + "_bet.npy",
-            "--out-dir", out_dir, "--out-name", name, "--K", str(K),
-            "--N", str(N_SAMPLES), "--M", str(M), "--iterations", str(CLI_ITERATIONS),
+    if inputs is None:
+        inputs = ["--ld-files", ",".join([prefix + "_R.npz"] * K),
+                  "--r-files", ",".join([prefix + "_r.npy"] * K),
+                  "--true-signal-file", prefix + "_bet.npy",
+                  "--N", str(N_SAMPLES), "--M", str(M), "--bandwidth", str(BW_FULL)]
+    argv = [*inputs, "--out-dir", out_dir, "--out-name", name, "--K", str(K),
+            "--iterations", str(CLI_ITERATIONS),
             "--prior-probs", f"{1 - LAM:g},{LAM:g}", "--prior-vars", f"0,{H2 / cm:.6g}",
             "--operator", operator, "--ld-dtype", ld_dtype, "--block-size", str(B_FULL),
-            "--bandwidth", str(BW_FULL), "--cg-maxit", "500", "--cg-rtol", "1e-5",
+            "--cg-maxit", "500", "--cg-rtol", "1e-5",
             "--cg-precond-block", "64", "--cg-precond-dtype", "bfloat16",
             "--lmmse-damp", "1", "--rho", "0.5", "--stop-on-divergence", "1", *extra]
     reset_launches()
@@ -537,6 +565,9 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     others = {k: v for k, v in counts.items() if k != own and v}
     if others:
         fail(f"{what}: other band kernels were launched: {others}")
+    routes = [ln for ln in log.lines if "through the n" in ln and "path" in ln]
+    if not routes or any("through the numpy path" in ln for ln in routes):
+        fail(f"{what}: ingestion did not run through the native library only: {routes}")
     with open(os.path.join(out_dir, f"{name}_cohort_1.csv")) as f:
         rows = [ln.split("\t") for ln in f.read().splitlines()[1:]]
     if not rows or not np.all(np.isfinite(np.asarray(rows, dtype=np.float64))):
@@ -547,7 +578,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
         fail(f"{what}: the run neither stopped through the StopMonitor nor ran "
              f"{CLI_ITERATIONS} iterations ({len(rows)} rows)")
     best = read_bin(os.path.join(out_dir, f"{name}_xhat_best.bin"))
-    bet = np.load(prefix + "_bet.npy").reshape(-1)
+    bet = np.load(prefix + "_bet.npy").reshape(-1) if truth is None else truth
     if best.shape != (M,) or not np.all(np.isfinite(best)):
         fail(f"{what}: best iterate has shape {best.shape} or is not finite")
     align = alignment_l2(best, bet)[0]
@@ -559,12 +590,12 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
            "precond_eig_s": sum(log.floats(r"\[timer\] precond/eig: ([0-9.]+)s")),
            "infer_s": sum(log.floats(r"\[timer\] infer: ([0-9.]+)s")),
            "s_per_iteration": float(np.median(step_s[1:])) if len(step_s) > 1 else float("nan"),
-           "total_s": total_s, "alignment": align,
+           "total_s": total_s, "alignment": align, "routes": routes,
            "stop": stopped[0] if stopped else "ran all iterations"}
-    print(f"[{'6d' if tag else '4'} cli] --operator {operator} --ld-dtype {ld_dtype}{flags}, "
+    label = "4b" if truth is not None else ("6d" if tag else "4")
+    print(f"[{label} cli] --operator {operator} --ld-dtype {ld_dtype}{flags}, "
           f"K={K}, M={M}: {total_s:.1f} s in all; "
-          f"ingestion "
-          f"(load/R: .npz -> band -> blocks -> card) {res['ingest_s']:.2f} s, "
+          f"ingestion (load/R) {res['ingest_s']:.2f} s, "
           f"preconditioner eigendecomposition {res['precond_eig_s']:.2f} s, inference "
           f"{res['infer_s']:.2f} s = {res['s_per_iteration']:.4f} s/iteration (median "
           f"after the first); {len(rows)} iterations, LD passes {passes}, "
@@ -572,6 +603,197 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
           f"{res['stop']}; best-iterate alignment "
           f"{align:.5f}", flush=True)
     return res
+
+
+def host_ingestion(prefix: str, dev) -> dict:
+    """The command line's load/R at M_FULL in its parts, on the host: the
+    .npz load, CSR -> band, the hybrid (and int8) packing, the copy to the
+    card; the native band and packs held bitwise against the numpy
+    versions, each path timed."""
+    import torch
+
+    from sgvamp_torch import native
+    from sgvamp_torch.data import loaders
+    from sgvamp_torch.ops.band_kernel import pack_hybrid, pack_int8
+
+    def timed(fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        return out, time.perf_counter() - t0
+
+    def same_bits(a, b):
+        return a.dtype == b.dtype and a.shape == b.shape and np.array_equal(
+            a.view(np.uint8), b.view(np.uint8))
+
+    t = {}
+    csr, t["npz_load"] = timed(loaders.load_R, prefix + "_R.npz")
+    (band, bw, dropped), t["band_native"] = timed(loaders.csr_to_band, csr, BW_FULL)
+    (band_np, _, _), t["band_numpy"] = timed(loaders.csr_to_band_numpy, csr, BW_FULL)
+    if dropped or bw != BW_FULL or not same_bits(band, band_np):
+        fail(f"native CSR -> band differs from the numpy version (dropped {dropped}, bw {bw})")
+    del band_np, csr
+    packs = {}
+    for what, nat, plain in (("hybrid", native.band_pack_hybrid, pack_hybrid),
+                             ("int8", native.band_pack_i8, pack_int8)):
+        packs[what], t[f"pack_{what}_native"] = timed(nat, band, B_FULL)
+        want, t[f"pack_{what}_numpy"] = timed(plain, band, B_FULL)
+        if packs[what] is None or not all(same_bits(a, b) for a, b in zip(packs[what], want)):
+            fail(f"native {what} packing differs from the numpy version (or did not run)")
+        del want
+
+    def to_card(upper, scales):
+        out = [torch.from_numpy(a).to(dev)[None].contiguous() for a in (upper, scales)]
+        torch.cuda.synchronize()
+        return out
+    _, t["copy_to_card_hybrid"] = timed(to_card, *packs["hybrid"])
+    parts = t["npz_load"] + t["band_native"] + t["pack_hybrid_native"] + t["copy_to_card_hybrid"]
+    print(f"[4 ingestion] M={M_FULL}, host: .npz load {t['npz_load']:.2f} s, CSR -> band "
+          f"native {t['band_native']:.2f} s (numpy {t['band_numpy']:.2f} s, bitwise equal), "
+          f"hybrid pack native {t['pack_hybrid_native']:.2f} s (numpy "
+          f"{t['pack_hybrid_numpy']:.2f} s, bitwise equal), int8 pack native "
+          f"{t['pack_int8_native']:.2f} s (numpy {t['pack_int8_numpy']:.2f} s, bitwise equal), "
+          f"copy of the hybrid blocks to the card {t['copy_to_card_hybrid']:.2f} s; the parts "
+          f"of the hybrid run's load/R add up to {parts:.2f} s (PERF.md §5: load/R 8.38 s on an "
+          f"H100 through the numpy path)", flush=True)
+    return dict(t, parts_s=parts)
+
+
+def precond_eig_profile(band, dev) -> dict:
+    """Where the hybrid run's precond/eig goes: torch.linalg.eigh over the
+    M_FULL / 64 diagonal 64 x 64 blocks, in one chunk and in chunks of 2048,
+    on the card and on the host; block_jacobi_eig (what VampEngine calls),
+    timed; torch.linalg.eigh over PROFILED_BLOCKS of the blocks under
+    torch.profiler (the whole batch makes a trace of about 90 launches a
+    block, whose processing takes minutes), its top operations by device
+    and by host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sgvamp_torch.core.precond import _extract_sub_blocks, block_jacobi_eig
+    from sgvamp_torch.ops.band_kernel import SymBandedLD
+
+    op = SymBandedLD.from_band(band, block_size=B_FULL, dtype="hybrid", device=dev)
+    D = _extract_sub_blocks(op, 64).reshape(-1, 64, 64)
+    D = 0.5 * (D + D.transpose(-1, -2))
+    out = {"blocks": int(D.shape[0])}
+
+    def eigh_s(x, chunk):
+        t0 = time.perf_counter()
+        for i in range(0, x.shape[0], chunk):
+            torch.linalg.eigh(x[i:i + chunk])
+        if x.is_cuda:
+            torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    eigh_s(D[:64], 64)        # warm-up: the solver's first call
+    for where, x in (("card", D), ("host", D.cpu())):
+        for chunk in (x.shape[0], 2048):
+            out[f"eigh_{where}_chunk{chunk}_s"] = eigh_s(x, chunk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block_jacobi_eig(op, 64, 2048, torch.bfloat16)
+    torch.cuda.synchronize()
+    out["block_jacobi_eig_s"] = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.linalg.eigh(D[:PROFILED_BLOCKS])
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+
+    def top(events, attr):
+        rows = sorted(events, key=lambda e: getattr(e, attr), reverse=True)[:6]
+        return [(e.key, e.count, round(getattr(e, attr) / 1e3, 3)) for e in rows]
+    # device time from the kernels themselves (aten ops would count it twice)
+    out["top_by_device_ms"] = top([e for e in ev if e.device_type == DeviceType.CUDA],
+                                  "device_time_total")
+    out["top_by_host_ms"] = top(ev, "cpu_time_total")
+    print(f"[4 precond/eig] {out['blocks']} blocks of 64 x 64 (the hybrid run's): "
+          f"torch.linalg.eigh on the card {out[f'eigh_card_chunk{D.shape[0]}_s']:.3f} s in one "
+          f"chunk, {out['eigh_card_chunk2048_s']:.3f} s in chunks of 2048; on the host "
+          f"{out[f'eigh_host_chunk{D.shape[0]}_s']:.3f} s / {out['eigh_host_chunk2048_s']:.3f} s; "
+          f"block_jacobi_eig {out['block_jacobi_eig_s']:.3f} s; eigh over {PROFILED_BLOCKS} "
+          f"blocks under torch.profiler, top operations by device time (name, calls, ms) "
+          f"{out['top_by_device_ms']}, by host time {out['top_by_host_ms']}",
+          flush=True)
+    return out
+
+
+def write_ld_cohorts(prefix: str, work: str) -> dict:
+    """Two cohorts' PLINK files from the panel at `prefix` (M_CLI_SMALL):
+    .bim files on two chromosomes that share positions (markers 0..M/2-1 on
+    chromosome 1, the rest on 2, at the same base pairs), each cohort
+    without its own 2% of the markers and with its own N; a .ld table each
+    with PLINK's header and the one-sided pairs i < j of the panel's band
+    (within a chromosome) among its own markers, R to 9 decimals in fixed
+    width; r files over its own markers, in local order (the panel's r
+    scaled by sqrt(N_k / N)). Returns the command line's data flags, the
+    true signal in the order of the merged panel and the text's size."""
+    import scipy.sparse
+
+    from sgvamp_torch.data import harmonize, loaders
+
+    M, half = M_CLI_SMALL, M_CLI_SMALL // 2
+    rng = np.random.default_rng(11)
+    gone = rng.permutation(M)[:2 * (M // 50)].reshape(2, -1)     # disjoint 2% each
+    N = [N_SAMPLES, 2 * N_SAMPLES // 3]
+    R = scipy.sparse.triu(loaders.load_R(prefix + "_R.npz"), k=1).tocoo()
+    keep = (R.row < half) == (R.col < half)                          # within a chromosome
+    a, b, v = R.row[keep].astype(np.int64), R.col[keep].astype(np.int64), R.data[keep]
+    del R
+    chrom = np.where(np.arange(M) < half, 1, 2)
+    bp = 10000 + 100 * (np.arange(M) % half)
+    # a marker's "CHR BP SNP" and R's field in fixed width, as bytes
+    rec = np.frombuffer("".join(f"{c:>6}{p:>13}{'rs' + str(i):>13}" for i, (c, p)
+                                in enumerate(zip(chrom, bp))).encode(), np.uint8).reshape(M, 32)
+    header = (f"{'CHR_A':>6}{'BP_A':>13}{'SNP_A':>13}{'CHR_B':>6}{'BP_B':>13}{'SNP_B':>13}"
+              f"{'R':>14}\n").encode()
+    r_panel = np.load(prefix + "_r.npy").reshape(-1)
+    flags = {"ld": [], "bim": [], "r": [], "M": []}
+    nbytes = 0
+    for k, tag in enumerate(("ca", "cb")):
+        own = np.ones(M, bool)
+        own[gone[k]] = False
+        idx = np.flatnonzero(own)
+        with open(os.path.join(work, tag + ".bim"), "w") as f:
+            f.writelines(f"{chrom[i]}\trs{i}\t0\t{bp[i]}\tA\tG\n" for i in idx)
+        np.save(os.path.join(work, tag + "_r.npy"), r_panel[idx] * np.sqrt(N[k] / N_SAMPLES))
+        sel = np.flatnonzero(own[a] & own[b])
+        path = os.path.join(work, tag + ".ld")
+        with open(path, "wb") as f:
+            f.write(header)
+            for lo in range(0, sel.size, 1 << 21):
+                s_ = sel[lo:lo + (1 << 21)]
+                q = np.rint(np.abs(v[s_]) * 1e9).astype(np.int64)
+                line = np.empty((s_.size, 79), np.uint8)      # 2 x 32, then R in 14
+                line[:, :32] = rec[a[s_]]
+                line[:, 32:64] = rec[b[s_]]
+                line[:, 64:66] = ord(" ")
+                line[:, 66] = np.where(v[s_] < 0, ord("-"), ord(" "))
+                line[:, 67] = ord("0") + q // 1000000000
+                line[:, 68] = ord(".")
+                frac = q % 1000000000
+                for d in range(9):
+                    line[:, 77 - d] = ord("0") + frac % 10
+                    frac //= 10
+                line[:, 78] = ord("\n")
+                f.write(line.tobytes())
+        nbytes += os.path.getsize(path)
+        flags["ld"].append(path)
+        flags["bim"].append(os.path.join(work, tag + ".bim"))
+        flags["r"].append(os.path.join(work, tag + "_r.npy"))
+        flags["M"].append(str(idx.size))
+    # the merged panel's order (harmonize is deterministic on one machine):
+    # the true signal goes to the command line in that order
+    panel = harmonize.harmonize(flags["bim"], N)
+    order = np.array([int(rs_[2:]) for rs_ in panel.variants])
+    bet = np.load(prefix + "_bet.npy").reshape(-1)[order]
+    np.save(os.path.join(work, "ld_bet.npy"), bet)
+    inputs = ["--ld-files", ",".join(flags["ld"]), "--bim-files", ",".join(flags["bim"]),
+              "--r-files", ",".join(flags["r"]), "--true-signal-file",
+              os.path.join(work, "ld_bet.npy"), "--N", ",".join(map(str, N)),
+              "--M", ",".join(flags["M"])]
+    return {"inputs": inputs, "truth": bet, "order": order, "ld_bytes": nbytes,
+            "pairs_in_band": int(a.size), "N": N}
 
 
 def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None,
@@ -667,6 +889,7 @@ def compare_runs(sharded: dict, whole: dict, phase: str) -> dict:
 def main() -> None:
     import torch
 
+    from sgvamp_torch import native
     from sgvamp_torch.core.operators import BandedLD
     from sgvamp_torch.data.simulate import simulate_ld_band
     from sgvamp_torch.ops import _build
@@ -697,6 +920,16 @@ def main() -> None:
     for lib in libs:
         _build.load_library(lib)
     seconds["build"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        native_lib = native.build()
+    except RuntimeError as e:
+        fail(f"the native ingestion library did not build: {e}")
+    if not native.available():
+        fail(f"the native ingestion library {native_lib} built but did not load")
+    seconds["build_native"] = time.perf_counter() - t0
+    print(f"[1 build] native ingestion (sgvamp_torch/native/ldparse.cpp, g++): "
+          f"{os.path.basename(native_lib)} in {seconds['build_native']:.2f} s", flush=True)
     ptxas = []
     for lib in libs:
         with open(os.path.join(_build.BUILD_DIR, lib + ".log")) as f:
@@ -965,6 +1198,12 @@ def main() -> None:
     cli = {"hybrid": cli_run(prefix, out_dir, M_FULL, "hybrid", "sym_band_matvec_hybrid")}
     seconds["cli_hybrid_full"] = time.perf_counter() - t0
     t0 = time.perf_counter()
+    ingestion = dict(host_ingestion(prefix, dev), cli_load_R_s=cli["hybrid"]["ingest_s"],
+                     cli_precond_eig_s=cli["hybrid"]["precond_eig_s"])
+    eig_profile = precond_eig_profile(band, dev)
+    torch.cuda.empty_cache()
+    seconds["ingestion_and_eig_profile"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     small_prefix = os.path.join(work.name, "sm")
     seconds["gen_band_small"] = gen_band(small_prefix, M_CLI_SMALL)
     # the resident and int4 kernels at the shapes this path gives them
@@ -985,6 +1224,35 @@ def main() -> None:
     cli["banded"] = cli_run(small_prefix, out_dir, M_CLI_SMALL, "bfloat16", None,
                             operator="banded")
     seconds["cli_small"] = time.perf_counter() - t0
+
+    # ---- 4b. the .ld path: two cohorts' PLINK tables and .bim files ----
+    t0 = time.perf_counter()
+    ld = write_ld_cohorts(small_prefix, work.name)
+    seconds["ld_write"] = time.perf_counter() - t0
+    cli["ld int8"] = cli_run(small_prefix, out_dir, len(ld["truth"]), "int8",
+                             "sym_band_matvec_int8", K=2, tag="_ld", inputs=ld["inputs"],
+                             truth=ld["truth"])
+    name = "bb_sym_int8_ld"
+    with open(os.path.join(out_dir, name + ".bim")) as f:
+        merged = [ln.split("\t")[1] for ln in f.read().splitlines()]
+    if merged != [f"rs{i}" for i in ld["order"]] or len(set(merged)) != M_CLI_SMALL:
+        fail(f"the merged .bim does not hold the {M_CLI_SMALL} markers once each in the "
+             f"panel's order ({len(merged)} lines, {len(set(merged))} distinct)")
+    routes = cli["ld int8"]["routes"]
+    parse_s = [float(m.group(1)) for ln in routes
+               for m in [re.search(r"parsed through the native path in ([0-9.]+) s", ln)] if m]
+    if (len(parse_s) != 2 or sum("assembled through the native path" in ln for ln in routes) != 2
+            or sum("int8 blocks packed through the native path" in ln for ln in routes) != 2):
+        fail(f".ld path: both tables must be parsed, assembled and packed natively: {routes}")
+    seconds["ld_path"] = time.perf_counter() - t0
+    ld_path = {"ld_bytes": ld["ld_bytes"], "pairs_in_band": ld["pairs_in_band"], "N": ld["N"],
+               "parse_s": parse_s, "parse_MB_per_s": ld["ld_bytes"] / sum(parse_s) / 1e6,
+               "write_s": seconds["ld_write"], "phase_s": seconds["ld_path"]}
+    print(f"[4b .ld] two cohorts at M={M_CLI_SMALL} ({ld['pairs_in_band']} pairs in the band, "
+          f"{ld['ld_bytes'] / 1e9:.2f} GB of .ld text, written in {seconds['ld_write']:.1f} s): "
+          f"parsed natively in {parse_s[0]:.2f} + {parse_s[1]:.2f} s = "
+          f"{ld_path['parse_MB_per_s']:.0f} MB/s; merged .bim {len(merged)} markers once each; "
+          f"phase {seconds['ld_path']:.1f} s in all", flush=True)
 
     # ---- 5. the operator-flavor path ----
     t0 = time.perf_counter()
@@ -1068,6 +1336,7 @@ def main() -> None:
 
     print(json.dumps({"seconds": {k: round(v, 2) for k, v in seconds.items()},
                       "cli": list(cli.values()) + list(mesh_cli.values()),
+                      "ingestion": ingestion, "precond_eig": eig_profile, "ld_path": ld_path,
                       "kernel_bench": list(bench_rows.values()),
                       "wide_band": wide,
                       "engine_paths": {

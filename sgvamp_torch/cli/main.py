@@ -10,15 +10,16 @@ every cell is the CPU: the sharded path then runs its cells in turn.
 
 Ported: --operator dense, --operator banded (float storage) and
 --operator sym with --ld-dtype float64, float32, bfloat16, int8, int4 or
-hybrid; .npz / .npy LD inputs; the host loop with the block-Jacobi
+hybrid; .npz / .npy LD inputs and PLINK .ld tables with --bim-files
+(harmonized across cohorts, missing SNPs filled from their source cohort,
+the merged .bim written to --out-dir); the host loop with the block-Jacobi
 preconditioner, the StopMonitor and reference-format output files.
 --operator sym leaves the operator's mode at "auto", so float storage
 runs the resident kernel where its run fits a CTA's shared memory. Not
 ported yet: --operator blocksparse, runs of several processes
 (--coordinator-address, --num-processes, --process-id), --fused,
-checkpoints, --prior-update mle, .ld tables and --bim-files,
---profile-dir. Each is rejected with a message that
-names the flag and its ROADMAP item; none is silently ignored.
+checkpoints, --prior-update mle, --profile-dir. Each is rejected with a
+message that names the flag and its ROADMAP item; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -175,10 +176,6 @@ def _reject_unported(args) -> None:
         no("--prior-update mle", "ROADMAP A11, MLE prior learning")
     if args.operator == "blocksparse":
         no("--operator blocksparse", "ROADMAP A, BlockSparseLD")
-    if args.bim_files:
-        no("--bim-files", "ROADMAP A, .bim harmonization without pandas")
-    if args.ld_files and any(p.endswith(".ld") for p in args.ld_files.split(",")):
-        no(".ld input in --ld-files", "ROADMAP A, PLINK .ld tables without pandas")
     if args.profile_dir:
         no("--profile-dir", "ROADMAP A15, tooling")
 
@@ -286,12 +283,19 @@ def main(argv: Optional[List[str]] = None) -> int:
                          devices=[device] * n_mesh if on_cpu else None)
         log.info(f"Running on mesh {mesh.shape}")
 
-    # -- the marker panel (no .bim files: all cohorts share it) --
+    # -- harmonization: the reference panel of the cohorts' markers --
     ts = time.time()
     timers.start("load/bim")
-    if len(set(M_list)) != 1:
-        raise SystemExit("Without --bim-files all cohorts must share the same M")
-    panel = hz.identity_panel(M_list[0], K)
+    if args.bim_files:
+        bim_paths = args.bim_files.split(",")
+        out_bim = os.path.join(args.out_dir, args.out_name + ".bim") if args.out_dir else None
+        if out_bim:
+            os.makedirs(args.out_dir, exist_ok=True)
+        panel = hz.harmonize(bim_paths, N_list, out_bim)
+    else:
+        if len(set(M_list)) != 1:
+            raise SystemExit("Without --bim-files all cohorts must share the same M")
+        panel = hz.identity_panel(M_list[0], K)
     M = panel.M
     log.info(f"Total number of markers in reference is {M}")
     timers.stop("load/bim")
@@ -304,7 +308,6 @@ def main(argv: Optional[List[str]] = None) -> int:
     for k in range(K):
         r_local = loaders.load_r(r_paths[k], M_list[k], N_list[k])
         rs.append(loaders.scatter_to_reference(r_local, panel.i_maps[k], M))
-    rs = np.stack(rs)
     timers.stop("load/r")
     log.debug(f"Loading r vectors took {time.time() - ts:.3f} seconds\n")
 
@@ -325,27 +328,44 @@ def main(argv: Optional[List[str]] = None) -> int:
     # the quantized and bf16 storages round at block-pack time; the staged
     # band arrays stay float
     band_dtype = np.dtype(np.float64 if ld_dtype == "float64" else np.float32)
-    if args.operator in ("banded", "sym") and all(p.endswith(".npz") for p in ld_paths):
-        # Band-direct ingestion: sparse .npz -> symmetric band storage ->
-        # block-banded operator, never materializing MxM. Each UNIQUE path
-        # is loaded, converted and block-packed once: the shared-panel
-        # meta-analysis workflow lists one file once per cohort.
-        uniq = {}
-        for p in ld_paths:
-            if p not in uniq:
-                uniq[p] = loaders.csr_to_band(
-                    loaders.load_R(p), args.bandwidth, dtype=band_dtype)
-        dropped = sum(d for _, _, d in uniq.values())
-        bw = max(w for _, w, _ in uniq.values())
+    all_ld_tables = all(p.endswith(".ld") for p in ld_paths)
+    all_sparse = all(p.endswith((".ld", ".npz")) for p in ld_paths)
+    if args.operator in ("banded", "sym") and all_sparse:
+        # Band-direct ingestion: .ld triplets or sparse .npz -> symmetric
+        # band storage -> block-banded operator, never materializing MxM.
+        if all_ld_tables:
+            bands, rs, bw, dropped = loaders.ld_files_to_bands(
+                ld_paths, rs, panel, args.bandwidth, dtype=band_dtype)
+            band_views = list(bands)
+            # the cross-cohort missing-SNP fill can make bands differ per
+            # cohort even for identical paths: never share packs here
+            pack_keys = list(range(K))
+        else:
+            # Each UNIQUE path is loaded, converted and block-packed once:
+            # the shared-panel meta-analysis workflow lists one file once
+            # per cohort.
+            uniq = {}
+            for p in ld_paths:
+                if p not in uniq:
+                    log.info(f"LD file {p}:")
+                    uniq[p] = loaders.csr_to_band(
+                        loaders.load_R(p), args.bandwidth, dtype=band_dtype)
+            dropped = sum(d for _, _, d in uniq.values())
+            bw = max(w for _, w, _ in uniq.values())
+            band_views = [uniq[p][0] for p in ld_paths]
+            pack_keys = list(ld_paths)
+            del uniq
+        rs = np.stack(rs)
         if dropped:
             log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
         ctor = SymBandedLD.from_band if args.operator == "sym" else BandedLD.from_band
         pack_cache = {}
-        for p in uniq:
-            pack_cache[p] = ctor(_pad_band(uniq[p][0], bw), block_size=B, s=s,
-                                 dtype=ld_dtype, device=device)
-        del uniq
-        ops = [pack_cache[p] for p in ld_paths]
+        for k in range(K):
+            if pack_keys[k] not in pack_cache:
+                pack_cache[pack_keys[k]] = ctor(_pad_band(band_views[k], bw), block_size=B,
+                                                s=s, dtype=ld_dtype, device=device)
+        del band_views
+        ops = [pack_cache[key] for key in pack_keys]
         del pack_cache
         if args.operator == "sym":
             op = cat_sym(ops)
@@ -356,44 +376,52 @@ def main(argv: Optional[List[str]] = None) -> int:
         del ops
         Mp = op.M
         pad = Mp - M
-    elif args.operator == "sym":
-        # dense .npy (or mixed) inputs go through CSR, one per cohort: the
-        # dense stack is never needed on this path
-        bands, dropped = [], 0
-        for p in ld_paths:
-            band_k, _, d_k = loaders.csr_to_band(
-                loaders.load_R(p), args.bandwidth, dtype=band_dtype)
-            bands.append(band_k)
-            dropped += d_k
-        bw = max((b.shape[1] - 1) // 2 for b in bands)
-        if dropped:
-            log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
-        op = cat_sym([SymBandedLD.from_band(_pad_band(b, bw), block_size=B, s=s,
-                                            dtype=ld_dtype, device=device)
-                      for b in bands])
-        del bands
-        Mp = op.M
-        pad = Mp - M
-    elif args.operator == "banded":
-        Rs = [loaders.load_R(p) for p in ld_paths]
-        dense = loaders.to_dense_stack(Rs, M)
-        bw = args.bandwidth
-        if bw is None:
-            bw = max(loaders.estimate_bandwidth(R) for R in Rs)
-        pad = (-M) % B
-        if pad:
-            dense = np.pad(dense, ((0, 0), (0, pad), (0, pad)))
-            for i in range(pad):  # keep padded diagonal SPD
-                dense[:, M + i, M + i] = 1.0
-        hb = -(-(bw + B - 1) // B)
-        op = BandedLD.from_dense(dense, block_size=B, bandwidth_blocks=hb, s=s,
-                                 dtype=ld_dtype, device=device)
-        Mp = dense.shape[-1]
     else:
-        dense = loaders.to_dense_stack([loaders.load_R(p) for p in ld_paths], M)
-        op = DenseLD(mats=torch.as_tensor(dense).to(device=device, dtype=_DTYPES[ld_dtype]),
-                     s=s)
-        pad, Mp = 0, M
+        vindex = {rs_: i for i, rs_ in enumerate(panel.variants)}
+        Rs = []
+        for p in ld_paths:
+            log.info(f"LD file {p}:")
+            Rs.append(loaders.load_R(p, vindex))
+        if any(p.endswith(".ld") for p in ld_paths) and K > 1:
+            # sparse-level fill: never materializes K M x M dense matrices
+            Rs, rs = loaders.fill_missing_csr(Rs, rs, panel)
+        rs = np.stack(rs)
+        if args.operator == "sym":
+            # dense .npy (or mixed) inputs go through CSR, one per cohort: the
+            # dense stack is never needed on this path
+            bands, dropped = [], 0
+            for R in Rs:
+                band_k, _, d_k = loaders.csr_to_band(R, args.bandwidth, dtype=band_dtype)
+                bands.append(band_k)
+                dropped += d_k
+            bw = max((b.shape[1] - 1) // 2 for b in bands)
+            if dropped:
+                log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
+            op = cat_sym([SymBandedLD.from_band(_pad_band(b, bw), block_size=B, s=s,
+                                                dtype=ld_dtype, device=device)
+                          for b in bands])
+            del bands
+            Mp = op.M
+            pad = Mp - M
+        elif args.operator == "banded":
+            dense = loaders.to_dense_stack(Rs, M)
+            bw = args.bandwidth
+            if bw is None:
+                bw = max(loaders.estimate_bandwidth(R) for R in Rs)
+            pad = (-M) % B
+            if pad:
+                dense = np.pad(dense, ((0, 0), (0, pad), (0, pad)))
+                for i in range(pad):  # keep padded diagonal SPD
+                    dense[:, M + i, M + i] = 1.0
+            hb = -(-(bw + B - 1) // B)
+            op = BandedLD.from_dense(dense, block_size=B, bandwidth_blocks=hb, s=s,
+                                     dtype=ld_dtype, device=device)
+            Mp = dense.shape[-1]
+        else:
+            dense = loaders.to_dense_stack(Rs, M)
+            op = DenseLD(mats=torch.as_tensor(dense).to(device=device, dtype=_DTYPES[ld_dtype]),
+                         s=s)
+            pad, Mp = 0, M
     log.info(f"Loaded {K} LD matrices of shape ({M}, {M})")
     timers.stop("load/R")
     log.debug(f"Loading R matrices took {time.time() - ts:.3f} seconds\n")

@@ -72,14 +72,16 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import logging
 from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
 from torch import Tensor
 
-from sgvamp_torch import resolve_device
+from sgvamp_torch import native, resolve_device
 
+logger = logging.getLogger("sgvamp")
 _FLOAT_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
 _FLOAT_NAMES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
                 "float64": torch.float64}
@@ -1099,7 +1101,10 @@ class SymBandedLD:
         "float32", "float64", "bfloat16", "int8", "int4", "hybrid".
         layout: "diag", or "slab" for float blocks
         (T_i[d*B + q, p] = U[i, d][p, q]). The blocks are bit-identical to
-        sgvamp_tpu's SymBandedLD.from_band (its numpy path). M is padded
+        sgvamp_tpu's SymBandedLD.from_band; int8 and hybrid blocks of a
+        float32 band are packed by the host C++ packer of
+        sgvamp_torch.native where it builds, else by pack_int8 /
+        pack_hybrid (the same bits). M is padded
         up to a block multiple with an identity diagonal on the padded
         markers, which callers mask. The tensors go to `device` (None: the
         default CUDA device).
@@ -1113,8 +1118,18 @@ class SymBandedLD:
         device = resolve_device(device)
         scales = None
         if name in ("int8", "int4", "hybrid"):
-            packer = {"int8": pack_int8, "int4": pack_int4, "hybrid": pack_hybrid}[name]
-            upper, scales = packer(band, block_size)
+            # a float32 band packs int8 and hybrid blocks through the native
+            # one-pass packer where it builds (the same bits as the numpy one)
+            got = None
+            if band.dtype == np.float32 and name != "int4":
+                got = (native.band_pack_i8 if name == "int8"
+                       else native.band_pack_hybrid)(band, block_size)
+                logger.info(f"{name} blocks packed through the "
+                            f"{'numpy' if got is None else 'native'} path")
+            if got is None:
+                got = {"int8": pack_int8, "int4": pack_int4, "hybrid": pack_hybrid}[name](
+                    band, block_size)
+            upper, scales = got
         else:
             # bfloat16 is rounded to nearest even from the f32 blocks, below
             upper = pack_blocks(band, block_size,

@@ -154,8 +154,9 @@ def test_loaders_match(tmp_path):
     np.testing.assert_array_equal(tld.to_dense_stack(Rs, 5), jld.to_dense_stack(Rs, 5))
     np.testing.assert_array_equal(tld.as_csr(Rs[0]).toarray(), jld.as_csr(Rs[0]).toarray())
     assert tld.as_csr(Rs[1]).format == "csr"
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tld.load_R("panel.ld")
+    for load_R in (tld.load_R, jld.load_R):   # a .ld table needs the .bim files' index
+        with pytest.raises(ValueError, match="requires .bim files"):
+            load_R("panel.ld")
     with pytest.raises(ValueError, match="Unsupported R"):
         tld.load_R("panel.txt")
 
@@ -211,8 +212,6 @@ BASE = ["--ld-files", "R.npz", "--r-files", "r.npy", "--N", "10", "--M", "10",
     (["--prior-update", "mle"], "--prior-update mle"),
     (["--mle-prior-update", "mle"], "--prior-update mle"),
     (["--operator", "blocksparse"], "--operator blocksparse"),
-    (["--bim-files", "a.bim"], "--bim-files"),
-    (["--ld-files", "panel.ld"], ".ld"),
     (["--profile-dir", "prof"], "--profile-dir"),
     (["--platform", "tpu"], "--platform tpu"),
 ])

@@ -12,6 +12,7 @@ MODULES = [
     "sgvamp_torch",
     "sgvamp_torch.cli",
     "sgvamp_torch.cli.main",
+    "sgvamp_torch.cli.plink2np",
     "sgvamp_torch.cli.simulate",
     "sgvamp_torch.config",
     "sgvamp_torch.core.cg",
@@ -22,9 +23,11 @@ MODULES = [
     "sgvamp_torch.core.vamp",
     "sgvamp_torch.data.harmonize",
     "sgvamp_torch.data.loaders",
+    "sgvamp_torch.data.plink",
     "sgvamp_torch.data.simulate",
     "sgvamp_torch.interop",
     "sgvamp_torch.io.writers",
+    "sgvamp_torch.native",
     "sgvamp_torch.ops._build",
     "sgvamp_torch.ops.band_kernel",
     "sgvamp_torch.ops.membench",
