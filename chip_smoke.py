@@ -94,6 +94,26 @@ Phases, a few lines of output each (and fail on the first that fails):
          --mesh-shard 2 with the panel given twice (K=2, hybrid): each run
          launches its spill kernel once per LD pass and mesh cell and no
          other band kernel.
+  7. the fused run (VampEngine.run_scan_stoppable, the step replayed as
+     CUDA graphs), each against its host-loop run of the same call:
+     7a. phase 3's engine run (after a 2-step run that captures the
+         graphs): no eager kernel launch, 102 int8 launches by replay per
+         executed iteration (each graph's launches counted while it was
+         captured, times its replays), xhat1, gam1 and gamw of every
+         iteration within a scaled 1e-5 of phase 3's (the deviation and
+         whether the bits are equal printed), the same stop and best
+         iterate; s/iteration, host reads a step, and device ms a step and
+         the device-busy share of both runs (torch.profiler over 2 steps
+         of each, whose trace also counts the int8 kernels inside the
+         graphs);
+     7b. the same for phase 6c's int8 run under the (1, 4) mesh (4 x 102
+         spill launches per iteration); ms per chained sharded pass
+         replayed from a CUDA graph beside the eager chain and 6b's figure;
+     7c. sgvamp_torch.cli.main --fused 1 over phase 4's M=524288 hybrid
+         files: phase 4's checks with the launches counted by replay, then
+         the same file set, stop and best iterate as phase 4's run, every
+         file within a scaled 1e-5 (how many are equal to the byte
+         printed), and both runs' infer seconds.
 Then a JSON line of the kernels' numbers, and the result line last.
 """
 
@@ -126,6 +146,11 @@ WIDE_HB = 16          # the wide band: mode "auto" takes the streamed kernels fr
 # rows of a shard sum in another order)
 MESH_XHAT_TOL, MESH_PARAM_TOL = 1e-5, 1e-4
 CLI_ITERATIONS = 10
+STOP_TOL, STOP_DROP = 1e-4, 10.0   # the engine paths' StopMonitor thresholds
+# a fused run against its host-loop counterpart, per iteration: max|d| / max|x|
+# of xhat1, gam1 and gamw (the same kernels on the same inputs: equal bits
+# are expected, the tolerance is the kernels')
+FUSED_TOL = SCALED_TOL
 PROFILED_BLOCKS = 512  # of the 8192 64 x 64 blocks whose eigh torch.profiler traces
 CG_MAXIT = 100
 MIN_ALIGNMENT = 0.9
@@ -555,14 +580,24 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
                  f"{name}_xhat_best.bin"):
         if not os.path.exists(os.path.join(out_dir, need)):
             fail(f"{what}: output file {need} missing (have {sorted(os.listdir(out_dir))})")
-    passes = [int(v) for v in log.floats(r"\[roofline\] iteration \d+: [0-9.]+s, (\d+) LD passes")]
-    step_s = log.floats(r"\[roofline\] iteration \d+: ([0-9.]+)s")
+    fused = [json.loads(ln[len("[fused] "):]) for ln in log.lines if ln.startswith("[fused] ")]
+    warm_up = {}
+    if fused:
+        # a fused run: each piece of the step runs once eagerly (its warm-up)
+        # before its capture; the LD passes are the replays'
+        warm_up, counts = {k: v for k, v in counts.items() if v}, fused[0]["graph_launches"]
+        passes = [fused[0]["ld_passes"]]
+        step_s = [fused[0]["seconds"] / fused[0]["steps"]] * 2
+    else:
+        passes = [int(v) for v in
+                  log.floats(r"\[roofline\] iteration \d+: [0-9.]+s, (\d+) LD passes")]
+        step_s = log.floats(r"\[roofline\] iteration \d+: ([0-9.]+)s")
     if sum(passes) == 0:
         fail(f"{what}: the run logged no LD pass")
-    if own is not None and counts[own] != per_pass * sum(passes):
-        fail(f"{what}: {own} launched {counts[own]} times, the run logged "
+    if own is not None and counts.get(own, 0) != per_pass * sum(passes):
+        fail(f"{what}: {own} launched {counts.get(own, 0)} times, the run logged "
              f"{sum(passes)} LD passes of {per_pass} launches each")
-    others = {k: v for k, v in counts.items() if k != own and v}
+    others = {k: v for k, v in list(counts.items()) + list(warm_up.items()) if k != own and v}
     if others:
         fail(f"{what}: other band kernels were launched: {others}")
     routes = [ln for ln in log.lines if "through the n" in ln and "path" in ln]
@@ -572,7 +607,8 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
         rows = [ln.split("\t") for ln in f.read().splitlines()[1:]]
     if not rows or not np.all(np.isfinite(np.asarray(rows, dtype=np.float64))):
         fail(f"{what}: non-finite or missing rows in {name}_cohort_1.csv")
-    stopped = [ln for ln in log.lines if ln.startswith("STOP at iteration")]
+    stopped = [ln for ln in log.lines
+               if ln.startswith(("STOP at iteration", "Early stop at iteration"))]
     if any("ERROR: non-finite" in ln for ln in log.lines) or not (
             stopped or len(rows) == CLI_ITERATIONS):
         fail(f"{what}: the run neither stopped through the StopMonitor nor ran "
@@ -584,22 +620,29 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     align = alignment_l2(best, bet)[0]
     if not align >= MIN_ALIGNMENT:
         fail(f"{what}: best-iterate alignment {align:.5f} < {MIN_ALIGNMENT}")
+    early = [int(v) for v in log.floats(r"Early stop at iteration (\d+)")]
+    chosen = [int(v) for v in log.floats(r"Selected iterate \(iteration (-?\d+)\) written")]
     res = {"operator": operator, "ld_dtype": ld_dtype, "M": M, "K": K, "flags": list(extra),
-           "launches": counts[own] if own else 0, "iterations": len(rows),
+           "launches": counts.get(own, 0) if own else 0, "iterations": len(rows),
+           "stopped_at": early[0] if early else None, "best_it": chosen[0] if chosen else None,
+           "name": name, "fused": fused[0] if fused else None, "warm_up_launches": warm_up,
            "passes": passes, "ingest_s": sum(log.floats(r"\[timer\] load/R: ([0-9.]+)s")),
            "precond_eig_s": sum(log.floats(r"\[timer\] precond/eig: ([0-9.]+)s")),
            "infer_s": sum(log.floats(r"\[timer\] infer: ([0-9.]+)s")),
            "s_per_iteration": float(np.median(step_s[1:])) if len(step_s) > 1 else float("nan"),
            "total_s": total_s, "alignment": align, "routes": routes,
            "stop": stopped[0] if stopped else "ran all iterations"}
-    label = "4b" if truth is not None else ("6d" if tag else "4")
+    label = "4b" if truth is not None else ("7c" if fused else ("6d" if tag else "4"))
     print(f"[{label} cli] --operator {operator} --ld-dtype {ld_dtype}{flags}, "
           f"K={K}, M={M}: {total_s:.1f} s in all; "
           f"ingestion (load/R) {res['ingest_s']:.2f} s, "
           f"preconditioner eigendecomposition {res['precond_eig_s']:.2f} s, inference "
-          f"{res['infer_s']:.2f} s = {res['s_per_iteration']:.4f} s/iteration (median "
-          f"after the first); {len(rows)} iterations, LD passes {passes}, "
-          f"{own or 'band kernel'} launches {res['launches']}, other band kernels 0; "
+          f"{res['infer_s']:.2f} s = {res['s_per_iteration']:.4f} s/iteration "
+          f"({'the fused run mean' if fused else 'median after the first'}); "
+          f"{len(rows)} iterations, LD passes {passes}, "
+          f"{own or 'band kernel'} launches {res['launches']}"
+          f"{f' by graph replays (and {warm_up} in the warm-ups)' if fused else ''}, other "
+          f"band kernels 0; "
           f"{res['stop']}; best-iterate alignment "
           f"{align:.5f}", flush=True)
     return res
@@ -819,10 +862,12 @@ def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None
     extra = before_run(engine) if before_run else None
     with tempfile.TemporaryDirectory() as out_dir:
         writer = OutputWriter(out_dir, "smoke", K=1)
-        hist = engine.run(iterations, writer=writer, x0=x0, stop_tol=1e-4,
-                          stop_gam1_drop=10.0,
+        t0 = time.perf_counter()
+        hist = engine.run(iterations, writer=writer, x0=x0, stop_tol=STOP_TOL,
+                          stop_gam1_drop=STOP_DROP,
                           callback=lambda it, s, a: stamps.append(time.perf_counter()))
         torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
         launches = dict(band_launches(), read_max=_read_once.launches)
         files = sorted(os.listdir(out_dir))
         best_it = hist["best_it"]
@@ -856,8 +901,181 @@ def engine_run(op, r, x0, own: str, iterations: int, phase: str, before_run=None
     if best_bin is None or not np.array_equal(best_bin, best.astype(np.float64)):
         fail(f"{phase}: smoke_xhat_it_{best_it}.bin does not hold the best iterate")
     return {"launches": launches, "executed": executed, "s_per_iteration": s_per_it,
+            "mean_s_per_iteration": total_s / executed,
             "alignment": best_align, "extra": extra, "xhat1": hist["xhat1"],
-            "params": hist["params"], "best_it": best_it}
+            "params": hist["params"], "best_it": best_it, "best_xhat1": best,
+            "stopped_at": hist.get("stopped_at")}
+
+
+def profiled_steps(run, kernel_name: str, steps: int = 2) -> tuple:
+    """run() (`steps` VAMP steps) under torch.profiler: (device ms a step,
+    summed over the trace's device events: kernels, kernels inside CUDA
+    graphs, copies and fills; launches of `kernel_name` a step)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    device_ms = sum(e.device_time_total for e in ev) / 1e3 / steps
+    return device_ms, sum(e.count for e in ev if kernel_name in e.key) / steps
+
+
+def fused_run(op, r, x0, own: str, iterations: int, phase: str, host: dict,
+              mesh=None) -> dict:
+    """Phase 7a / 7b: the engine run of `host` (phase 3's or 6c's host-loop
+    run, same operator, seed and stop thresholds) as run_scan_stoppable, the
+    step's CUDA graphs captured by a first 2-step run. The measured run must
+    launch no kernel eagerly, and its replays `own` 102 times per executed
+    iteration (times the mesh's cells); every iteration's xhat1, gam1 and
+    gamw within FUSED_TOL of the host loop's (max|d| / max|x|), the same
+    stop and best iterate. Then one 2-step run of each mode under
+    torch.profiler: device ms a step, and the int8 kernel's launches in the
+    fused run's trace (kernels inside the graphs)."""
+    import torch
+
+    device = op.upper.device
+    engine = engine_over(op, r, M_FULL, device, mesh=mesh)
+    per_it = 102 * (mesh.devices.size if mesh is not None else 1)
+    t0 = time.perf_counter()
+    engine.run_scan_stoppable(2, STOP_TOL, STOP_DROP)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    _, aux, mon = engine.run_scan_stoppable(iterations, STOP_TOL, STOP_DROP)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    eager = {k: v for k, v in band_launches().items() if v}
+    replayed, reads = engine.fused.launches(), dict(engine.fused.reads)
+    n = int(mon.n_ran)
+    stopped_at = int(mon.stopped_at) if bool(mon.done) else None
+    if eager:
+        fail(f"{phase}: the fused run launched kernels eagerly: {eager}")
+    if replayed != {own: per_it * n}:
+        fail(f"{phase}: graph replays launched {replayed}, expected {{{own!r}: {per_it * n}}}")
+    if n != host["executed"] or stopped_at != host["stopped_at"]:
+        fail(f"{phase}: ran {n} iterations, stopped at {stopped_at}; the host loop "
+             f"{host['executed']}, {host['stopped_at']}")
+    if int(mon.best_it) != host["best_it"]:
+        fail(f"{phase}: best iterate {int(mon.best_it)}, the host loop's {host['best_it']}")
+    dev = {"xhat1": [], "gam1": [], "gamw": []}
+    same = True
+    for it in range(n):
+        want = {"xhat1": np.asarray(host["xhat1"][it]),
+                "gamw": np.asarray(host["params"][it])[:, 1],
+                "gam1": np.asarray(host["params"][it])[:, 2]}
+        for name in dev:
+            got = getattr(aux, name)[it].cpu().numpy().reshape(want[name].shape)
+            same = same and np.array_equal(got, want[name].astype(got.dtype))
+            dev[name].append(float(np.abs(got - want[name]).max() / np.abs(want[name]).max()))
+    best = mon.best_xhat1.cpu().numpy()
+    best_dev = float(np.abs(best - host["best_xhat1"]).max() / np.abs(host["best_xhat1"]).max())
+    if not max(max(v) for v in dev.values()) <= FUSED_TOL or not best_dev <= FUSED_TOL:
+        fail(f"{phase}: the fused run deviates from the host loop: {dev}, best {best_dev}")
+    fused_ms, traced = profiled_steps(lambda: engine.run_scan_stoppable(2, STOP_TOL, STOP_DROP),
+                                      "sym_band_int8_kernel")
+    host_ms, _ = profiled_steps(lambda: engine.run(2, stop_tol=STOP_TOL,
+                                                   stop_gam1_drop=STOP_DROP),
+                                "sym_band_int8_kernel")
+    if traced not in (0, per_it):
+        fail(f"{phase}: the profiler traced {traced} int8 kernels a fused step, "
+             f"the capture counted {per_it}")
+    s_it = wall / n
+    res = {"executed": n, "stopped_at": stopped_at, "best_it": int(mon.best_it),
+           "launches": replayed, "host_reads": reads, "host_reads_per_step": {
+               k: v / n for k, v in reads.items()},
+           "deviation": dev, "best_deviation": best_dev, "bitwise_equal": same,
+           "capture_run_s": capture_s, "s_per_iteration": s_it,
+           "host_s_per_iteration": host["mean_s_per_iteration"],
+           "host_median_s_per_iteration": host["s_per_iteration"],
+           "device_ms_per_step": fused_ms, "host_device_ms_per_step": host_ms,
+           "busy_share": fused_ms / 1e3 / s_it,
+           "host_busy_share": host_ms / 1e3 / host["s_per_iteration"],
+           "traced_int8_kernels_per_step": traced}
+    print(f"[{phase}] {n} iterations fused, stop at {stopped_at}, best iterate "
+          f"{res['best_it']} (host loop: the same); {own} launched {replayed.get(own)} times by "
+          f"graph replays ({per_it} a step, {traced} a step in the profiler's trace), none "
+          f"eagerly; host reads a step {res['host_reads_per_step']}; against the host loop, "
+          f"max|d|/max|x| per iteration: xhat1 {[f'{v:.1e}' for v in dev['xhat1']]}, gam1 "
+          f"{[f'{v:.1e}' for v in dev['gam1']]}, gamw {[f'{v:.1e}' for v in dev['gamw']]}, best "
+          f"{best_dev:.1e} (tol {FUSED_TOL}), bit for bit: {same}; {s_it:.4f} s/iteration "
+          f"(host loop {host['mean_s_per_iteration']:.4f}, median after the first "
+          f"{host['s_per_iteration']:.4f}); device {fused_ms:.2f} ms a step (host loop "
+          f"{host_ms:.2f}), busy {100 * res['busy_share']:.1f}% of the fused run's mean step "
+          f"(host loop {100 * res['host_busy_share']:.1f}% of its median step); capture run "
+          f"of 2 steps {capture_s:.2f} s",
+          flush=True)
+    return res
+
+
+def graphed_ms(fn, n: int = 5) -> float:
+    """ms per call of fn captured once into a CUDA graph (after a warm-up
+    call on a side stream) and replayed, by cuda_ms; the capture's wrapper
+    counts are taken back (a capture launches nothing)."""
+    import torch
+
+    from sgvamp_torch.ops.band_kernel import BAND_KERNELS
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    counts = [w.launches for w in BAND_KERNELS]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    for w, c in zip(BAND_KERNELS, counts):
+        w.launches = c
+    return cuda_ms(graph.replay, n)
+
+
+def compare_cli_files(host: dict, host_dir: str, fused: dict, fused_dir: str) -> dict:
+    """Phase 7c: the fused command-line run against the host loop's
+    (phase 4) over the same files: the same file set, the same stop and
+    best iterate, every .bin and every CSV column within FUSED_TOL (max|d| /
+    max|x|); how many files are equal to the byte."""
+    from sgvamp_torch.io.writers import read_bin
+
+    def files(d, name):
+        out = {}
+        for f in os.listdir(d):
+            rest = f[len(name) + 1:]
+            if f.startswith(name + "_") and rest.split("_")[0] in ("cohort", "metrics", "xhat",
+                                                                  "r1"):
+                out[rest] = os.path.join(d, f)
+        return out
+
+    a, b = files(host_dir, host["name"]), files(fused_dir, fused["name"])
+    if sorted(a) != sorted(b):
+        fail(f"7c: the fused run wrote {sorted(b)}, the host loop {sorted(a)}")
+    if (fused["stopped_at"], fused["best_it"]) != (host["stopped_at"], host["best_it"]):
+        fail(f"7c: stop and best iterate {fused['stopped_at']}, {fused['best_it']}; the host "
+             f"loop's {host['stopped_at']}, {host['best_it']}")
+    worst, equal = 0.0, 0
+    for rest in sorted(a):
+        with open(a[rest], "rb") as fa, open(b[rest], "rb") as fb:
+            equal += fa.read() == fb.read()
+        if rest.endswith(".bin"):
+            x, y = read_bin(a[rest]), read_bin(b[rest])
+        else:
+            x, y = (np.loadtxt(p, delimiter="\t", skiprows=1, ndmin=2) for p in (a[rest], b[rest]))
+        if x.shape != y.shape:
+            fail(f"7c: {rest}: shape {y.shape}, the host loop's {x.shape}")
+        scale = np.maximum(np.abs(x).max(axis=0), 1e-300)
+        worst = max(worst, float(np.max(np.abs(y - x).max(axis=0) / scale)))
+    if not worst <= FUSED_TOL:
+        fail(f"7c: the fused run's files deviate from the host loop's by {worst:.3e}")
+    res = {"files": len(a), "byte_equal": equal, "worst_deviation": worst,
+           "infer_s": fused["infer_s"], "host_infer_s": host["infer_s"]}
+    print(f"[7c cli] --fused 1 against phase 4's host loop: the same {len(a)} files, "
+          f"{equal} equal to the byte, worst max|d|/max|x| {worst:.1e} (tol {FUSED_TOL}); "
+          f"stop {fused['stopped_at']}, best iterate {fused['best_it']} (the same); infer "
+          f"{fused['infer_s']:.2f} s against {host['infer_s']:.2f} s", flush=True)
+    return res
 
 
 def compare_runs(sharded: dict, whole: dict, phase: str) -> dict:
@@ -1192,6 +1410,13 @@ def main() -> None:
         fail("the read probe kernel was not launched on the engine path")
     seconds["engine_path"] = time.perf_counter() - t0
 
+    # ---- 7a. the engine's library path, fused ----
+    t0 = time.perf_counter()
+    fused = {"int8": fused_run(op_int8, r_full, x0, "sym_band_matvec_int8", ITERATIONS,
+                               "7a fused engine path", int8_run)}
+    torch.cuda.empty_cache()
+    seconds["fused_engine_path"] = time.perf_counter() - t0
+
     # ---- 4. the command-line path ----
     t0 = time.perf_counter()
     out_dir = os.path.join(work.name, "out")
@@ -1307,9 +1532,40 @@ def main() -> None:
               f"{whole_run['s_per_iteration']:.4f} unsharded", flush=True)
         del op_m
         torch.cuda.empty_cache()
-    del op_int8, op_bf16
-    torch.cuda.empty_cache()
     seconds["mesh_engine_paths"] = time.perf_counter() - t0
+
+    # ---- 7b. the engine path under the mesh, fused; the sharded pass replayed ----
+    t0 = time.perf_counter()
+    fused["int8 mesh"] = fused_run(op_int8, r_full, x0, "sym_band_matvec_int8_spill",
+                                   MESH_ITERATIONS,
+                                   f"7b fused engine path, int8, (1, {MESH_SHARDS}) mesh",
+                                   mesh_runs["int8"], mesh=mesh)
+    sh = shard_operator(op_int8, MESH_SHARDS)
+    lanes = torch.randn((S, op_int8.M), generator=torch.Generator(dev).manual_seed(1),
+                        device=dev)
+
+    def chained(o):
+        def run():
+            v = lanes
+            for _ in range(BENCH_PASSES):
+                v = o.matvec(v) * 0.02
+            return v
+        return run
+
+    passes = {}
+    for key, o in (("sharded", sh), ("unsharded", op_int8)):
+        passes[f"{key}_eager_ms"] = cuda_ms(chained(o), 3) / BENCH_PASSES
+        passes[f"{key}_replayed_ms"] = graphed_ms(chained(o)) / BENCH_PASSES
+    fused["int8 mesh"]["pass_ms"] = dict(passes, sharded_eager_6b_ms=spill["int8"]["pass_ms"])
+    print(f"[7b sharded pass] int8, {MESH_SHARDS} shards on the card, ms per chained "
+          f"operator pass ({BENCH_PASSES} passes): replayed from a CUDA graph "
+          f"{passes['sharded_replayed_ms']:.4f}, eager {passes['sharded_eager_ms']:.4f} (6b's "
+          f"eager figure {spill['int8']['pass_ms']:.4f}); unsharded replayed "
+          f"{passes['unsharded_replayed_ms']:.4f}, eager {passes['unsharded_eager_ms']:.4f}",
+          flush=True)
+    del sh, lanes, op_int8, op_bf16
+    torch.cuda.empty_cache()
+    seconds["fused_mesh_path"] = time.perf_counter() - t0
 
     # ---- 6d. the command line under the mesh ----
     t0 = time.perf_counter()
@@ -1331,6 +1587,15 @@ def main() -> None:
                               per_pass=4, tag="_mesh22"),
     }
     seconds["mesh_cli"] = time.perf_counter() - t0
+
+    # ---- 7c. the command line with --fused 1 ----
+    t0 = time.perf_counter()
+    fused_dir = os.path.join(work.name, "out_fused")
+    fused_cli = cli_run(prefix, fused_dir, M_FULL, "hybrid", "sym_band_matvec_hybrid",
+                        extra=("--fused", "1"))
+    fused_cli["against_host_loop"] = compare_cli_files(cli["hybrid"], out_dir, fused_cli,
+                                                       fused_dir)
+    seconds["fused_cli"] = time.perf_counter() - t0
     work.cleanup()
     seconds["total"] = time.perf_counter() - t_start
 
@@ -1347,7 +1612,8 @@ def main() -> None:
                           **{f"{f}, (1, {MESH_SHARDS}) mesh":
                              {k: v[k] for k in ("executed", "s_per_iteration", "alignment",
                                                 "deviation")}
-                             for f, v in mesh_runs.items()}}}))
+                             for f, v in mesh_runs.items()}},
+                      "fused": fused, "fused_cli": fused_cli}))
 
     def band_entry(name, key, source, line, n_launch, library=None, **extra):
         f = full[key]
@@ -1404,13 +1670,14 @@ def main() -> None:
     print(smi)
     print(json.dumps({"kernels": [
         band_entry("sym_band_matvec_int8", "int8", csrc + "sym_band_int8.cu", 179,
-                   launches["sym_band_matvec_int8"], **int8_once(M_FULL // B_FULL)),
+                   launches["sym_band_matvec_int8"], **int8_once(M_FULL // B_FULL),
+                   fused_launches=fused["int8"]["launches"]["sym_band_matvec_int8"]),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
                     bench_launches["streamed"], **read_once),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
                    cli["int4"]["launches"], **packed),
         band_entry("sym_band_matvec_hybrid", "hybrid", csrc + "sym_band_hybrid.cu", 179,
-                   cli["hybrid"]["launches"], **packed),
+                   cli["hybrid"]["launches"], **packed, fused_launches=fused_cli["launches"]),
         float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
                     333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"],
                     **read_once),
@@ -1429,7 +1696,8 @@ def main() -> None:
          "library_ms": probe_library_ms},
         spill_entry("sym_band_matvec_int8_spill", "int8", csrc + "sym_band_int8.cu", 197,
                     mesh_runs["int8"]["launches"]["sym_band_matvec_int8_spill"],
-                    **int8_once(M_FULL // B_FULL // MESH_SHARDS)),
+                    **int8_once(M_FULL // B_FULL // MESH_SHARDS),
+                    fused_launches=fused["int8 mesh"]["launches"]["sym_band_matvec_int8_spill"]),
         spill_entry("sym_band_matvec_spill", "bfloat16", csrc + "sym_band_float.cu", 197,
                     mesh_cli["bfloat16"]["launches"], timed_storage="bfloat16",
                     float32=spill32("float32"), **read_once),

@@ -13,12 +13,14 @@ Ported: --operator dense, --operator banded (float storage) and
 hybrid; .npz / .npy LD inputs and PLINK .ld tables with --bim-files
 (harmonized across cohorts, missing SNPs filled from their source cohort,
 the merged .bim written to --out-dir); the host loop with the block-Jacobi
-preconditioner, the StopMonitor and reference-format output files.
+preconditioner, the StopMonitor and reference-format output files, and
+--fused 1 (the whole run replayed as CUDA graphs of the VAMP step, the
+stop criteria on the device).
 --operator sym leaves the operator's mode at "auto", so float storage
 runs the resident kernel where its run fits a CTA's shared memory. Not
 ported yet: --operator blocksparse, runs of several processes
-(--coordinator-address, --num-processes, --process-id), --fused,
-checkpoints, --prior-update mle, --profile-dir. Each is rejected with a
+(--coordinator-address, --num-processes, --process-id), checkpoints
+(with or without --fused 1), --prior-update mle, --profile-dir. Each is rejected with a
 message that names the flag and its ROADMAP item; none is silently ignored.
 """
 
@@ -166,8 +168,6 @@ def _reject_unported(args) -> None:
                       ("--process-id", args.process_id)):
         if val is not None:
             no(flag, "ROADMAP A8b, several processes over torch.distributed")
-    if bool(int(args.fused)):
-        no("--fused 1", "ROADMAP A12, fused runs")
     if args.checkpoint_dir:
         no("--checkpoint-dir", "ROADMAP A9, checkpoint and resume")
     if bool(int(args.resume)):
@@ -178,6 +178,44 @@ def _reject_unported(args) -> None:
         no("--operator blocksparse", "ROADMAP A, BlockSparseLD")
     if args.profile_dir:
         no("--profile-dir", "ROADMAP A15, tooling")
+
+
+def _fused_run(engine, iterations: int, writer, x0, Nt: float, M: int, seed: int,
+               stop_tol: float, stop_drop: float) -> dict:
+    """--fused 1: the whole run through VampEngine.run_scan (or, with a stop
+    criterion armed, run_scan_stoppable: the criteria on the device, no step
+    after the stop), then the reference-format files from the stacked aux.
+    Unarmed runs track the best iterate with a host StopMonitor fed from the
+    aux. Returns the history the host loop's branch returns."""
+    from sgvamp_torch.core.vamp import StopMonitor, StopState
+
+    armed = stop_tol > 0 or stop_drop > 0
+    if armed:
+        _, aux, mon = engine.run_scan_stoppable(iterations, stop_tol=stop_tol,
+                                                stop_gam1_drop=stop_drop, seed=seed)
+        n = int(mon.n_ran)
+        aux = type(aux)(*[v[:n] for v in aux])   # the rows that ran
+    else:
+        _, aux = engine.run_scan(iterations, seed=seed)
+        n = iterations
+    if writer is not None:
+        history = engine.write_scan_outputs(aux, writer, Nt=Nt, x0=x0, M_out=M)
+    else:
+        history = {"xhat1": [aux.xhat1[i].cpu().numpy()[:M] for i in range(n)]}
+    if armed:
+        if bool(mon.done):
+            history["stopped_at"] = int(mon.stopped_at)
+            history["stop_reason"] = StopState.REASONS[int(mon.reason)]
+        history["best_it"] = int(mon.best_it)
+        history["best_xhat1"] = (mon.best_xhat1.cpu().numpy()
+                                 if history["best_it"] >= 0 else None)
+    else:
+        monitor = StopMonitor()
+        for i, xhat1 in enumerate(history["xhat1"]):
+            monitor.update(i, xhat1, aux.gam1[i].cpu().numpy())
+        history["best_it"] = monitor.best_it
+        history["best_xhat1"] = monitor.best_xhat1
+    return history
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -476,10 +514,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                  if bool(int(args.stop_on_divergence)) else 0.0)
     ts = time.time()
     with timers.phase("infer"):
-        history = engine.run(
-            iterations, writer=writer, x0=x0, Nt=Nt, seed=args.seed, M_out=M,
-            stop_tol=stop_tol, stop_gam1_drop=stop_drop,
-        )
+        if bool(int(args.fused)):
+            history = _fused_run(engine, iterations, writer, x0, Nt, M, args.seed,
+                                 stop_tol, stop_drop)
+        else:
+            history = engine.run(
+                iterations, writer=writer, x0=x0, Nt=Nt, seed=args.seed, M_out=M,
+                stop_tol=stop_tol, stop_gam1_drop=stop_drop,
+            )
     log.info(f"sgVAMP inference running time: {time.time() - ts:0.4f}s\n")
     log.debug(timers.report())
     if history.get("stopped_at") is not None:

@@ -6,14 +6,24 @@ parallel/sharding.py). One
 step is: the EM prior update, the meta denoiser, one CG of 2K lanes (the
 LMMSE right-hand sides and the Hutchinson probes share A = gamw R + gam2 I,
 so each LD pass serves both), and one 2K-lane LD pass for the noise
-precision. PyTorch runs eagerly, so the JAX package's device control flow
-(lax.cond on the iteration, the EM and CG while loops) is plain Python on
-host values here.
+precision.
+
+Two ways to run it, as in the JAX package. VampEngine.run is the host loop:
+vamp_step dispatched eagerly, its observables read back and written out
+after every step. run_scan / run_scan_stoppable are the fused run (JAX's
+lax.scan): the step's pieces are captured once into CUDA graphs and
+replayed over static buffers (_FusedStep), with the stop criteria on the
+device (StopState) and the files written afterwards (write_scan_outputs).
+The JAX package's device control flow becomes host branches: lax.cond on
+the iteration chooses the set of graphs, and the EM and CG while loops run
+in chunks whose device flag the host reads once a chunk.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
+import json
 import logging
 import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
@@ -22,13 +32,16 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from sgvamp_torch import resolve_device
 from sgvamp_torch.config import VampConfig
-from sgvamp_torch.core.cg import cg_batched, rowdot
+from sgvamp_torch.core.cg import (CG_CHUNK, CGResult, cg_batched, cg_chunk, cg_finish,
+                                  cg_init, cg_live, rowdot)
 from sgvamp_torch.core.denoiser import combine_cohorts, posterior_mean_and_slope
 from sgvamp_torch.core.precond import (apply_block_jacobi, block_jacobi_eig,
                                        block_jacobi_from_eig,
                                        block_jacobi_inverse)
-from sgvamp_torch.core.prior import PriorState, em_loop
+from sgvamp_torch.core.prior import (EM_CHUNK, PriorState, em_chunk, em_finished,
+                                     em_init, em_loop, em_result)
 
 logger = logging.getLogger("sgvamp")
 
@@ -110,9 +123,10 @@ class StepAux(NamedTuple):
     cg1_converged: Tensor
     cg2_iters: Tensor
     cg2_converged: Tensor
-    em_sweeps: int       # 0 when EM did not run
+    em_sweeps: Tensor    # () int32, 0 when EM did not run
     em_rel_err: Tensor   # scalar
     mle_ok: Tensor       # always True until MLE is ported
+    cg_passes: Tensor    # () int32, CG iterations run (masked ones too): one LD pass each
 
 
 def alignment_l2(xhat1: np.ndarray, x0v: np.ndarray) -> Tuple[float, float]:
@@ -172,6 +186,80 @@ class StopMonitor:
         return reason
 
 
+class StopState(NamedTuple):
+    """On-device mirror of StopMonitor's carry, for fused runs (the JAX
+    package's StopState): the same criteria and update order as
+    StopMonitor.update. reason codes: 0 = none, 1 = diverging, 2 =
+    converged."""
+
+    done: Tensor        # () bool: a criterion has fired; later steps do not run
+    reason: Tensor      # () int32 code (0/1/2)
+    stopped_at: Tensor  # () int32 iteration index, -1 when never stopped
+    prev_xhat1: Tensor  # (M,) previous iteration's xhat1
+    has_prev: Tensor    # () bool: prev_xhat1 is valid
+    gam1_peak: Tensor   # () running peak of min_k gam1
+    best_it: Tensor     # () int32, -1 before any finite iteration
+    best_xhat1: Tensor  # (M,) snapshot at the gam1 peak
+    n_ran: Tensor       # () int32: steps executed
+
+    @staticmethod
+    def create(M: int, dtype: torch.dtype, device=None) -> "StopState":
+        device = resolve_device(device)
+
+        def full(v, dt):
+            return torch.full((), v, dtype=dt, device=device)
+        return StopState(
+            done=full(False, torch.bool), reason=full(0, torch.int32),
+            stopped_at=full(-1, torch.int32),
+            prev_xhat1=torch.zeros(M, dtype=dtype, device=device),
+            has_prev=full(False, torch.bool), gam1_peak=full(-float("inf"), dtype),
+            best_it=full(-1, torch.int32),
+            best_xhat1=torch.zeros(M, dtype=dtype, device=device),
+            n_ran=full(0, torch.int32))
+
+    REASONS = {0: None, 1: "diverging", 2: "converged"}
+
+
+def stop_state_update(mon: StopState, it, xhat1: Tensor, gam1: Tensor,
+                      tol: float, gam1_drop: float) -> StopState:
+    """One StopMonitor.update step on the device (the same order of
+    criteria); `it` is the iteration's index, an int or a () int32 tensor.
+    Reads nothing back to the host."""
+    it = torch.as_tensor(it, dtype=torch.int32, device=xhat1.device)
+    g = torch.min(gam1)
+    finite = torch.isfinite(g) & torch.all(torch.isfinite(xhat1))
+    take_best = finite & (g >= mon.gam1_peak)
+    gam1_peak = torch.where(take_best, g, mon.gam1_peak)
+    best_it = torch.where(take_best, it, mon.best_it)
+    best_xhat1 = torch.where(take_best, xhat1, mon.best_xhat1)
+
+    if gam1_drop > 0:
+        diverging = ~finite | ((best_it >= 0) & (g < gam1_peak / gam1_drop))
+    else:
+        diverging = torch.zeros((), dtype=torch.bool, device=xhat1.device)
+    # convergence is only ever evaluated on finite iterations (StopMonitor
+    # takes its `not finite` branch first and never reaches the tol check)
+    if tol > 0:
+        denom = torch.linalg.norm(mon.prev_xhat1) + 1e-300
+        rel = torch.linalg.norm(xhat1 - mon.prev_xhat1) / denom
+        converged = ~diverging & finite & mon.has_prev & (rel < tol)
+    else:
+        converged = torch.zeros((), dtype=torch.bool, device=xhat1.device)
+    reason = torch.where(diverging, 1, torch.where(converged, 2, 0)).to(torch.int32)
+    fired = reason > 0
+    return StopState(
+        done=fired,
+        reason=torch.where(fired, reason, mon.reason),
+        stopped_at=torch.where(fired, it, mon.stopped_at),
+        prev_xhat1=xhat1,
+        has_prev=torch.ones((), dtype=torch.bool, device=xhat1.device),
+        gam1_peak=gam1_peak,
+        best_it=best_it,
+        best_xhat1=best_xhat1,
+        n_ran=mon.n_ran + 1,
+    )
+
+
 def init_state(inputs: VampInputs, cfg: VampConfig, prior: PriorState,
                gamw: float, gam1: float, seed: int = 0) -> VampState:
     """Initial state, on the device of inputs.r."""
@@ -196,53 +284,88 @@ def init_state(inputs: VampInputs, cfg: VampConfig, prior: PriorState,
     )
 
 
-def vamp_step(
-    state: VampState,
-    inputs: VampInputs,
-    cfg: VampConfig,
-    u: Optional[Tensor] = None,
-) -> Tuple[VampState, StepAux]:
-    """One full VAMP iteration.
+def _rho(cfg: VampConfig, it: int) -> float:
+    """The damping factor of iteration `it` (annealed when configured)."""
+    if cfg.rho_final is not None and cfg.rho_anneal_iters > 0:
+        frac = min(it / cfg.rho_anneal_iters, 1.0)
+        return cfg.rho + (cfg.rho_final - cfg.rho) * frac
+    return cfg.rho
 
-    `u` optionally injects the (K, M) Rademacher probe for the Hutchinson
-    estimator (so that two engines can be compared step for step); when
-    None, the probe is drawn from state.gen.
-    """
+
+def draw_probe(gen: torch.Generator, K: int, M: int, device, dtype) -> Tensor:
+    """The step's (K, M) Rademacher probe: one seed from the CPU generator
+    `gen` (which advances by the same amount whatever M is), then a draw on
+    `device` from that seed."""
+    step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
+    g = torch.Generator(device=device).manual_seed(step_seed)
+    # drawn marker-major, so that padding M only appends to each row
+    return torch.randint(0, 2, (M, K), generator=g, device=device).T.to(dtype) * 2 - 1
+
+
+class _Mid(NamedTuple):
+    """What the part of the step before CG hands the part after it."""
+
+    lam: Tensor
+    omegas: Tensor
+    em_sweeps: Tensor
+    em_rel_err: Tensor
+    xhat1: Tensor
+    alpha1: Tensor
+    gam2: Tensor
+    r2: Tensor
+    u: Tensor          # the probe, masked
+    gamw2: Tensor
+    gam22: Tensor
+    pinv: Optional[Tensor]
+
+
+def _amatvec(inputs: VampInputs, mid: _Mid):
+    def amatvec2(x: Tensor) -> Tensor:
+        # A @ x = gamw * (R @ x) + gam2 * x, never materializing A
+        return mid.gamw2[:, None] * inputs.op.matvec(x) + mid.gam22[:, None] * x
+    return amatvec2
+
+
+def _precond(mid: _Mid):
+    if mid.pinv is None:
+        return None
+    return lambda v: apply_block_jacobi(mid.pinv, v)
+
+
+def _before_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, u: Tensor,
+               rho, rhoc, first: bool, em: Optional[tuple]) -> Tuple[_Mid, Tensor, Tensor]:
+    """The step up to CG: the prior from the EM loop's result `em` (None:
+    the prior stays), the denoiser, the LMMSE set-up and the
+    preconditioner. Returns CG's right-hand sides and warm start beside.
+    rho and rhoc = 1 - rho are floats, or () tensors that the fused run
+    fills before each replay; `first` is it == 0."""
     K, M = state.r1.shape
     dtype = cfg.torch_dtype
     r1s, gam1s = state.r1, state.gam1
     prior = state.prior
-    it = state.it
     mask = inputs.mask
     M_active = inputs.M_active
 
     # ---- Prior update ----
-    em_sweeps = 0
-    em_rel_err = torch.zeros((), dtype=dtype, device=r1s.device)
-    if cfg.prior_update == "em" and it >= cfg.update_prior_from:
-        lam, om, em_sweeps, em_rel_err = em_loop(
-            r1s, gam1s, inputs.a, prior.lam, prior.omegas, prior.sigmas,
-            cfg.em_prior_maxit, cfg.em_rel_tol, mask=mask)
-        prior = dataclasses.replace(prior, lam=lam, omegas=om)
+    if em is not None:
+        lam, om, em_sweeps, em_rel_err = em
+    else:
+        lam, om = prior.lam, prior.omegas
+        em_sweeps = torch.zeros((), dtype=torch.int32, device=r1s.device)
+        em_rel_err = torch.zeros((), dtype=dtype, device=r1s.device)
 
     # ---- Denoising ----
     b, A, c = combine_cohorts(r1s, gam1s, inputs.a)
-    xhat1_new, dxdb = posterior_mean_and_slope(b, A, prior.lam, prior.omegas,
-                                               prior.sigmas)
-    if cfg.rho_final is not None and cfg.rho_anneal_iters > 0:
-        frac = min(it / cfg.rho_anneal_iters, 1.0)
-        rho = cfg.rho + (cfg.rho_final - cfg.rho) * frac
-    else:
-        rho = cfg.rho
-    xhat1 = rho * xhat1_new + (1 - rho) * state.xhat1 if it > 0 else xhat1_new
+    xhat1_new, dxdb = posterior_mean_and_slope(b, A, lam, om, prior.sigmas)
+    xhat1 = xhat1_new if first else rho * xhat1_new + rhoc * state.xhat1
 
     # alpha1_k = mean_j d xhat_j / d r1_kj = c_k * mean_j d xhat_j / d b_j
     if mask is None:
         alpha1 = c * torch.mean(dxdb)
     else:
         alpha1 = c * (torch.sum(dxdb * mask) / M_active)
-    if it > 0:
-        alpha1 = rho * alpha1 + (1 - rho) * state.alpha1
+    if not first:
+        alpha1 = rho * alpha1 + rhoc * state.alpha1
     if cfg.clip_alpha1:
         alpha1 = torch.clamp(alpha1, 1e-5, 1 - 1e-5)
 
@@ -254,25 +377,11 @@ def vamp_step(
     gamw = state.gamw
     mu2 = gamw[:, None] * inputs.r + gam2[:, None] * r2
 
-    if u is None:
-        step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=state.gen))
-        gen = torch.Generator(device=r1s.device).manual_seed(step_seed)
-        # drawn marker-major, so that padding M only appends to each row
-        u = torch.randint(0, 2, (M, K), generator=gen,
-                          device=r1s.device).T.to(dtype) * 2 - 1
-    else:
-        u = u.to(dtype)
+    u = u.to(dtype)
     if mask is not None:
         u = u * mask[None, :]
 
-    gamw2 = torch.cat([gamw, gamw])
-    gam22 = torch.cat([gam2, gam2])
-
-    def amatvec2(x: Tensor) -> Tensor:
-        # A @ x = gamw * (R @ x) + gam2 * x, never materializing A
-        return gamw2[:, None] * inputs.op.matvec(x) + gam22[:, None] * x
-
-    precond = None
+    pinv = None
     if cfg.cg_precond_block:
         # Block-Jacobi M^{-1} from this iteration's (gamw, gam2), built once
         # and used by every CG iteration. Both lane groups share per-cohort
@@ -291,31 +400,38 @@ def vamp_step(
         # the values keep their storage rounding; the cast to the apply's
         # compute type is hoisted out of the CG loop
         pinv = pinv.to(torch.promote_types(dtype, torch.float32))
-        precond = lambda v: apply_block_jacobi(pinv, v)  # noqa: E731
 
-    cg = cg_batched(
-        amatvec2,
-        torch.cat([mu2, u], dim=0),
-        torch.cat([state.xhat2, state.sigma2_u], dim=0),
-        cfg.cg_maxit, cfg.cg_rtol, cfg.cg_atol, cfg.cg_force_maxiter,
-        precond=precond,
-    )
+    mid = _Mid(lam=lam, omegas=om, em_sweeps=em_sweeps, em_rel_err=em_rel_err,
+               xhat1=xhat1, alpha1=alpha1, gam2=gam2, r2=r2, u=u,
+               gamw2=torch.cat([gamw, gamw]), gam22=torch.cat([gam2, gam2]), pinv=pinv)
+    return (mid, torch.cat([mu2, u], dim=0),
+            torch.cat([state.xhat2, state.sigma2_u], dim=0))
+
+
+def _after_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, mid: _Mid,
+              cg: CGResult, rho, rhoc) -> Tuple[Dict[str, Tensor], PriorState, StepAux]:
+    """The step after CG: damping, Hutchinson, the precision recursions and
+    the gamw pass. Returns the new state's vectors by field name, its prior
+    and the step's aux."""
+    K = state.r1.shape[0]
+    M_active = inputs.M_active
     xhat2, sigma2_u = cg.x[:K], cg.x[K:]
     if cfg.lmmse_damp:
-        xhat2 = rho * xhat2 + (1 - rho) * state.xhat2
+        xhat2 = rho * xhat2 + rhoc * state.xhat2
 
     # ---- Hutchinson / Onsager-2 ----
-    alpha2 = gam2 * rowdot(u, sigma2_u) / M_active
+    alpha2 = mid.gam2 * rowdot(mid.u, sigma2_u) / M_active
     if cfg.lmmse_damp:
-        alpha2 = rho * alpha2 + (1 - rho) * state.alpha2
+        alpha2 = rho * alpha2 + rhoc * state.alpha2
     if cfg.clip_alpha2:
         alpha2 = torch.clamp(alpha2, 1e-5, 1 - 1e-5)
 
     # ---- Precision recursions ----
+    gam2 = mid.gam2
     gam1_new = gam2 * (1 - alpha2) / alpha2
     if cfg.gam_clamp > 0:
         gam1_new = torch.clamp(gam1_new, 1.0 / cfg.gam_clamp, cfg.gam_clamp)
-    r1_new = (xhat2 - alpha2[:, None] * r2) / (1 - alpha2)[:, None]
+    r1_new = (xhat2 - alpha2[:, None] * mid.r2) / (1 - alpha2)[:, None]
 
     # ---- Noise precision learning ----
     if cfg.learn_gamw:
@@ -324,32 +440,322 @@ def vamp_step(
         z = (inputs.N - 2.0 * rowdot(xhat2, inputs.r)
              + rowdot(xhat2, Rboth[:K]))
         z = torch.clamp(z, min=0.0)
-        gamw_raw = 1.0 / (z / inputs.N + rowdot(u, Rboth[K:]) / inputs.N)
+        gamw_raw = 1.0 / (z / inputs.N + rowdot(mid.u, Rboth[K:]) / inputs.N)
     else:
-        gamw_raw = gamw
+        gamw_raw = state.gamw
     gamw_new = torch.clamp(gamw_raw, min=1.0)
 
-    new_state = VampState(
-        it=it + 1, xhat1=xhat1, alpha1=alpha1, r1=r1_new, gam1=gam1_new,
-        xhat2=xhat2, r2=r2, alpha2=alpha2, gam2=gam2, gamw=gamw_new,
-        sigma2_u=sigma2_u, prior=prior, gen=state.gen,
-    )
+    prior = dataclasses.replace(state.prior, lam=mid.lam, omegas=mid.omegas)
+    fields = dict(xhat1=mid.xhat1, alpha1=mid.alpha1, r1=r1_new, gam1=gam1_new,
+                  xhat2=xhat2, r2=mid.r2, alpha2=alpha2, gam2=gam2, gamw=gamw_new,
+                  sigma2_u=sigma2_u)
     aux = StepAux(
-        xhat1=xhat1, r1_in=r1s, gamw_raw=gamw_raw, gamw=gamw_new,
-        gam1=gam1_new, gam2=gam2, alpha1=alpha1, alpha2=alpha2,
-        lam=prior.lam,
+        xhat1=mid.xhat1, r1_in=state.r1, gamw_raw=gamw_raw, gamw=gamw_new,
+        gam1=gam1_new, gam2=gam2, alpha1=mid.alpha1, alpha2=alpha2,
+        lam=mid.lam,
         cg1_iters=cg.iters[:K], cg1_converged=cg.converged[:K],
         cg2_iters=cg.iters[K:], cg2_converged=cg.converged[K:],
-        em_sweeps=em_sweeps, em_rel_err=em_rel_err,
-        mle_ok=prior.mle_last_ok,
+        em_sweeps=mid.em_sweeps, em_rel_err=mid.em_rel_err,
+        mle_ok=prior.mle_last_ok, cg_passes=cg.passes,
     )
-    return new_state, aux
+    return fields, prior, aux
 
 
-def _host(aux: StepAux) -> Dict[str, Any]:
-    """The step's observables as numpy values (one device sync)."""
-    return {name: (v.detach().cpu().numpy() if isinstance(v, Tensor) else v)
+def _runs_em(cfg: VampConfig, it: int) -> bool:
+    return cfg.prior_update == "em" and it >= cfg.update_prior_from
+
+
+def vamp_step(
+    state: VampState,
+    inputs: VampInputs,
+    cfg: VampConfig,
+    u: Optional[Tensor] = None,
+) -> Tuple[VampState, StepAux]:
+    """One full VAMP iteration, eagerly.
+
+    `u` optionally injects the (K, M) Rademacher probe for the Hutchinson
+    estimator (so that two engines can be compared step for step); when
+    None, the probe is drawn from state.gen. The device is read once per
+    chunk of the EM loop and of CG (CG: none under cg_force_maxiter).
+    """
+    K, M = state.r1.shape
+    it = state.it
+    rho = _rho(cfg, it)
+
+    em = None
+    if _runs_em(cfg, it):
+        em = em_loop(state.r1, state.gam1, inputs.a, state.prior.lam, state.prior.omegas,
+                     state.prior.sigmas, cfg.em_prior_maxit, cfg.em_rel_tol, mask=inputs.mask)
+    if u is None:
+        u = draw_probe(state.gen, K, M, state.r1.device, cfg.torch_dtype)
+    mid, b, x0 = _before_cg(state, inputs, cfg, u, rho, 1 - rho, it == 0, em)
+    cg = cg_batched(_amatvec(inputs, mid), b, x0, cfg.cg_maxit, cfg.cg_rtol, cfg.cg_atol,
+                    cfg.cg_force_maxiter, precond=_precond(mid))
+    fields, prior, aux = _after_cg(state, inputs, cfg, mid, cg, rho, 1 - rho)
+    return VampState(it=it + 1, prior=prior, gen=state.gen, **fields), aux
+
+
+def _host(aux) -> Dict[str, Any]:
+    """A StepAux's fields (tensors or numpy arrays) as numpy values (one
+    device sync)."""
+    return {name: (v.detach().cpu().numpy() if isinstance(v, Tensor) else np.asarray(v))
             for name, v in aux._asdict().items()}
+
+
+def _assign(dst, src) -> None:
+    """Copy each tensor of src into the tensor of dst at the same place."""
+    for d, v in zip(dst, src):
+        d.copy_(v)
+
+
+def _distinct(carry):
+    """carry with each tensor that shares storage with an earlier one
+    cloned: the pieces update a carry in place, field by field."""
+    seen = set()
+    out = []
+    for t in carry:
+        out.append(t.clone() if t.data_ptr() in seen else t)
+        seen.add(t.data_ptr())
+    return type(carry)(*out)
+
+
+def _state_tensors(state: VampState) -> list:
+    return ([getattr(state, f) for f in _VECTORS]
+            + [getattr(state.prior, f.name) for f in dataclasses.fields(state.prior)])
+
+
+def _clone_state(state: VampState, it: int, gen) -> VampState:
+    prior = dataclasses.replace(state.prior, **{
+        f.name: getattr(state.prior, f.name).clone() for f in dataclasses.fields(state.prior)})
+    return VampState(it=it, gen=gen, prior=prior,
+                     **{f: getattr(state, f).clone() for f in _VECTORS})
+
+
+_VECTORS = ("xhat1", "alpha1", "r1", "gam1", "xhat2", "r2", "alpha2", "gam2", "gamw",
+            "sigma2_u")
+
+
+class _FusedStep:
+    """The VAMP step as a short sequence of pieces over static buffers, for
+    VampEngine.run_scan and run_scan_stoppable.
+
+    The pieces are vamp_step's own (_before_cg, cg_init / cg_chunk,
+    _after_cg, em_init / em_chunk), in this order: the EM loop's init and
+    chunks, replayed until its device flag says done; the part before CG
+    with CG's first residual; CG chunks of CG_CHUNK iterations, replayed
+    until no lane is active or maxiter iterations have run; the part after
+    CG with stop_state_update and the state's update. Under
+    cg_force_maxiter the last three are one piece of exactly maxiter CG
+    iterations. Each piece reads the engine's inputs, the static state S
+    and the outputs of the pieces before it, and updates its carry (and the
+    last one S) in place, so that on a CUDA device each is captured once
+    into a torch.cuda.CUDAGraph (one memory pool for all) and replayed; on
+    the CPU the same pieces run eagerly. A failure to capture or replay
+    raises: there is no eager step on a CUDA device.
+
+    The host branches of the step (it > 0, EM from update_prior_from, the
+    stop thresholds) choose the set of pieces, each set captured at its
+    first use. What changes from step to step is filled in before the
+    replays: the probe u (drawn as vamp_step draws it, outside any graph),
+    the iteration index and, when rho is annealed, rho.
+    """
+
+    def __init__(self, cfg: VampConfig, inputs: VampInputs, mesh, state: VampState) -> None:
+        self.cfg, self.inputs = cfg, inputs
+        dev = state.xhat1.device
+        if mesh is not None and any(d != dev for d in mesh.devices.flat):
+            raise ValueError(
+                "a fused run needs every mesh cell on the device of the state "
+                f"({dev}); this mesh spans {sorted(set(map(str, mesh.devices.flat)))}")
+        self.dev = dev
+        self.graphs = dev.type == "cuda"
+        K, M = state.r1.shape
+        dtype = cfg.torch_dtype
+        self.S = _clone_state(state, 0, None)
+        # the probe's buffer in the layout of its source, since the layout
+        # decides the order of rowdot's sums: draw_probe's (a transposed
+        # (M, K) draw) and a contiguous row of fixed_u
+        self.u = {True: torch.zeros((M, K), dtype=dtype, device=dev).T,
+                  False: torch.zeros((K, M), dtype=dtype, device=dev)}
+        self.it = torch.zeros((), dtype=torch.int32, device=dev)
+        self.rho = None
+        if cfg.rho_final is not None and cfg.rho_anneal_iters > 0:
+            self.rho = (torch.zeros((), dtype=dtype, device=dev),
+                        torch.zeros((), dtype=dtype, device=dev))
+        self.mon = StopState.create(M, dtype, dev)
+        self.pool = torch.cuda.graph_pool_handle() if self.graphs else None
+        self.sets: Dict[tuple, Dict[str, Any]] = {}   # key -> the pieces' outputs
+        self.captured: Dict[tuple, Any] = {}          # (key, piece) -> CUDAGraph
+        self.graph_launches: Dict[tuple, Dict[str, int]] = {}
+        self.replays: Dict[tuple, int] = {}
+        self.reads = {"em": 0, "cg": 0, "stop": 0}
+
+    def load(self, state: VampState, mon: Optional[StopState] = None) -> None:
+        _assign(_state_tensors(self.S), _state_tensors(state))
+        if mon is not None:
+            _assign(self.mon, mon)
+
+    def export(self, it: int, gen) -> VampState:
+        return _clone_state(self.S, it, gen)
+
+    def stop_state(self) -> StopState:
+        return StopState(*[t.clone() for t in self.mon])
+
+    def reset_stats(self) -> None:
+        self.replays = {k: 0 for k in self.replays}
+        self.reads = {k: 0 for k in self.reads}
+
+    def launches(self) -> Dict[str, int]:
+        """Band-kernel launches made by graph replays since reset_stats:
+        each graph's launches, counted by the wrappers while it was
+        captured, times its replays."""
+        out: Dict[str, int] = {}
+        for key, n in self.replays.items():
+            for name, per in self.graph_launches.get(key, {}).items():
+                out[name] = out.get(name, 0) + per * n
+        return out
+
+    def _run(self, key: tuple, piece: str, fn, mutates=lambda: ()) -> None:
+        """Run one piece: captured at its first use on a CUDA device, then
+        replayed; called as it is on the CPU."""
+        k = (key, piece)
+        self.replays[k] = self.replays.get(k, 0) + 1
+        if not self.graphs:
+            fn()
+            return
+        if k not in self.captured:
+            self.captured[k] = self._capture(k, fn, list(mutates()))
+        self.captured[k].replay()
+
+    def _capture(self, k: tuple, fn, mutates: list):
+        """fn warmed up on a side stream (kernels built and loaded, lazy
+        initialisations done), then captured; the warm-up's writes to the
+        buffers it updates in place are undone, and the wrappers' counts of
+        the capture (which launches nothing) go into graph_launches. The
+        cyclic garbage collector is held off during the capture: an
+        unreachable CUDA graph that it destroyed there would invalidate the
+        capture."""
+        from sgvamp_torch.ops.band_kernel import BAND_KERNELS
+
+        saved = [t.clone() for t in mutates]
+        current = torch.cuda.current_stream(self.dev)
+        side = torch.cuda.Stream(self.dev)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            fn()
+        current.wait_stream(side)
+        before = [w.launches for w in BAND_KERNELS]
+        graph = torch.cuda.CUDAGraph()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                fn()
+        finally:
+            if collecting:
+                gc.enable()
+        self.graph_launches[k] = {w.__name__: w.launches - n for w, n in zip(BAND_KERNELS, before)
+                                  if w.launches != n}
+        for w, n in zip(BAND_KERNELS, before):
+            w.launches = n
+        _assign(mutates, saved)
+        return graph
+
+    def _rho(self, it: int):
+        rho = _rho(self.cfg, it)
+        if self.rho is None:
+            return rho, 1 - rho
+        self.rho[0].fill_(rho)
+        self.rho[1].fill_(1 - rho)
+        return self.rho
+
+    def step(self, it: int, u: Tensor, drawn: bool,
+             stop: Optional[Tuple[float, float]]) -> StepAux:
+        """Iteration `it` from S into S with the probe u (drawn: from
+        draw_probe, else a row of fixed_u); stop: the thresholds (tol,
+        gam1_drop) of stop_state_update on the monitor, None for none.
+        Returns the step's aux (static tensors, valid until the next
+        step)."""
+        cfg, inputs, S = self.cfg, self.inputs, self.S
+        maxit = cfg.cg_maxit
+        em = _runs_em(cfg, it)
+        key = (it > 0, em, stop, drawn)
+        P = self.sets.setdefault(key, {})
+        self.it.fill_(it)
+        probe = self.u[drawn]
+        probe.copy_(u)
+        rho, rhoc = self._rho(it)
+
+        def em_begin():
+            P["em"] = _distinct(em_init(S.prior.lam.clone(), S.prior.omegas.clone()))
+            P["em_done"] = em_finished(P["em"], cfg.em_prior_maxit)
+
+        def em_sweeps():
+            _assign(P["em"], em_chunk(P["em"], S.r1, S.gam1, inputs.a, S.prior.sigmas,
+                                      cfg.em_prior_maxit, cfg.em_rel_tol, EM_CHUNK,
+                                      mask=inputs.mask))
+            P["em_done"].copy_(em_finished(P["em"], cfg.em_prior_maxit))
+
+        def before():
+            mid, b, x0 = _before_cg(S, inputs, cfg, probe, rho, rhoc, it == 0,
+                                    em_result(P["em"]) if em else None)
+            P["mid"] = mid
+            P["cg"] = _distinct(cg_init(_amatvec(inputs, mid), b, x0, cfg.cg_rtol, cfg.cg_atol,
+                                        cfg.cg_force_maxiter, precond=_precond(mid)))
+            P["live"] = cg_live(P["cg"], maxit)
+
+        def iterations(steps: int, masked: bool):
+            mid = P["mid"]
+            return cg_chunk(_amatvec(inputs, mid), P["cg"], steps, maxit,
+                            cfg.cg_force_maxiter, _precond(mid), masked=masked)
+
+        def cg_iterations():
+            _assign(P["cg"], iterations(CG_CHUNK, True))
+            P["live"].copy_(cg_live(P["cg"], maxit))
+
+        def after(carry):
+            fields, prior, aux = _after_cg(S, inputs, cfg, P["mid"], cg_finish(carry, maxit),
+                                           rho, rhoc)
+            # aux rows outlive this step's update of S: no aux tensor may be
+            # one of S's buffers (r1_in is, gamw_raw may be)
+            static = {t.data_ptr() for t in _state_tensors(S)}
+            aux = aux._replace(**{f: v.clone() for f, v in aux._asdict().items()
+                                  if v.data_ptr() in static})
+            if stop is not None:
+                _assign(self.mon, stop_state_update(self.mon, self.it, aux.xhat1, aux.gam1,
+                                                    *stop))
+            for f, v in fields.items():
+                getattr(S, f).copy_(v)
+            S.prior.lam.copy_(prior.lam)
+            S.prior.omegas.copy_(prior.omegas)
+            P["aux"] = aux
+
+        def persistent():
+            return _state_tensors(S) + list(self.mon)
+
+        if em:
+            self._run(key, "em_init", em_begin)
+            while True:
+                self._run(key, "em_chunk", em_sweeps, lambda: [*P["em"], P["em_done"]])
+                self.reads["em"] += 1
+                if bool(P["em_done"]):
+                    break
+        if cfg.cg_force_maxiter:
+            def whole():
+                before()
+                after(iterations(maxit, False))
+            self._run(key, "step", whole, persistent)
+        else:
+            self._run(key, "before_cg", before)
+            chunks = 0
+            while chunks * CG_CHUNK < maxit:
+                self.reads["cg"] += 1
+                if not bool(P["live"]):
+                    break
+                self._run(key, "cg_chunk", cg_iterations, lambda: [*P["cg"], P["live"]])
+                chunks += 1
+            self._run(key, "after_cg", lambda: after(P["cg"]), persistent)
+        return P["aux"]
 
 
 class VampEngine:
@@ -377,6 +783,7 @@ class VampEngine:
         self.gamw0 = gamw
         self.gam10 = gam1
         self.mesh = mesh
+        self.fused: Optional[_FusedStep] = None   # made by the first fused run
 
     def init_state(self, seed: int = 0) -> VampState:
         state = init_state(self.inputs, self.cfg, self.prior, self.gamw0,
@@ -433,9 +840,10 @@ class VampEngine:
             aux = _host(aux_t)
             xhat1 = aux["xhat1"][:M_out]
             dt_step = time.perf_counter() - t_step
-            # LD passes: the fused CG's iterations + its initial residual +
-            # the fused gamw pass; each reads the LD blocks once for all lanes.
-            passes = int(max(np.max(aux["cg1_iters"]), np.max(aux["cg2_iters"]))) + 2
+            # LD passes: the fused CG's iterations (masked ones too) + its
+            # initial residual + the fused gamw pass; each reads the LD
+            # blocks once for all lanes.
+            passes = int(aux["cg_passes"]) + 2
             if bpp and dt_step > 0:
                 logger.debug(
                     f"[roofline] iteration {it}: {dt_step:.4f}s, "
@@ -491,6 +899,128 @@ class VampEngine:
         history["best_xhat1"] = monitor.best_xhat1
         return history
 
+    def run_scan(self, iterations: int, state: Optional[VampState] = None, seed: int = 0,
+                 fixed_u: Optional[np.ndarray] = None) -> Tuple[VampState, StepAux]:
+        """The whole run without host I/O (the JAX package's lax.scan over
+        vamp_step): `iterations` steps, replayed as CUDA graphs on a CUDA
+        device (see _FusedStep). Returns the state and a StepAux whose
+        fields are stacked over the iterations, on the device. fixed_u
+        (iterations, K, M) injects the probes, as in run. With the same
+        seed the trajectory is the host loop's."""
+        state, aux, _ = self._scan(iterations, state, seed, fixed_u, None, None)
+        return state, aux
+
+    def run_scan_stoppable(
+        self,
+        iterations: int,
+        stop_tol: float = 0.0,
+        stop_gam1_drop: float = 0.0,
+        state: Optional[VampState] = None,
+        stop_state: Optional[StopState] = None,
+        seed: int = 0,
+        fixed_u: Optional[np.ndarray] = None,
+    ) -> Tuple[VampState, StepAux, StopState]:
+        """run_scan with the StopMonitor's criteria on the device: a
+        StopState is updated inside each step, and the host reads its
+        `done` flag once a step. After a stop no step runs (the JAX
+        package's dead lax.cond branch) and the probes' generator does not
+        advance, so the trajectory and the selected iterate are the host
+        loop's. Rows past the stop are all zero; the StopState's n_ran
+        counts the rows that ran. stop_state threads the monitor across
+        chunked calls."""
+        return self._scan(iterations, state, seed, fixed_u,
+                          (float(stop_tol), float(stop_gam1_drop)), stop_state)
+
+    def _scan(self, iterations, state, seed, fixed_u, stop, stop_state):
+        if state is None:
+            state = self.init_state(seed)
+        K, M = state.r1.shape
+        dev, dtype = state.r1.device, self.cfg.torch_dtype
+        if self.fused is None:
+            self.fused = _FusedStep(self.cfg, self.inputs, self.mesh, state)
+        F = self.fused
+        if stop is not None and stop_state is None:
+            stop_state = StopState.create(M, dtype, dev)
+        F.load(state, stop_state)
+        F.reset_stats()
+        shapes = {"xhat1": (M,), "r1_in": (K, M), "lam": (), "em_sweeps": (), "em_rel_err": (),
+                  "mle_ok": (), "cg_passes": ()}
+        kinds = {"cg1_converged": torch.bool, "cg2_converged": torch.bool,
+                 "mle_ok": torch.bool, "cg1_iters": torch.int32, "cg2_iters": torch.int32,
+                 "em_sweeps": torch.int32, "cg_passes": torch.int32}
+        rows = StepAux(**{f: torch.zeros((iterations, *shapes.get(f, (K,))),
+                                         dtype=kinds.get(f, dtype), device=dev)
+                          for f in StepAux._fields})
+        it = state.it
+        ran = 0
+        live = stop is None or not bool(stop_state.done)
+        t0 = time.perf_counter()
+        for rel_it in range(iterations if live else 0):
+            u = (draw_probe(state.gen, K, M, dev, dtype) if fixed_u is None
+                 else torch.as_tensor(np.asarray(fixed_u[rel_it]), device=dev))
+            aux = F.step(it, u, fixed_u is None, stop)
+            for row, v in zip(rows, aux):
+                row[rel_it].copy_(v)
+            it += 1
+            ran += 1
+            if stop is not None:
+                F.reads["stop"] += 1
+                if bool(F.mon.done):   # the host read of a step
+                    break
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        seconds = time.perf_counter() - t0
+        replays: Dict[str, int] = {}
+        for (_, piece), n in F.replays.items():
+            replays[piece] = replays.get(piece, 0) + n
+        # LD passes: CG's iterations (masked ones too), its first residual
+        # and the gamw pass of every step that ran
+        logger.debug("[fused] " + json.dumps({
+            "steps": ran, "seconds": seconds,
+            "ld_passes": int(rows.cg_passes[:ran].sum()) + 2 * ran,
+            "graph_launches": F.launches(), "host_reads": F.reads,
+            "replays": replays}))
+        out = F.export(it, state.gen)
+        return out, rows, (F.stop_state() if stop is not None else None)
+
+    def write_scan_outputs(
+        self,
+        aux: StepAux,
+        writer: Any,
+        Nt: Optional[float] = None,
+        x0: Optional[np.ndarray] = None,
+        M_out: Optional[int] = None,
+        it0: int = 0,
+    ) -> Dict[str, Any]:
+        """Write the reference-format files from a run_scan's stacked aux
+        (tensors or numpy arrays), after the run: the same files, in the
+        same bytes, as the host loop writes for the same rows."""
+        aux = _host(aux)
+        iters = aux["xhat1"].shape[0]
+        K = aux["r1_in"].shape[1]
+        scale = 1.0 / np.sqrt(Nt) if Nt else 1.0
+        x0v = None if x0 is None else np.asarray(x0).squeeze()
+        history: Dict[str, Any] = {"xhat1": [], "alignment": [], "l2": []}
+        for rel_it in range(iters):
+            it = it0 + rel_it
+            xhat1 = aux["xhat1"][rel_it][:M_out]
+            history["xhat1"].append(xhat1)
+            writer.write_xhat(it, xhat1 * scale)
+            lam = float(aux["lam"][rel_it])
+            for k in range(K):
+                writer.write_r1(it, aux["r1_in"][rel_it, k][:M_out] * scale, k + 1)
+                writer.write_params([
+                    it, float(aux["gamw"][rel_it, k]), float(aux["gam1"][rel_it, k]),
+                    float(aux["gam2"][rel_it, k]), float(aux["alpha1"][rel_it, k]),
+                    float(aux["alpha2"][rel_it, k]), lam,
+                ], k)
+            if x0v is not None:
+                alignment, l2 = alignment_l2(xhat1, x0v)
+                history["alignment"].append(alignment)
+                history["l2"].append(l2)
+                writer.write_metrics([it, alignment, l2])
+        return history
+
     def _log_iteration(self, it: int, aux: Dict[str, Any]) -> None:
         """Per-iteration diagnostics, as the JAX engine logs them."""
         cg1_c, cg2_c = aux["cg1_converged"], aux["cg2_converged"]
@@ -511,5 +1041,5 @@ class VampEngine:
         logger.debug(f"lam = {float(aux['lam']):0.9f}")
         if self.cfg.prior_update == "em" and aux["em_sweeps"] > 0:
             logger.info(
-                f"... prior-learning EM algorithm performed {aux['em_sweeps']} steps "
+                f"... prior-learning EM algorithm performed {int(aux['em_sweeps'])} steps "
                 f"and had final relative error = {float(aux['em_rel_err']):0.9f}")

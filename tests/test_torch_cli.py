@@ -206,7 +206,7 @@ BASE = ["--ld-files", "R.npz", "--r-files", "r.npy", "--N", "10", "--M", "10",
     (["--coordinator-address", "localhost:1"], "--coordinator-address"),
     (["--num-processes", "2"], "--num-processes"),
     (["--process-id", "0"], "--process-id"),
-    (["--fused", "1"], "--fused"),
+    (["--fused", "1", "--checkpoint-dir", "ck"], "--checkpoint-dir"),
     (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
     (["--resume", "1"], "--resume"),
     (["--prior-update", "mle"], "--prior-update mle"),

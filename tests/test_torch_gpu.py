@@ -813,3 +813,64 @@ def test_read_probe_rate_is_finite(cuda):
     u = torch.randn(64 << 20, device=cuda)
     gbps, per_pass = measure_read_gbps(u, n=4, reps=2)
     assert np.isfinite(gbps) and gbps > 0 and per_pass > 0
+
+
+# ---------------------------------------------------------------------------
+# fused runs: the VAMP step replayed as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _fused_engine(device, force: bool, mesh: bool):
+    """An int8 engine at M=4096 (hb=2): the bench's fixed CG budget, or the
+    CLI's solve to rtol 1e-5 with the block-Jacobi preconditioner; under a
+    (1, 2) mesh whose cells are this card."""
+    from sgvamp_torch import PriorState, VampConfig, VampEngine, VampInputs
+    from sgvamp_torch.parallel.sharding import make_mesh
+
+    M, N = 4096, 300000
+    band, r, _ = simulate_ld_band(N, M, 256, h2=0.7, lam=0.01, rng=np.random.default_rng(5))
+    op = SymBandedLD.from_band(band, block_size=128, dtype="int8", device=device)
+    cfg = VampConfig(prior_update="em", dtype="float32", cg_maxit=20 if force else 500,
+                     cg_force_maxiter=force, cg_precond_block=0 if force else 64,
+                     em_prior_maxit=5 if force else 100, rho=0.5, lmmse_damp=True)
+    inputs = VampInputs(op=op, r=torch.as_tensor(r[None], dtype=torch.float32, device=device),
+                        a=torch.ones(1, device=device),
+                        N=torch.full((1,), float(N), device=device))
+    return VampEngine(inputs, cfg, PriorState.create(0.01, [1.0], [0.7 / 40 * N], device=device),
+                      mesh=make_mesh(1, 2, devices=[device] * 2) if mesh else None)
+
+
+@pytest.mark.parametrize("force,mesh", [(True, False), (False, False), (True, True)],
+                         ids=["fixed-budget", "solve", "fixed-budget-mesh"])
+def test_fused_replay_matches_eager_steps_bit_for_bit(cuda, force, mesh):
+    engine = _fused_engine(cuda, force, mesh)
+    hist = engine.run(4, seed=1)
+    state, aux = engine.run_scan(4, seed=1)
+    assert len(engine.fused.captured) >= 2   # the graphs of it 0 and of it > 0
+    for it in range(4):
+        assert torch.equal(aux.xhat1[it].cpu(), torch.from_numpy(hist["xhat1"][it])), it
+        params = np.asarray(hist["params"][it])
+        assert np.array_equal(aux.gamw[it].cpu().numpy(), params[:, 1].astype(np.float32))
+        assert np.array_equal(aux.gam1[it].cpu().numpy(), params[:, 2].astype(np.float32))
+    for f in ("xhat1", "r1", "xhat2", "sigma2_u", "gamw", "gam1"):
+        assert torch.equal(getattr(state, f), getattr(hist["state"], f)), f
+    # the replays launched the kernel once per LD pass, nothing else
+    own = "sym_band_matvec_int8_spill" if mesh else "sym_band_matvec_int8"
+    passes = int(aux.cg_passes.sum()) + 2 * 4
+    assert engine.fused.launches() == {own: passes * (2 if mesh else 1)}
+
+
+def test_fused_step_refuses_a_host_read_during_capture(cuda, monkeypatch):
+    """A host read inside the step cannot be captured: the run raises, and
+    no step runs eagerly in its place."""
+    from sgvamp_torch.core import vamp
+
+    engine = _fused_engine(cuda, True, False)
+    rowdot = vamp.rowdot
+
+    def reads_the_host(x, y):
+        return rowdot(x, y) + 0.0 * float(x.sum())
+
+    monkeypatch.setattr(vamp, "rowdot", reads_the_host)
+    with pytest.raises(RuntimeError):
+        engine.run_scan(2)
+    assert not engine.fused.captured
