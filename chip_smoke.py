@@ -114,6 +114,23 @@ Phases, a few lines of output each (and fail on the first that fails):
          the same file set, stop and best iterate as phase 4's run, every
          file within a scaled 1e-5 (how many are equal to the byte
          printed), and both runs' infer seconds.
+  8. MLE prior learning and checkpoints:
+     8a. phase 3's engine run with prior_update="mle" (4 iterations), in the
+         host loop and through run_scan_stoppable (graphs captured by a
+         2-step run first): 102 int8 launches an iteration in each (by
+         replay in the fused run, none eagerly), every iteration's xhat1,
+         gam1, gamw, lam and mle_ok equal bit for bit, an MLE update
+         accepted, the best iterate's alignment >= 0.9; s/iteration and
+         device ms a step (torch.profiler over steps 1-2) of both modes
+         beside phase 3's and 7a's EM numbers, host reads and Newton
+         chunks a step;
+     8b. sgvamp_torch.cli.main with the biobank flags, --prior-update mle
+         and --checkpoint-every 2, three runs: 4 iterations; 2 with
+         --checkpoint-dir; --resume 1 to 4 (phase 4's checks on each): the
+         resumed set's per-iteration files and CSVs equal to the
+         uninterrupted run's to the byte, at most 3 checkpoint files; with
+         --fused 1 over phase 4's M=524288 hybrid files, and with --fused 0
+         over its M=65536 files; seconds a save and MB a checkpoint file.
 Then a JSON line of the kernels' numbers, and the result line last.
 """
 
@@ -146,6 +163,7 @@ WIDE_HB = 16          # the wide band: mode "auto" takes the streamed kernels fr
 # rows of a shard sum in another order)
 MESH_XHAT_TOL, MESH_PARAM_TOL = 1e-5, 1e-4
 CLI_ITERATIONS = 10
+MLE_ITERATIONS = 4    # phase 8a: the engine path under MLE
 STOP_TOL, STOP_DROP = 1e-4, 10.0   # the engine paths' StopMonitor thresholds
 # a fused run against its host-loop counterpart, per iteration: max|d| / max|x|
 # of xhat1, gam1 and gamw (the same kernels on the same inputs: equal bits
@@ -476,9 +494,10 @@ def load_panel(prefix: str, M: int) -> tuple:
     return band, r, x0
 
 
-def engine_over(op, r, M, device, cg_maxit=CG_MAXIT, mesh=None):
-    """The bench's engine over a packed operator: float32, EM prior, a
-    fixed CG budget; under `mesh` where one is given."""
+def engine_over(op, r, M, device, cg_maxit=CG_MAXIT, mesh=None, prior_update="em"):
+    """The bench's engine over a packed operator: float32, the prior learned
+    by `prior_update` (EM by default), a fixed CG budget; under `mesh`
+    where one is given."""
     import torch
 
     from sgvamp_torch import PriorState, VampConfig, VampEngine, VampInputs
@@ -487,7 +506,7 @@ def engine_over(op, r, M, device, cg_maxit=CG_MAXIT, mesh=None):
     mask[:M] = 1.0
     rp = torch.zeros((1, op.M), dtype=torch.float32, device=device)
     rp[0, :M] = torch.from_numpy(np.asarray(r, np.float32))
-    cfg = VampConfig(prior_update="em", dtype="float32", cg_maxit=cg_maxit,
+    cfg = VampConfig(prior_update=prior_update, dtype="float32", cg_maxit=cg_maxit,
                      cg_force_maxiter=True, em_prior_maxit=5, rho=0.5,
                      lmmse_damp=True)
     cm = max(int(M * LAM), 1)
@@ -534,7 +553,8 @@ class LogCapture(logging.Handler):
 
 def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
             operator: str = "sym", K: int = 1, per_pass: int = 1, tag: str = "",
-            inputs=None, truth=None) -> dict:
+            inputs=None, truth=None, iterations: int = CLI_ITERATIONS, label=None,
+            check_alignment: bool = True) -> dict:
     """One production-mode run of sgvamp_torch.cli.main over the panel
     files at `prefix` (the README's biobank flags), with its checks.
     `own` is the name of the wrapper this storage must launch, None for an
@@ -544,7 +564,9 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     `inputs` replaces the data flags (LD, r and signal files, --N, --M,
     --bandwidth) and `truth` the true signal of the reference panel, both
     for the .ld path of phase 4b. Every ingestion step must have taken the
-    native library."""
+    native library. `iterations` is the run's --iterations; `label` the
+    phase printed; check_alignment False leaves out the alignment check (a
+    resumed run, whose monitor starts after the first iterations)."""
     import torch
 
     from sgvamp_torch.cli import main as cli_main
@@ -559,7 +581,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
                   "--true-signal-file", prefix + "_bet.npy",
                   "--N", str(N_SAMPLES), "--M", str(M), "--bandwidth", str(BW_FULL)]
     argv = [*inputs, "--out-dir", out_dir, "--out-name", name, "--K", str(K),
-            "--iterations", str(CLI_ITERATIONS),
+            "--iterations", str(iterations),
             "--prior-probs", f"{1 - LAM:g},{LAM:g}", "--prior-vars", f"0,{H2 / cm:.6g}",
             "--operator", operator, "--ld-dtype", ld_dtype, "--block-size", str(B_FULL),
             "--cg-maxit", "500", "--cg-rtol", "1e-5",
@@ -583,11 +605,15 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     fused = [json.loads(ln[len("[fused] "):]) for ln in log.lines if ln.startswith("[fused] ")]
     warm_up = {}
     if fused:
-        # a fused run: each piece of the step runs once eagerly (its warm-up)
-        # before its capture; the LD passes are the replays'
-        warm_up, counts = {k: v for k, v in counts.items() if v}, fused[0]["graph_launches"]
-        passes = [fused[0]["ld_passes"]]
-        step_s = [fused[0]["seconds"] / fused[0]["steps"]] * 2
+        # a fused run (one [fused] line a chunk): each piece of the step runs
+        # once eagerly (its warm-up) before its capture; the LD passes are
+        # the replays'
+        warm_up, counts = {k: v for k, v in counts.items() if v}, {}
+        for f in fused:
+            for k, v in f["graph_launches"].items():
+                counts[k] = counts.get(k, 0) + v
+        passes = [sum(f["ld_passes"] for f in fused)]
+        step_s = [sum(f["seconds"] for f in fused) / max(sum(f["steps"] for f in fused), 1)] * 2
     else:
         passes = [int(v) for v in
                   log.floats(r"\[roofline\] iteration \d+: [0-9.]+s, (\d+) LD passes")]
@@ -610,15 +636,15 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     stopped = [ln for ln in log.lines
                if ln.startswith(("STOP at iteration", "Early stop at iteration"))]
     if any("ERROR: non-finite" in ln for ln in log.lines) or not (
-            stopped or len(rows) == CLI_ITERATIONS):
+            stopped or len(rows) == iterations):
         fail(f"{what}: the run neither stopped through the StopMonitor nor ran "
-             f"{CLI_ITERATIONS} iterations ({len(rows)} rows)")
+             f"{iterations} iterations ({len(rows)} rows)")
     best = read_bin(os.path.join(out_dir, f"{name}_xhat_best.bin"))
     bet = np.load(prefix + "_bet.npy").reshape(-1) if truth is None else truth
     if best.shape != (M,) or not np.all(np.isfinite(best)):
         fail(f"{what}: best iterate has shape {best.shape} or is not finite")
     align = alignment_l2(best, bet)[0]
-    if not align >= MIN_ALIGNMENT:
+    if check_alignment and not align >= MIN_ALIGNMENT:
         fail(f"{what}: best-iterate alignment {align:.5f} < {MIN_ALIGNMENT}")
     early = [int(v) for v in log.floats(r"Early stop at iteration (\d+)")]
     chosen = [int(v) for v in log.floats(r"Selected iterate \(iteration (-?\d+)\) written")]
@@ -631,8 +657,11 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
            "infer_s": sum(log.floats(r"\[timer\] infer: ([0-9.]+)s")),
            "s_per_iteration": float(np.median(step_s[1:])) if len(step_s) > 1 else float("nan"),
            "total_s": total_s, "alignment": align, "routes": routes,
-           "stop": stopped[0] if stopped else "ran all iterations"}
-    label = "4b" if truth is not None else ("7c" if fused else ("6d" if tag else "4"))
+           "stop": stopped[0] if stopped else "ran all iterations",
+           "checkpoint_bytes": [int(v) for v in log.floats(r"\[checkpoint\] .*: (\d+) bytes")],
+           "checkpoint_s": log.floats(r"\[checkpoint\] .* bytes in ([0-9.]+) s"),
+           "resumed": any(ln.startswith("Resumed from checkpoint") for ln in log.lines)}
+    label = label or ("4b" if truth is not None else ("7c" if fused else ("6d" if tag else "4")))
     print(f"[{label} cli] --operator {operator} --ld-dtype {ld_dtype}{flags}, "
           f"K={K}, M={M}: {total_s:.1f} s in all; "
           f"ingestion (load/R) {res['ingest_s']:.2f} s, "
@@ -1104,6 +1133,164 @@ def compare_runs(sharded: dict, whole: dict, phase: str) -> dict:
     return dev
 
 
+def mle_engine_run(op, r, x0, em_host: dict, em_fused: dict) -> dict:
+    """Phase 8a: phase 3's engine run (int8, M_FULL, same seed, fixed CG
+    budget, StopMonitor) with prior_update="mle", MLE_ITERATIONS steps in the
+    host loop and, after a 2-step run that captures the graphs, through
+    run_scan_stoppable. Each run starts with the launch counts at zero; the
+    host loop must launch the int8 kernel 102 times an executed iteration
+    and no other band kernel, the fused run nothing eagerly and 102 int8
+    launches a step by replay. Every iteration's xhat1, gam1, gamw, lam and
+    mle_ok equal between the two bit for bit, at least one MLE update
+    accepted, the best iterate's alignment >= MIN_ALIGNMENT. Device ms a
+    step from torch.profiler over steps 1-2 (each with an MLE update) of
+    each mode."""
+    import torch
+
+    from sgvamp_torch.core.vamp import alignment_l2
+
+    phase, own, per_it = "8a engine path, MLE", "sym_band_matvec_int8", 102
+    engine = engine_over(op, r, M_FULL, op.upper.device, prior_update="mle")
+    mle_ok, stamps = [], []
+
+    def keep(it, state, aux):
+        mle_ok.append(bool(aux.mle_ok))
+        stamps.append(time.perf_counter())
+
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = engine.run(MLE_ITERATIONS, x0=x0, stop_tol=STOP_TOL, stop_gam1_drop=STOP_DROP,
+                      callback=keep)
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    host_launches = {k: v for k, v in band_launches().items() if v}
+    n = len(hist["xhat1"])
+    if host_launches != {own: per_it * n}:
+        fail(f"{phase}: the host loop launched {host_launches}, expected {{{own!r}: {per_it * n}}}")
+    t0 = time.perf_counter()
+    engine.run_scan_stoppable(2, STOP_TOL, STOP_DROP)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    _, aux, mon = engine.run_scan_stoppable(MLE_ITERATIONS, STOP_TOL, STOP_DROP)
+    torch.cuda.synchronize()
+    fused_s = time.perf_counter() - t0
+    eager = {k: v for k, v in band_launches().items() if v}
+    replayed, reads = engine.fused.launches(), dict(engine.fused.reads)
+    if eager:
+        fail(f"{phase}: the fused run launched kernels eagerly: {eager}")
+    if int(mon.n_ran) != n or int(mon.best_it) != hist["best_it"]:
+        fail(f"{phase}: the fused run ran {int(mon.n_ran)} steps, best {int(mon.best_it)}; the "
+             f"host loop {n}, best {hist['best_it']}")
+    if replayed != {own: per_it * n}:
+        fail(f"{phase}: graph replays launched {replayed}, expected {{{own!r}: {per_it * n}}}")
+    for it in range(n):
+        p = np.asarray(hist["params"][it], np.float64)
+        pairs = {"xhat1": (aux.xhat1[it], hist["xhat1"][it]), "gamw": (aux.gamw[it], p[:, 1]),
+                 "gam1": (aux.gam1[it], p[:, 2]), "lam": (aux.lam[it], p[0, 6]),
+                 "mle_ok": (aux.mle_ok[it], mle_ok[it])}
+        for name, (got, want) in pairs.items():
+            got = got.cpu().numpy()
+            if not np.array_equal(got, np.asarray(want).astype(got.dtype)):
+                fail(f"{phase}: iteration {it}: {name} of the fused run differs from the host "
+                     f"loop's")
+    if not any(mle_ok[1:]):
+        fail(f"{phase}: no MLE update was accepted ({mle_ok})")
+    best = hist["best_xhat1"]
+    align = alignment_l2(best, x0)[0] if best is not None else float("nan")
+    if not align >= MIN_ALIGNMENT:
+        fail(f"{phase}: best-iterate alignment {align:.5f} < {MIN_ALIGNMENT}")
+    state1 = engine.run(1)["state"]
+    fused_ms, traced = profiled_steps(
+        lambda: engine.run_scan_stoppable(2, STOP_TOL, STOP_DROP, state=state1),
+        "sym_band_int8_kernel")
+    host_ms, _ = profiled_steps(lambda: engine.run(2, state=state1), "sym_band_int8_kernel")
+    res = {"executed": n, "stopped_at": hist.get("stopped_at"), "best_it": hist["best_it"],
+           "alignment": align, "mle_ok": mle_ok, "lam": [float(v) for v in aux.lam[:n].cpu()],
+           "launches": host_launches, "fused_launches": replayed, "host_reads": reads,
+           "host_reads_per_step": {k: v / n for k, v in reads.items()},
+           "newton_chunks_per_step": reads["mle"] / n,
+           "s_per_iteration": float(np.median(np.diff(stamps))) if n > 1 else float("nan"),
+           "mean_s_per_iteration": host_s / n, "fused_s_per_iteration": fused_s / n,
+           "capture_run_s": capture_s, "device_ms_per_step": host_ms,
+           "fused_device_ms_per_step": fused_ms, "traced_int8_kernels_per_step": traced}
+    print(f"[{phase}] {n} iterations, stop {res['stopped_at']}, best iterate {res['best_it']} "
+          f"(fused: the same), alignment {align:.5f}; MLE accepted {mle_ok}, lam "
+          f"{[f'{v:.6f}' for v in res['lam']]}; every iteration's xhat1, gam1, gamw, lam and "
+          f"mle_ok equal bit for bit in both modes; {own} {per_it * n} launches in each (the "
+          f"fused run's by replay, none eagerly); {res['s_per_iteration']:.4f} s/iteration "
+          f"(median after the first; mean {res['mean_s_per_iteration']:.4f}), fused "
+          f"{res['fused_s_per_iteration']:.4f}; device {host_ms:.2f} ms a step with MLE (fused "
+          f"{fused_ms:.2f}; the fused trace holds {traced} of the {per_it} int8 kernels a "
+          f"step); EM (phases 3, 7a): {em_host['s_per_iteration']:.4f} s/iteration, "
+          f"fused {em_fused['s_per_iteration']:.4f}, device "
+          f"{em_fused['host_device_ms_per_step']:.2f}"
+          f" / {em_fused['device_ms_per_step']:.2f} ms a step; fused host reads a step "
+          f"{res['host_reads_per_step']}, Newton chunks a step {res['newton_chunks_per_step']:.2f}"
+          f"; capture run of 2 steps {capture_s:.2f} s", flush=True)
+    return res
+
+
+def checkpoint_legs(prefix: str, root: str, M: int, ld_dtype: str, own: str, fused: str) -> dict:
+    """Phase 8b: cli.main with the biobank flags, --prior-update mle,
+    --fused `fused` and --checkpoint-every 2, three times over the panel at
+    `prefix`: 4 iterations at once; 2 with --checkpoint-dir; --resume 1 to 4.
+    Each run has cli_run's checks (the resumed one launches its kernel once
+    per LD pass of its own 2 iterations; its best iterate is not held to
+    MIN_ALIGNMENT, see below). The per-iteration files and CSVs
+    of the resumed set equal the uninterrupted set's to the byte (the
+    selected iterate, xhat_best, is the resumed monitor's own); at most
+    `keep` (3) checkpoint files remain."""
+    ck = os.path.join(root, f"ck_{M}_{fused}")
+    flags = ("--prior-update", "mle", "--fused", fused, "--checkpoint-every", "2")
+    label = f"8b checkpoints, --fused {fused}"
+    kw = dict(tag="_mle", label=label)
+    full_dir = os.path.join(root, f"full_{M}_{fused}")
+    res_dir = os.path.join(root, f"res_{M}_{fused}")
+    full = cli_run(prefix, full_dir, M, ld_dtype, own, extra=flags, iterations=4, **kw)
+    part = cli_run(prefix, res_dir, M, ld_dtype, own, extra=(*flags, "--checkpoint-dir", ck),
+                   iterations=2, **kw)
+    # the resumed run's monitor starts at iteration 2: its selected iterate
+    # is its own, past the uninterrupted run's peak, so it is not held to
+    # MIN_ALIGNMENT; its files must equal the uninterrupted run's, which is
+    resumed = cli_run(prefix, res_dir, M, ld_dtype, own,
+                      extra=(*flags, "--checkpoint-dir", ck, "--resume", "1"), iterations=4,
+                      check_alignment=False, **kw)
+    if not resumed["resumed"] or part["resumed"]:
+        fail(f"{label}: the third run did not resume from the second's checkpoint")
+    name = full["name"]
+    files = sorted(f for f in os.listdir(full_dir)
+                   if f.startswith(name + "_") and f != f"{name}_xhat_best.bin")
+    have = sorted(f for f in os.listdir(res_dir)
+                  if f.startswith(name + "_") and f != f"{name}_xhat_best.bin")
+    if files != have or not files:
+        fail(f"{label}: the resumed set wrote {have}, the uninterrupted run {files}")
+    differ = [f for f in files if open(os.path.join(full_dir, f), "rb").read()
+              != open(os.path.join(res_dir, f), "rb").read()]
+    if differ:
+        fail(f"{label}: resumed files differ from the uninterrupted run's: {differ}")
+    kept = sorted(os.listdir(ck))
+    if not 0 < len(kept) <= 3:
+        fail(f"{label}: {len(kept)} checkpoint files remain: {kept}")
+    saves = part["checkpoint_s"] + resumed["checkpoint_s"]
+    sizes = part["checkpoint_bytes"] + resumed["checkpoint_bytes"]
+    res = {"M": M, "fused": fused, "files": len(files), "byte_equal": len(files),
+           "checkpoints_kept": kept, "saves": len(saves), "save_s": saves,
+           "mean_save_s": float(np.mean(saves)) if saves else float("nan"),
+           "mb_per_file": float(np.mean(sizes)) / 1e6 if sizes else float("nan"),
+           "launches": [full["launches"], part["launches"], resumed["launches"]],
+           "infer_s": [full["infer_s"], part["infer_s"], resumed["infer_s"]],
+           "alignment": [full["alignment"], part["alignment"], resumed["alignment"]]}
+    print(f"[{label}] M={M}: the resumed set's {len(files)} per-iteration files and CSVs equal "
+          f"the uninterrupted run's to the byte; {len(kept)} checkpoint files kept ({kept}); "
+          f"{len(saves)} saves, {res['mean_save_s']:.4f} s a save ({[f'{v:.4f}' for v in saves]}),"
+          f" {res['mb_per_file']:.2f} MB a file; {own} launches {res['launches']}; infer "
+          f"{[f'{v:.2f}' for v in res['infer_s']]} s; best-iterate alignment "
+          f"{[f'{v:.5f}' for v in res['alignment']]}", flush=True)
+    return res
+
+
 def main() -> None:
     import torch
 
@@ -1417,6 +1604,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     seconds["fused_engine_path"] = time.perf_counter() - t0
 
+    # ---- 8a. the engine's library path under MLE, both modes ----
+    t0 = time.perf_counter()
+    mle_run = mle_engine_run(op_int8, r_full, x0, int8_run, fused["int8"])
+    torch.cuda.empty_cache()
+    seconds["mle_engine_path"] = time.perf_counter() - t0
+
     # ---- 4. the command-line path ----
     t0 = time.perf_counter()
     out_dir = os.path.join(work.name, "out")
@@ -1596,6 +1789,14 @@ def main() -> None:
     fused_cli["against_host_loop"] = compare_cli_files(cli["hybrid"], out_dir, fused_cli,
                                                        fused_dir)
     seconds["fused_cli"] = time.perf_counter() - t0
+
+    # ---- 8b. the command line with checkpoints and --resume, under MLE ----
+    t0 = time.perf_counter()
+    ckpt = {"hybrid fused": checkpoint_legs(prefix, work.name, M_FULL, "hybrid",
+                                            "sym_band_matvec_hybrid", "1"),
+            "hybrid host loop": checkpoint_legs(small_prefix, work.name, M_CLI_SMALL, "hybrid",
+                                                "sym_band_matvec_hybrid", "0")}
+    seconds["checkpoint_cli"] = time.perf_counter() - t0
     work.cleanup()
     seconds["total"] = time.perf_counter() - t_start
 
@@ -1613,7 +1814,8 @@ def main() -> None:
                              {k: v[k] for k in ("executed", "s_per_iteration", "alignment",
                                                 "deviation")}
                              for f, v in mesh_runs.items()}},
-                      "fused": fused, "fused_cli": fused_cli}))
+                      "fused": fused, "fused_cli": fused_cli, "mle": mle_run,
+                      "checkpoints": ckpt}))
 
     def band_entry(name, key, source, line, n_launch, library=None, **extra):
         f = full[key]
@@ -1671,13 +1873,16 @@ def main() -> None:
     print(json.dumps({"kernels": [
         band_entry("sym_band_matvec_int8", "int8", csrc + "sym_band_int8.cu", 179,
                    launches["sym_band_matvec_int8"], **int8_once(M_FULL // B_FULL),
-                   fused_launches=fused["int8"]["launches"]["sym_band_matvec_int8"]),
+                   fused_launches=fused["int8"]["launches"]["sym_band_matvec_int8"],
+                   mle_launches=mle_run["launches"]["sym_band_matvec_int8"],
+                   mle_fused_launches=mle_run["fused_launches"]["sym_band_matvec_int8"]),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
                     bench_launches["streamed"], **read_once),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
                    cli["int4"]["launches"], **packed),
         band_entry("sym_band_matvec_hybrid", "hybrid", csrc + "sym_band_hybrid.cu", 179,
-                   cli["hybrid"]["launches"], **packed, fused_launches=fused_cli["launches"]),
+                   cli["hybrid"]["launches"], **packed, fused_launches=fused_cli["launches"],
+                   checkpoint_launches=[n for c in ckpt.values() for n in c["launches"]]),
         float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
                     333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"],
                     **read_once),

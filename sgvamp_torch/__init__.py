@@ -34,7 +34,7 @@ from sgvamp_torch.config import PriorConfig, VampConfig
 from sgvamp_torch.core.cg import cg_batched
 from sgvamp_torch.core.denoiser import combine_cohorts, posterior_mean_and_slope
 from sgvamp_torch.core.operators import BandedLD, DenseLD
-from sgvamp_torch.core.prior import PriorState, em_loop, em_update
+from sgvamp_torch.core.prior import PriorState, em_loop, em_update, mle_update
 from sgvamp_torch.core.vamp import (StopMonitor, VampEngine, VampInputs,
                                     VampState, vamp_step)
 from sgvamp_torch.ops.band_kernel import SymBandedLD
@@ -53,6 +53,7 @@ __all__ = [
     "PriorState",
     "em_update",
     "em_loop",
+    "mle_update",
     "StopMonitor",
     "VampEngine",
     "VampInputs",

@@ -15,13 +15,15 @@ hybrid; .npz / .npy LD inputs and PLINK .ld tables with --bim-files
 the merged .bim written to --out-dir); the host loop with the block-Jacobi
 preconditioner, the StopMonitor and reference-format output files, and
 --fused 1 (the whole run replayed as CUDA graphs of the VAMP step, the
-stop criteria on the device).
+stop criteria on the device); --prior-update em|mle|none; checkpoints
+(--checkpoint-dir: after every iteration of the host loop, between chunks
+of --checkpoint-every iterations of a fused run) and --resume 1.
 --operator sym leaves the operator's mode at "auto", so float storage
 runs the resident kernel where its run fits a CTA's shared memory. Not
 ported yet: --operator blocksparse, runs of several processes
-(--coordinator-address, --num-processes, --process-id), checkpoints
-(with or without --fused 1), --prior-update mle, --profile-dir. Each is rejected with a
-message that names the flag and its ROADMAP item; none is silently ignored.
+(--coordinator-address, --num-processes, --process-id), --profile-dir.
+Each is rejected with a message that names the flag and its ROADMAP item;
+none is silently ignored.
 """
 
 from __future__ import annotations
@@ -168,12 +170,6 @@ def _reject_unported(args) -> None:
                       ("--process-id", args.process_id)):
         if val is not None:
             no(flag, "ROADMAP A8b, several processes over torch.distributed")
-    if args.checkpoint_dir:
-        no("--checkpoint-dir", "ROADMAP A9, checkpoint and resume")
-    if bool(int(args.resume)):
-        no("--resume", "ROADMAP A9, checkpoint and resume")
-    if args.prior_update == "mle":
-        no("--prior-update mle", "ROADMAP A11, MLE prior learning")
     if args.operator == "blocksparse":
         no("--operator blocksparse", "ROADMAP A, BlockSparseLD")
     if args.profile_dir:
@@ -181,40 +177,63 @@ def _reject_unported(args) -> None:
 
 
 def _fused_run(engine, iterations: int, writer, x0, Nt: float, M: int, seed: int,
-               stop_tol: float, stop_drop: float) -> dict:
-    """--fused 1: the whole run through VampEngine.run_scan (or, with a stop
-    criterion armed, run_scan_stoppable: the criteria on the device, no step
-    after the stop), then the reference-format files from the stacked aux.
-    Unarmed runs track the best iterate with a host StopMonitor fed from the
-    aux. Returns the history the host loop's branch returns."""
+               stop_tol: float, stop_drop: float, ckpt=None, every: int = 1,
+               state=None, start_it: int = 0) -> dict:
+    """--fused 1: iterations start_it .. iterations - 1 through
+    VampEngine.run_scan (or, with a stop criterion armed,
+    run_scan_stoppable: the criteria on the device, no step after the
+    stop), in one chunk, or with a CheckpointManager `ckpt` in chunks of
+    `every` iterations with a checkpoint after each; the reference-format
+    files from each chunk's stacked aux. The monitor is not checkpointed: a
+    resumed run starts a fresh one. Unarmed runs track the best iterate
+    with a host StopMonitor fed from the aux. Returns the history the host
+    loop's branch returns."""
     from sgvamp_torch.core.vamp import StopMonitor, StopState
 
     armed = stop_tol > 0 or stop_drop > 0
-    if armed:
-        _, aux, mon = engine.run_scan_stoppable(iterations, stop_tol=stop_tol,
-                                                stop_gam1_drop=stop_drop, seed=seed)
-        n = int(mon.n_ran)
-        aux = type(aux)(*[v[:n] for v in aux])   # the rows that ran
+    monitor = StopMonitor()
+    st = state if state is not None else engine.init_state(seed)
+    mon = None
+    history = {"xhat1": [], "alignment": [], "l2": []}
+    it = start_it
+    while it < iterations:
+        n = iterations - it if ckpt is None else min(max(1, every), iterations - it)
+        if armed:
+            st, aux, mon = engine.run_scan_stoppable(n, stop_tol=stop_tol,
+                                                     stop_gam1_drop=stop_drop, state=st,
+                                                     stop_state=mon)
+            n = int(mon.n_ran) - (it - start_it)
+            aux = type(aux)(*[v[:n] for v in aux])   # the rows that ran
+        else:
+            st, aux = engine.run_scan(n, state=st)
+        if writer is not None:
+            h = engine.write_scan_outputs(aux, writer, Nt=Nt, x0=x0, M_out=M, it0=it)
+            for key in history:
+                history[key].extend(h[key])
+        else:
+            history["xhat1"].extend(aux.xhat1[i].cpu().numpy()[:M] for i in range(n))
+        if not armed:
+            for i in range(n):
+                monitor.update(it + i, history["xhat1"][it - start_it + i],
+                               aux.gam1[i].cpu().numpy())
+        if ckpt is not None:
+            ckpt.save(st, it + n)
+        it += n
+        if armed and bool(mon.done):
+            break
+    if not armed:
+        history["best_it"] = monitor.best_it
+        history["best_xhat1"] = monitor.best_xhat1
+    elif mon is None:
+        # a resumed run already at its iteration count: nothing ran
+        history["best_it"], history["best_xhat1"] = -1, None
     else:
-        _, aux = engine.run_scan(iterations, seed=seed)
-        n = iterations
-    if writer is not None:
-        history = engine.write_scan_outputs(aux, writer, Nt=Nt, x0=x0, M_out=M)
-    else:
-        history = {"xhat1": [aux.xhat1[i].cpu().numpy()[:M] for i in range(n)]}
-    if armed:
         if bool(mon.done):
             history["stopped_at"] = int(mon.stopped_at)
             history["stop_reason"] = StopState.REASONS[int(mon.reason)]
         history["best_it"] = int(mon.best_it)
         history["best_xhat1"] = (mon.best_xhat1.cpu().numpy()
                                  if history["best_it"] >= 0 else None)
-    else:
-        monitor = StopMonitor()
-        for i, xhat1 in enumerate(history["xhat1"]):
-            monitor.update(i, xhat1, aux.gam1[i].cpu().numpy())
-        history["best_it"] = monitor.best_it
-        history["best_xhat1"] = monitor.best_xhat1
     return history
 
 
@@ -236,6 +255,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     from sgvamp_torch.core.vamp import VampEngine, VampInputs, alignment_l2
     from sgvamp_torch.data import harmonize as hz
     from sgvamp_torch.data import loaders
+    from sgvamp_torch.io.checkpoint import CheckpointManager
     from sgvamp_torch.io.writers import OutputWriter, write_bin
     from sgvamp_torch.ops.band_kernel import SymBandedLD
     from sgvamp_torch.utils.profiling import PhaseTimers
@@ -504,9 +524,20 @@ def main(argv: Optional[List[str]] = None) -> int:
     with timers.phase("precond/eig"):
         engine = VampEngine(inputs, cfg, prior, gamw=gamw, gam1=gam1, mesh=mesh)
 
+    ckpt = None
+    state = None
+    start_it = 0
+    if args.checkpoint_dir:
+        ckpt = CheckpointManager(args.checkpoint_dir)
+        if bool(int(args.resume)):
+            restored = ckpt.restore_latest(engine.init_state(args.seed))
+            if restored is not None:
+                state, start_it = restored
+                log.info(f"Resumed from checkpoint at iteration {start_it}")
+
     writer = None
     if args.out_dir:
-        writer = OutputWriter(args.out_dir, args.out_name, K)
+        writer = OutputWriter(args.out_dir, args.out_name, K, append=start_it > 0)
 
     log.info("...Running sgVAMP\n")
     stop_tol = float(args.stop_tol)
@@ -516,10 +547,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     with timers.phase("infer"):
         if bool(int(args.fused)):
             history = _fused_run(engine, iterations, writer, x0, Nt, M, args.seed,
-                                 stop_tol, stop_drop)
+                                 stop_tol, stop_drop, ckpt=ckpt, every=args.checkpoint_every,
+                                 state=state, start_it=start_it)
         else:
+            cb = None if ckpt is None else (lambda it, st, aux: ckpt.save(st, it + 1))
             history = engine.run(
-                iterations, writer=writer, x0=x0, Nt=Nt, seed=args.seed, M_out=M,
+                iterations - start_it, state=state, writer=writer, x0=x0, Nt=Nt,
+                seed=args.seed, callback=cb, M_out=M, it0=start_it,
                 stop_tol=stop_tol, stop_gam1_drop=stop_drop,
             )
     log.info(f"sgVAMP inference running time: {time.time() - ts:0.4f}s\n")
@@ -551,10 +585,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         log.info(f"Alignment(x1hat, x0) over iterations: \n {aligns}\n")
         log.info(f"L2 error(x1hat, x0) over iterations: \n {l2s}\n")
         bi = history.get("best_it", -1)
-        if bi is not None and 0 <= bi < len(aligns):
+        if bi is not None and 0 <= bi - start_it < len(aligns):
             log.info(f"Selected iterate (gam1 peak): iteration {bi}, "
-                     f"alignment {aligns[bi]:0.6f}, "
-                     f"L2 {l2s[bi]:0.6f}\n")
+                     f"alignment {aligns[bi - start_it]:0.6f}, "
+                     f"L2 {l2s[bi - start_it]:0.6f}\n")
     return 0
 
 

@@ -1,8 +1,7 @@
 """Configuration of the VAMP engine (PyTorch port of sgvamp_tpu/config.py).
 
 The fields and defaults are the JAX package's, so one configuration means
-the same run in both engines. Options whose code is not ported yet raise
-NotImplementedError at construction instead of being ignored.
+the same run in both engines.
 """
 
 from __future__ import annotations
@@ -83,9 +82,6 @@ class VampConfig:
             raise ValueError(f"unknown prior_update: {self.prior_update!r}")
         if self.dtype not in _DTYPES:
             raise ValueError(f"unsupported dtype: {self.dtype!r}")
-        if self.prior_update == "mle":
-            raise NotImplementedError(
-                "prior_update='mle' is not ported yet (ROADMAP A11)")
         if self.cg_precond_dtype not in _DTYPES:
             raise ValueError(f"unsupported cg_precond_dtype: {self.cg_precond_dtype!r}")
 

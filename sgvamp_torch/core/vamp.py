@@ -3,7 +3,7 @@
 The whole multi-cohort state lives in (K, ...) tensors on one device (under
 a mesh: its first device; the mesh divides the LD operator only, see
 parallel/sharding.py). One
-step is: the EM prior update, the meta denoiser, one CG of 2K lanes (the
+step is: the prior update (EM or MLE), the meta denoiser, one CG of 2K lanes (the
 LMMSE right-hand sides and the Hutchinson probes share A = gamw R + gam2 I,
 so each LD pass serves both), and one 2K-lane LD pass for the noise
 precision.
@@ -15,8 +15,8 @@ lax.scan): the step's pieces are captured once into CUDA graphs and
 replayed over static buffers (_FusedStep), with the stop criteria on the
 device (StopState) and the files written afterwards (write_scan_outputs).
 The JAX package's device control flow becomes host branches: lax.cond on
-the iteration chooses the set of graphs, and the EM and CG while loops run
-in chunks whose device flag the host reads once a chunk.
+the iteration chooses the set of graphs, and the EM, MLE and CG while loops
+run in chunks whose device flag the host reads once a chunk.
 """
 
 from __future__ import annotations
@@ -40,8 +40,9 @@ from sgvamp_torch.core.denoiser import combine_cohorts, posterior_mean_and_slope
 from sgvamp_torch.core.precond import (apply_block_jacobi, block_jacobi_eig,
                                        block_jacobi_from_eig,
                                        block_jacobi_inverse)
-from sgvamp_torch.core.prior import (EM_CHUNK, PriorState, em_chunk, em_finished,
-                                     em_init, em_loop, em_result)
+from sgvamp_torch.core.prior import (EM_CHUNK, MLE_CHUNK, PriorState, em_chunk,
+                                     em_finished, em_init, em_loop, em_result, mle_chunk,
+                                     mle_finished, mle_init, mle_result, mle_update)
 
 logger = logging.getLogger("sgvamp")
 
@@ -125,7 +126,7 @@ class StepAux(NamedTuple):
     cg2_converged: Tensor
     em_sweeps: Tensor    # () int32, 0 when EM did not run
     em_rel_err: Tensor   # scalar
-    mle_ok: Tensor       # always True until MLE is ported
+    mle_ok: Tensor       # () bool: the last MLE update was accepted (True when unused)
     cg_passes: Tensor    # () int32, CG iterations run (masked ones too): one LD pass each
 
 
@@ -305,8 +306,7 @@ def draw_probe(gen: torch.Generator, K: int, M: int, device, dtype) -> Tensor:
 class _Mid(NamedTuple):
     """What the part of the step before CG hands the part after it."""
 
-    lam: Tensor
-    omegas: Tensor
+    prior: PriorState  # after this step's update
     em_sweeps: Tensor
     em_rel_err: Tensor
     xhat1: Tensor
@@ -333,30 +333,28 @@ def _precond(mid: _Mid):
 
 
 def _before_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, u: Tensor,
-               rho, rhoc, first: bool, em: Optional[tuple]) -> Tuple[_Mid, Tensor, Tensor]:
-    """The step up to CG: the prior from the EM loop's result `em` (None:
-    the prior stays), the denoiser, the LMMSE set-up and the
-    preconditioner. Returns CG's right-hand sides and warm start beside.
+               rho, rhoc, first: bool, prior: PriorState,
+               em_stats: Optional[tuple]) -> Tuple[_Mid, Tensor, Tensor]:
+    """The step up to CG, from the prior after this step's update (the
+    state's when none ran) and, when EM ran, its (sweeps, final relative
+    error): the denoiser, the LMMSE set-up and the preconditioner. Returns
+    CG's right-hand sides and warm start beside.
     rho and rhoc = 1 - rho are floats, or () tensors that the fused run
     fills before each replay; `first` is it == 0."""
     K, M = state.r1.shape
     dtype = cfg.torch_dtype
     r1s, gam1s = state.r1, state.gam1
-    prior = state.prior
     mask = inputs.mask
     M_active = inputs.M_active
-
-    # ---- Prior update ----
-    if em is not None:
-        lam, om, em_sweeps, em_rel_err = em
+    if em_stats is not None:
+        em_sweeps, em_rel_err = em_stats
     else:
-        lam, om = prior.lam, prior.omegas
         em_sweeps = torch.zeros((), dtype=torch.int32, device=r1s.device)
         em_rel_err = torch.zeros((), dtype=dtype, device=r1s.device)
 
     # ---- Denoising ----
     b, A, c = combine_cohorts(r1s, gam1s, inputs.a)
-    xhat1_new, dxdb = posterior_mean_and_slope(b, A, lam, om, prior.sigmas)
+    xhat1_new, dxdb = posterior_mean_and_slope(b, A, prior.lam, prior.omegas, prior.sigmas)
     xhat1 = xhat1_new if first else rho * xhat1_new + rhoc * state.xhat1
 
     # alpha1_k = mean_j d xhat_j / d r1_kj = c_k * mean_j d xhat_j / d b_j
@@ -401,7 +399,7 @@ def _before_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, u: Tensor,
         # compute type is hoisted out of the CG loop
         pinv = pinv.to(torch.promote_types(dtype, torch.float32))
 
-    mid = _Mid(lam=lam, omegas=om, em_sweeps=em_sweeps, em_rel_err=em_rel_err,
+    mid = _Mid(prior=prior, em_sweeps=em_sweeps, em_rel_err=em_rel_err,
                xhat1=xhat1, alpha1=alpha1, gam2=gam2, r2=r2, u=u,
                gamw2=torch.cat([gamw, gamw]), gam22=torch.cat([gam2, gam2]), pinv=pinv)
     return (mid, torch.cat([mu2, u], dim=0),
@@ -445,14 +443,14 @@ def _after_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, mid: _Mid,
         gamw_raw = state.gamw
     gamw_new = torch.clamp(gamw_raw, min=1.0)
 
-    prior = dataclasses.replace(state.prior, lam=mid.lam, omegas=mid.omegas)
+    prior = mid.prior
     fields = dict(xhat1=mid.xhat1, alpha1=mid.alpha1, r1=r1_new, gam1=gam1_new,
                   xhat2=xhat2, r2=mid.r2, alpha2=alpha2, gam2=gam2, gamw=gamw_new,
                   sigma2_u=sigma2_u)
     aux = StepAux(
         xhat1=mid.xhat1, r1_in=state.r1, gamw_raw=gamw_raw, gamw=gamw_new,
         gam1=gam1_new, gam2=gam2, alpha1=mid.alpha1, alpha2=alpha2,
-        lam=mid.lam,
+        lam=prior.lam,
         cg1_iters=cg.iters[:K], cg1_converged=cg.converged[:K],
         cg2_iters=cg.iters[K:], cg2_converged=cg.converged[K:],
         em_sweeps=mid.em_sweeps, em_rel_err=mid.em_rel_err,
@@ -461,8 +459,9 @@ def _after_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, mid: _Mid,
     return fields, prior, aux
 
 
-def _runs_em(cfg: VampConfig, it: int) -> bool:
-    return cfg.prior_update == "em" and it >= cfg.update_prior_from
+def _prior_update(cfg: VampConfig, it: int) -> Optional[str]:
+    """The prior update iteration `it` runs: "em", "mle" or None."""
+    return cfg.prior_update if it >= cfg.update_prior_from else None
 
 
 def vamp_step(
@@ -476,19 +475,26 @@ def vamp_step(
     `u` optionally injects the (K, M) Rademacher probe for the Hutchinson
     estimator (so that two engines can be compared step for step); when
     None, the probe is drawn from state.gen. The device is read once per
-    chunk of the EM loop and of CG (CG: none under cg_force_maxiter).
+    chunk of the EM loop, of the MLE solve and of CG (CG: none under
+    cg_force_maxiter).
     """
     K, M = state.r1.shape
     it = state.it
     rho = _rho(cfg, it)
 
-    em = None
-    if _runs_em(cfg, it):
-        em = em_loop(state.r1, state.gam1, inputs.a, state.prior.lam, state.prior.omegas,
-                     state.prior.sigmas, cfg.em_prior_maxit, cfg.em_rel_tol, mask=inputs.mask)
+    prior, em_stats = state.prior, None
+    update = _prior_update(cfg, it)
+    if update == "em":
+        lam, om, *em_stats = em_loop(state.r1, state.gam1, inputs.a, prior.lam, prior.omegas,
+                                     prior.sigmas, cfg.em_prior_maxit, cfg.em_rel_tol,
+                                     mask=inputs.mask)
+        prior = dataclasses.replace(prior, lam=lam, omegas=om)
+    elif update == "mle":
+        prior = mle_update(state.r1, state.gam1, inputs.a, prior, cfg.mle_maxit, cfg.mle_tol,
+                           mask=inputs.mask)
     if u is None:
         u = draw_probe(state.gen, K, M, state.r1.device, cfg.torch_dtype)
-    mid, b, x0 = _before_cg(state, inputs, cfg, u, rho, 1 - rho, it == 0, em)
+    mid, b, x0 = _before_cg(state, inputs, cfg, u, rho, 1 - rho, it == 0, prior, em_stats)
     cg = cg_batched(_amatvec(inputs, mid), b, x0, cfg.cg_maxit, cfg.cg_rtol, cfg.cg_atol,
                     cfg.cg_force_maxiter, precond=_precond(mid))
     fields, prior, aux = _after_cg(state, inputs, cfg, mid, cg, rho, 1 - rho)
@@ -540,11 +546,13 @@ class _FusedStep:
     VampEngine.run_scan and run_scan_stoppable.
 
     The pieces are vamp_step's own (_before_cg, cg_init / cg_chunk,
-    _after_cg, em_init / em_chunk), in this order: the EM loop's init and
-    chunks, replayed until its device flag says done; the part before CG
-    with CG's first residual; CG chunks of CG_CHUNK iterations, replayed
-    until no lane is active or maxiter iterations have run; the part after
-    CG with stop_state_update and the state's update. Under
+    _after_cg, em_init / em_chunk, mle_init / mle_chunk), in this order: the
+    prior update's init and chunks (the EM loop's or the MLE solve's),
+    replayed until its device flag says done; the part before CG, from the
+    update's result, with CG's first residual; CG chunks of CG_CHUNK
+    iterations, replayed until no lane is active or maxiter iterations have
+    run; the part after CG with stop_state_update and the state's update
+    (the prior's fields included). Under
     cg_force_maxiter the last three are one piece of exactly maxiter CG
     iterations. Each piece reads the engine's inputs, the static state S
     and the outputs of the pieces before it, and updates its carry (and the
@@ -553,10 +561,10 @@ class _FusedStep:
     the CPU the same pieces run eagerly. A failure to capture or replay
     raises: there is no eager step on a CUDA device.
 
-    The host branches of the step (it > 0, EM from update_prior_from, the
-    stop thresholds) choose the set of pieces, each set captured at its
-    first use. What changes from step to step is filled in before the
-    replays: the probe u (drawn as vamp_step draws it, outside any graph),
+    The host branches of the step (it > 0, the prior update from
+    update_prior_from, the stop thresholds) choose the set of pieces, each
+    set captured at its first use. What changes from step to step is
+    filled in before the replays: the probe u (drawn as vamp_step draws it, outside any graph),
     the iteration index and, when rho is annealed, rho.
     """
 
@@ -588,7 +596,7 @@ class _FusedStep:
         self.captured: Dict[tuple, Any] = {}          # (key, piece) -> CUDAGraph
         self.graph_launches: Dict[tuple, Dict[str, int]] = {}
         self.replays: Dict[tuple, int] = {}
-        self.reads = {"em": 0, "cg": 0, "stop": 0}
+        self.reads = {"em": 0, "mle": 0, "cg": 0, "stop": 0}
 
     def load(self, state: VampState, mon: Optional[StopState] = None) -> None:
         _assign(_state_tensors(self.S), _state_tensors(state))
@@ -678,8 +686,8 @@ class _FusedStep:
         step)."""
         cfg, inputs, S = self.cfg, self.inputs, self.S
         maxit = cfg.cg_maxit
-        em = _runs_em(cfg, it)
-        key = (it > 0, em, stop, drawn)
+        update = _prior_update(cfg, it)
+        key = (it > 0, update, stop, drawn)
         P = self.sets.setdefault(key, {})
         self.it.fill_(it)
         probe = self.u[drawn]
@@ -696,9 +704,24 @@ class _FusedStep:
                                       mask=inputs.mask))
             P["em_done"].copy_(em_finished(P["em"], cfg.em_prior_maxit))
 
+        def mle_begin():
+            P["mle_problem"], carry = mle_init(S.r1, S.gam1, inputs.a, S.prior, inputs.mask)
+            P["mle"] = _distinct(carry)
+            P["mle_done"] = mle_finished(P["mle"], cfg.mle_maxit)
+
+        def mle_iterations():
+            _assign(P["mle"], mle_chunk(P["mle"], P["mle_problem"], cfg.mle_maxit, cfg.mle_tol,
+                                        MLE_CHUNK))
+            P["mle_done"].copy_(mle_finished(P["mle"], cfg.mle_maxit))
+
         def before():
-            mid, b, x0 = _before_cg(S, inputs, cfg, probe, rho, rhoc, it == 0,
-                                    em_result(P["em"]) if em else None)
+            prior, em_stats = S.prior, None
+            if update == "em":
+                lam, om, *em_stats = em_result(P["em"])
+                prior = dataclasses.replace(prior, lam=lam, omegas=om)
+            elif update == "mle":
+                prior = mle_result(P["mle_problem"], P["mle"], prior)
+            mid, b, x0 = _before_cg(S, inputs, cfg, probe, rho, rhoc, it == 0, prior, em_stats)
             P["mid"] = mid
             P["cg"] = _distinct(cg_init(_amatvec(inputs, mid), b, x0, cfg.cg_rtol, cfg.cg_atol,
                                         cfg.cg_force_maxiter, precond=_precond(mid)))
@@ -726,19 +749,26 @@ class _FusedStep:
                                                     *stop))
             for f, v in fields.items():
                 getattr(S, f).copy_(v)
-            S.prior.lam.copy_(prior.lam)
-            S.prior.omegas.copy_(prior.omegas)
+            for f in dataclasses.fields(prior):
+                getattr(S.prior, f.name).copy_(getattr(prior, f.name))
             P["aux"] = aux
 
         def persistent():
             return _state_tensors(S) + list(self.mon)
 
-        if em:
+        if update == "em":
             self._run(key, "em_init", em_begin)
             while True:
                 self._run(key, "em_chunk", em_sweeps, lambda: [*P["em"], P["em_done"]])
                 self.reads["em"] += 1
                 if bool(P["em_done"]):
+                    break
+        elif update == "mle":
+            self._run(key, "mle_init", mle_begin)
+            while True:
+                self._run(key, "mle_chunk", mle_iterations, lambda: [*P["mle"], P["mle_done"]])
+                self.reads["mle"] += 1
+                if bool(P["mle_done"]):
                     break
         if cfg.cg_force_maxiter:
             def whole():
@@ -1043,3 +1073,5 @@ class VampEngine:
             logger.info(
                 f"... prior-learning EM algorithm performed {int(aux['em_sweeps'])} steps "
                 f"and had final relative error = {float(aux['em_rel_err']):0.9f}")
+        elif self.cfg.prior_update == "mle" and not aux["mle_ok"]:
+            logger.info("WARNING: MLE solve not accepted. No prior update!")

@@ -206,11 +206,6 @@ BASE = ["--ld-files", "R.npz", "--r-files", "r.npy", "--N", "10", "--M", "10",
     (["--coordinator-address", "localhost:1"], "--coordinator-address"),
     (["--num-processes", "2"], "--num-processes"),
     (["--process-id", "0"], "--process-id"),
-    (["--fused", "1", "--checkpoint-dir", "ck"], "--checkpoint-dir"),
-    (["--checkpoint-dir", "ck"], "--checkpoint-dir"),
-    (["--resume", "1"], "--resume"),
-    (["--prior-update", "mle"], "--prior-update mle"),
-    (["--mle-prior-update", "mle"], "--prior-update mle"),
     (["--operator", "blocksparse"], "--operator blocksparse"),
     (["--profile-dir", "prof"], "--profile-dir"),
     (["--platform", "tpu"], "--platform tpu"),
@@ -223,6 +218,32 @@ def test_unported_flags_are_rejected_by_name(extra, named):
         assert "cuda" in str(exc.value)
     else:
         assert "ROADMAP" in str(exc.value)
+
+
+@pytest.mark.parametrize("extra", [["--fused", "1", "--checkpoint-dir", "ck"],
+                                   ["--checkpoint-dir", "ck"], ["--resume", "1"],
+                                   ["--prior-update", "mle"], ["--mle-prior-update", "mle"]])
+def test_checkpoint_and_mle_flags_parse_and_run(phen_dir, tmp_path, extra):
+    """The checkpoint and MLE flags are ported: a run with them writes its
+    files (--resume without --checkpoint-dir has nothing to resume from, as
+    in the JAX command line), its checkpoints, and under MLE the learned
+    prior."""
+    extra = [str(tmp_path / v) if v == "ck" else v for v in extra]
+    args = tcli.build_parser().parse_args(BASE + extra)
+    tcli._reject_unported(args)
+    assert args.prior_update == ("mle" if "mle" in extra else "em")
+    d = str(phen_dir / "sim")
+    assert tcli.main(["--ld-files", d + "_R.npy", "--r-files", d + "_r.npy",
+                      "--true-signal-file", d + "_bet.npy", "--out-dir", str(tmp_path / "out"),
+                      "--out-name", "t", "--N", "1500", "--M", "200", "--iterations", "2",
+                      "--prior-probs", "0.9,0.1", "--prior-vars", "0,0.04",
+                      "--platform", "cpu", *extra]) == 0
+    rows = _read_csv(tmp_path / "out" / "t_cohort_1.csv")
+    assert len(rows) == 3 and rows[1][-1] != rows[2][-1]   # lam learned at iteration 1
+    if "--checkpoint-dir" in extra:
+        want = (["vamp_state_000002.npz"] if "--fused" in extra
+                else ["vamp_state_000001.npz", "vamp_state_000002.npz"])
+        assert sorted(os.listdir(tmp_path / "ck")) == want
 
 
 @pytest.mark.parametrize("extra", [["--mesh-cohort", "2"], ["--mesh-shard", "2"]])

@@ -819,17 +819,17 @@ def test_read_probe_rate_is_finite(cuda):
 # fused runs: the VAMP step replayed as CUDA graphs
 # ---------------------------------------------------------------------------
 
-def _fused_engine(device, force: bool, mesh: bool):
+def _fused_engine(device, force: bool, mesh: bool, update: str = "em"):
     """An int8 engine at M=4096 (hb=2): the bench's fixed CG budget, or the
     CLI's solve to rtol 1e-5 with the block-Jacobi preconditioner; under a
-    (1, 2) mesh whose cells are this card."""
+    (1, 2) mesh whose cells are this card; the prior learned by `update`."""
     from sgvamp_torch import PriorState, VampConfig, VampEngine, VampInputs
     from sgvamp_torch.parallel.sharding import make_mesh
 
     M, N = 4096, 300000
     band, r, _ = simulate_ld_band(N, M, 256, h2=0.7, lam=0.01, rng=np.random.default_rng(5))
     op = SymBandedLD.from_band(band, block_size=128, dtype="int8", device=device)
-    cfg = VampConfig(prior_update="em", dtype="float32", cg_maxit=20 if force else 500,
+    cfg = VampConfig(prior_update=update, dtype="float32", cg_maxit=20 if force else 500,
                      cg_force_maxiter=force, cg_precond_block=0 if force else 64,
                      em_prior_maxit=5 if force else 100, rho=0.5, lmmse_damp=True)
     inputs = VampInputs(op=op, r=torch.as_tensor(r[None], dtype=torch.float32, device=device),
@@ -874,3 +874,93 @@ def test_fused_step_refuses_a_host_read_during_capture(cuda, monkeypatch):
     with pytest.raises(RuntimeError):
         engine.run_scan(2)
     assert not engine.fused.captured
+
+
+@pytest.mark.parametrize("force", [True, False], ids=["fixed-budget", "solve"])
+def test_fused_replay_with_mle_matches_eager_steps_bit_for_bit(cuda, force):
+    """Under MLE the graphs replay the Newton solve's pieces: every
+    iteration, the learned prior and its warm start equal the host loop's."""
+    engine = _fused_engine(cuda, force, False, update="mle")
+    hist = engine.run(4, seed=1)
+    state, aux = engine.run_scan(4, seed=1)
+    assert any(k[1] == "mle" for k, _ in engine.fused.captured)
+    for it in range(4):
+        assert torch.equal(aux.xhat1[it].cpu(), torch.from_numpy(hist["xhat1"][it])), it
+        params = np.asarray(hist["params"][it])
+        assert np.array_equal(aux.gam1[it].cpu().numpy(), params[:, 2].astype(np.float32))
+        assert np.array_equal(aux.lam[it].cpu().numpy(), np.float32(params[0, 6]))
+    for f in ("lam", "omegas", "mle_gam", "mle_gam_valid", "mle_last_ok"):
+        assert torch.equal(getattr(state.prior, f), getattr(hist["state"].prior, f)), f
+    assert bool(aux.mle_ok[1:].all()) and bool(state.prior.mle_gam_valid)
+    assert engine.fused.reads["mle"] >= 3
+
+
+def _graph(fn, mutates=()):
+    """fn captured into a CUDA graph after a warm-up on a side stream whose
+    writes to `mutates` are undone."""
+    saved = [t.clone() for t in mutates]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    for t, v in zip(mutates, saved):
+        t.copy_(v)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return graph
+
+
+def _mle_inputs(case, device):
+    """A VAMP-like state (K=2, M=300, L=2; r1 = x + noise at precision gam1)
+    or tests/test_prior.py's singular one (two identical slab components),
+    in float64 on `device`."""
+    from sgvamp_torch.core.prior import PriorState
+
+    rng = np.random.default_rng(3 if case == "singular" else 1)
+    if case == "singular":
+        r1s, gam1s, a = rng.normal(size=(1, 200)) * 2.0, [1.0], [1.0]
+        lam, omegas, sigmas = 0.3, [0.5, 0.5], [1.0, 1.0]
+    else:
+        x = np.where(rng.random(300) < 0.2, rng.normal(0, 1.0, 300), 0.0)
+        gam1s = rng.uniform(0.5, 2.0, 2)
+        r1s = x[None, :] + rng.normal(size=(2, 300)) / np.sqrt(gam1s)[:, None]
+        a, lam, omegas, sigmas = [0.5, 0.5], 0.25, [1.0], [1.0]
+    t = [torch.as_tensor(np.asarray(v, np.float64), device=device) for v in (r1s, gam1s, a)]
+    return t, PriorState.create(lam, omegas, sigmas, device=device)
+
+
+@pytest.mark.parametrize("case", ["panel", "singular"])
+def test_mle_pieces_in_graphs_equal_the_eager_loop(cuda, case):
+    """mle_init and mle_chunk captured into graphs and replayed until the
+    device flag says finished give the eager mle_update's bits; the solve
+    reads nothing back to the host inside a piece (a read would make the
+    capture raise)."""
+    from sgvamp_torch.core import prior as tprior
+
+    (r1s, gam1s, a), prior = _mle_inputs(case, cuda)
+    maxit = 60
+    want = tprior.mle_update(r1s, gam1s, a, prior, maxit=maxit)
+    P = {}
+
+    def begin():
+        P["pb"], P["c"] = tprior.mle_init(r1s, gam1s, a, prior)
+
+    def chunk():
+        new = tprior.mle_chunk(P["c"], P["pb"], maxit, 1e-10, tprior.MLE_CHUNK)
+        for dst, v in zip(P["c"], new):
+            dst.copy_(v)
+
+    g_begin = _graph(begin)
+    g_chunk = _graph(chunk, list(P["c"]))
+    g_begin.replay()
+    while True:
+        g_chunk.replay()
+        if bool(tprior.mle_finished(P["c"], maxit)):
+            break
+    got = tprior.mle_result(P["pb"], P["c"], prior)
+    for f in ("lam", "omegas", "mle_gam", "mle_gam_valid", "mle_last_ok"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    assert bool(got.mle_last_ok) == (case == "panel")
+    assert bool(torch.isfinite(P["c"].x).all())

@@ -26,6 +26,7 @@ MODULES = [
     "sgvamp_torch.data.plink",
     "sgvamp_torch.data.simulate",
     "sgvamp_torch.interop",
+    "sgvamp_torch.io.checkpoint",
     "sgvamp_torch.io.writers",
     "sgvamp_torch.native",
     "sgvamp_torch.ops._build",

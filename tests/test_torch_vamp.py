@@ -51,28 +51,92 @@ def _prior_args(M, n=N):
     return LAM, [1.0], [H2 / max(int(M * LAM), 1) * n]
 
 
-def _dense_engines(K, dtype="float64", seed=0):
+def _dense_engines(K, dtype="float64", seed=0, prior=None, engine=None, **options):
+    """Both engines over one dense f64 panel (M=160, bandwidth 24); `prior`
+    replaces the (lam, omegas, sigmas) of _prior_args, `engine` the
+    engines' gamw / gam1, `options` the VampConfig's."""
     M = 160
     band, r, x0 = _problem(M, 24, K, seed)
     R = np.repeat(band_to_dense(band)[None], K, axis=0)
-    cfg = dict(prior_update="em", dtype=dtype, cg_maxit=200, cg_rtol=1e-7,
-               em_prior_maxit=20, rho=0.5)
+    cfg = dict(dict(prior_update="em", dtype=dtype, cg_maxit=200, cg_rtol=1e-7,
+                    em_prior_maxit=20, rho=0.5), **options)
     a, Nk = np.full(K, 1.0 / K), np.full(K, float(N))
+    prior = prior or _prior_args(M)
     jeng = jvamp.VampEngine(
         jvamp.VampInputs(op=JDenseLD(mats=jnp.asarray(R), s=0.05), r=jnp.asarray(r),
                          a=jnp.asarray(a), N=jnp.asarray(Nk)),
-        JConfig(**cfg), JPrior.create(*_prior_args(M)))
+        JConfig(**cfg), JPrior.create(*prior), **(engine or {}))
     teng = tvamp.VampEngine(
         tvamp.VampInputs(op=TDenseLD(mats=torch.from_numpy(R), s=0.05),
                          r=torch.from_numpy(r), a=torch.from_numpy(a),
                          N=torch.from_numpy(Nk)),
-        TConfig(**cfg), TPrior.create(*_prior_args(M), device="cpu"))
+        TConfig(**cfg), TPrior.create(*prior, device="cpu"), **(engine or {}))
     return jeng, teng, x0, M
 
 
 def _params(hist, name):
     col = PARAMS.index(name) + 1
     return np.array([[row[col] for row in rows] for rows in hist["params"]])
+
+
+def _assert_trajectories_match(hj, ht, iters):
+    assert len(ht["xhat1"]) == len(hj["xhat1"]) == iters
+    for it in range(iters):
+        np.testing.assert_allclose(ht["xhat1"][it], hj["xhat1"][it], rtol=1e-8,
+                                   atol=1e-8 * np.abs(hj["xhat1"][it]).max())
+        np.testing.assert_array_equal(ht["cg1_iters"][it], hj["cg1_iters"][it])
+        np.testing.assert_array_equal(ht["cg2_iters"][it], hj["cg2_iters"][it])
+    for name in PARAMS:
+        np.testing.assert_allclose(_params(ht, name), _params(hj, name), rtol=1e-8,
+                                   err_msg=name)
+    np.testing.assert_allclose(ht["alignment"], hj["alignment"], rtol=1e-8)
+
+
+@pytest.mark.parametrize("update", ["em", "mle"])
+@pytest.mark.parametrize("K,L", [(3, 2), (4, 2), (1, 3)], ids=["K3", "K4", "L3"])
+def test_f64_dense_golden_trajectories(K, L, update):
+    """K=3, K=4 (BASELINE config 3: K=4 under MLE) and L=3 (config 2: K=1,
+    a three-component mixture, learned gamw, LMMSE damping), under EM and
+    under MLE, 5 iterations with the same probes."""
+    prior = None
+    if L == 3:
+        lam, _, (sigma,) = _prior_args(160)
+        prior = (lam, [0.7, 0.3], [sigma / 4, sigma * 2])
+    jeng, teng, x0, M = _dense_engines(K, prior=prior, prior_update=update,
+                                       lmmse_damp=L == 3)
+    u = _probes(5, K, M, seed=10 * K + L)
+    hj = jeng.run(5, fixed_u=u, x0=x0)
+    ht = teng.run(5, fixed_u=u, x0=x0)
+    _assert_trajectories_match(hj, ht, 5)
+    assert hj["alignment"][-1] > 0.9
+    lam = _params(ht, "lam")[:, 0]
+    assert lam[1] != lam[0]   # the prior was learned
+    if update == "mle":
+        # every update accepted: each moved the prior off its predecessor
+        assert np.all(np.diff(lam[1:]) != 0)
+
+
+@pytest.mark.parametrize("option,engine,bound", [
+    ("clip_alpha1", {"gam1": 1e-8}, ("alpha1", 1e-5)),
+    ("clip_alpha2", {"gamw": 1e6}, ("alpha2", 1e-5)),
+    ("gam_clamp", {}, ("gam2", 1e3)),
+    ("learn_gamw", {}, ("gamw", 5.0)),
+])
+def test_f64_dense_guards_match(option, engine, bound):
+    """The step's guards, each where it fires: alpha1 and alpha2 clipped to
+    1e-5 at iteration 0 (a starting gam1 of 1e-8, a starting gamw of 1e6),
+    gam2 clamped to 1e3 at iterations 1-3; gamw held at its starting 5.0
+    without learn_gamw. The guard's bound is met exactly, and the port
+    follows the JAX engine to the file's 1e-8."""
+    value = {"gam_clamp": 1e3, "learn_gamw": False}.get(option, True)
+    jeng, teng, x0, M = _dense_engines(3, engine=engine, **{option: value})
+    u = _probes(5, 3, M, seed=7)
+    hj = jeng.run(5, fixed_u=u, x0=x0)
+    ht = teng.run(5, fixed_u=u, x0=x0)
+    _assert_trajectories_match(hj, ht, 5)
+    name, at = bound
+    hits = np.sum(_params(ht, name) == at)
+    assert hits >= 3 if option in ("clip_alpha1", "clip_alpha2") else hits >= 9, hits
 
 
 @pytest.mark.parametrize("K", [1, 2])
