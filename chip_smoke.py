@@ -131,6 +131,33 @@ Phases, a few lines of output each (and fail on the first that fails):
          uninterrupted run's to the byte, at most 3 checkpoint files; with
          --fused 1 over phase 4's M=524288 hybrid files, and with --fused 0
          over its M=65536 files; seconds a save and MB a checkpoint file.
+  9. BlockSparseLD and runs over a process group:
+     9a. BlockSparseLD.from_csr over phase 4's M=524288 panel file (B=128:
+         12286 blocks), float32 and bfloat16 blocks: the matvec at S=2
+         against scipy's CSR product in float64 (scaled 1e-5), a repeat
+         equal to the bit, ms a pass by CUDA events beside its bound and
+         the block bytes over 3.35 TB/s and over phase 3's probe, and one
+         BSR torch.sparse tensor @ x (or the reason torch refuses it);
+         then the same CSR with symmetric long-range blocks (block rows i
+         and i + nb/2, every 64 block rows): kept, against scipy; the same
+         CSR with one heavy block row (a tile in every block column) in
+         bfloat16: against scipy, ms a pass, and the bytes a pass holds
+         beyond its inputs at most a quarter of the blocks'; and at
+         M=65536 cli.main --operator sym warns that it drops them,
+         --operator blocksparse does not.
+     9b. cli.main --operator blocksparse --ld-dtype bfloat16 with the
+         biobank flags at M=524288, --fused 0 and --fused 1: no band
+         kernel launched, the same files to the byte, a repeat of the first
+         iterations writing the same xhat1, best-iterate alignment >= 0.9;
+         seconds of load/R, precond/eig and infer.
+     9c. phase 4's M=65536 int8 files through cli.main as a process group
+         of one over NCCL (--coordinator-address localhost:<free port>
+         --num-processes 1 --process-id 0), --fused 0 and 1: the files of
+         the run without the flags to the byte, the log naming NCCL.
+     9d. python -m sgvamp_torch.dryrun's dryrun_multichip(8) on the card:
+         the six operators over a (2, 4) mesh whose cells are all the
+         card, two steps each against the unsharded steps; the quantized
+         and a float spill kernel launched.
 Then a JSON line of the kernels' numbers, and the result line last.
 """
 
@@ -554,7 +581,7 @@ class LogCapture(logging.Handler):
 def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
             operator: str = "sym", K: int = 1, per_pass: int = 1, tag: str = "",
             inputs=None, truth=None, iterations: int = CLI_ITERATIONS, label=None,
-            check_alignment: bool = True) -> dict:
+            check_alignment: bool = True, native: bool = True) -> dict:
     """One production-mode run of sgvamp_torch.cli.main over the panel
     files at `prefix` (the README's biobank flags), with its checks.
     `own` is the name of the wrapper this storage must launch, None for an
@@ -566,7 +593,9 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     for the .ld path of phase 4b. Every ingestion step must have taken the
     native library. `iterations` is the run's --iterations; `label` the
     phase printed; check_alignment False leaves out the alignment check (a
-    resumed run, whose monitor starts after the first iterations)."""
+    resumed run, whose monitor starts after the first iterations); native
+    False for an operator built from the CSR, which takes no native step
+    (--operator blocksparse)."""
     import torch
 
     from sgvamp_torch.cli import main as cli_main
@@ -627,7 +656,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     if others:
         fail(f"{what}: other band kernels were launched: {others}")
     routes = [ln for ln in log.lines if "through the n" in ln and "path" in ln]
-    if not routes or any("through the numpy path" in ln for ln in routes):
+    if (native and not routes) or any("through the numpy path" in ln for ln in routes):
         fail(f"{what}: ingestion did not run through the native library only: {routes}")
     with open(os.path.join(out_dir, f"{name}_cohort_1.csv")) as f:
         rows = [ln.split("\t") for ln in f.read().splitlines()[1:]]
@@ -660,7 +689,11 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
            "stop": stopped[0] if stopped else "ran all iterations",
            "checkpoint_bytes": [int(v) for v in log.floats(r"\[checkpoint\] .*: (\d+) bytes")],
            "checkpoint_s": log.floats(r"\[checkpoint\] .* bytes in ([0-9.]+) s"),
-           "resumed": any(ln.startswith("Resumed from checkpoint") for ln in log.lines)}
+           "resumed": any(ln.startswith("Resumed from checkpoint") for ln in log.lines),
+           "backend": next((m.group(1) for ln in log.lines
+                            for m in [re.search(r"over the (\w+) backend", ln)] if m), None),
+           "blocks_stored": next((ln for ln in log.lines
+                                  if ln.startswith("Block-sparse LD:")), None)}
     label = label or ("4b" if truth is not None else ("7c" if fused else ("6d" if tag else "4")))
     print(f"[{label} cli] --operator {operator} --ld-dtype {ld_dtype}{flags}, "
           f"K={K}, M={M}: {total_s:.1f} s in all; "
@@ -1291,6 +1324,299 @@ def checkpoint_legs(prefix: str, root: str, M: int, ld_dtype: str, own: str, fus
     return res
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def blocksparse_full(prefix: str, small_prefix: str, work: str, probe_gbps: float,
+                     dev) -> dict:
+    """Phase 9a: BlockSparseLD at the bench shape, from phase 4's M_FULL
+    panel file: the f64 scipy product as the reference, a repeat equal to
+    the bit, ms a pass beside its bounds and the BSR library call, the
+    long-range check at M_FULL (and the sym path's warning at
+    M_CLI_SMALL)."""
+    import scipy.sparse
+    import torch
+
+    from sgvamp_torch.cli import main as cli_main
+    from sgvamp_torch.core.operators import BlockSparseLD
+    from sgvamp_torch.data import loaders
+
+    S, B = 2, B_FULL
+    R = loaders.as_csr(loaders.load_R(prefix + "_R.npz"))
+    t0 = time.perf_counter()
+    op32 = BlockSparseLD.from_csr([R], block_size=B, dtype="float32", device=dev)
+    build_s = time.perf_counter() - t0
+    ops = {"float32": op32,
+           "bfloat16": dataclasses.replace(op32, blocks=op32.blocks.to(torch.bfloat16))}
+    nb = op32.nb
+    # scipy's own conversion to (B, B) blocks (M_FULL is a multiple of B)
+    # holds the same blocks in the same (row, column) order
+    bsr = R.tobsr(blocksize=(B, B))
+    bsr.sort_indices()
+    keys = np.repeat(np.arange(nb), np.diff(bsr.indptr)) * nb + bsr.indices
+    want_nnzb = len(keys)
+    if not (op32.nnzb == want_nnzb and np.array_equal(
+            op32.rows.cpu().numpy().astype(np.int64) * nb + op32.cols.cpu().numpy(), keys)
+            and np.array_equal(op32.blocks[0].cpu().numpy(), bsr.data.astype(np.float32))):
+        fail(f"9a: from_csr stored {op32.nnzb} blocks; scipy's BSR conversion holds "
+             f"{want_nnzb}, or other values")
+    del bsr, keys
+    x = torch.from_numpy(np.random.default_rng(9).normal(size=(S, M_FULL))).to(
+        dev, torch.float32)
+    res = {"M": M_FULL, "B": B, "S": S, "nnzb": op32.nnzb, "from_csr_s": build_s}
+
+    def reference(Rm, blocks_dtype):
+        """The f64 scipy product of what the blocks hold and x as they see it."""
+        Rr = Rm.copy()
+        Rr.data = torch.from_numpy(np.asarray(Rm.data, np.float32)).to(
+            blocks_dtype).double().numpy()
+        xr = x.cpu().to(blocks_dtype).double().numpy()
+        return torch.from_numpy(np.asarray(Rr @ xr.T).T.copy())
+
+    for name, op in ops.items():
+        y = op.matvec(x)
+        if not torch.equal(op.matvec(x), y):
+            fail(f"9a: a repeated {name} blocksparse matvec gave other bits")
+        want = reference(R, op.blocks.dtype)
+        abs_err, rel = scaled_err(y.cpu().double(), want)
+        if not rel <= SCALED_TOL:
+            fail(f"9a: the {name} blocksparse matvec deviates from scipy's: {rel:.3e}")
+        block_bytes = op.bytes_per_pass()
+        moved = block_bytes + 2 * S * M_FULL * 4 + 8 * op.nnzb
+        ops_s = 2 * S * op.nnzb * B * B / PEAK_OPS[name]
+        bytes_s = moved / HBM_BYTES_PER_S
+        res[name] = {"block_bytes": block_bytes, "ms": cuda_ms(lambda: op.matvec(x), 10),
+                     "bound_ms": max(bytes_s, ops_s) * 1e3,
+                     "bound_by": "bytes" if bytes_s >= ops_s else "operations",
+                     "block_bytes_hbm_ms": block_bytes / HBM_BYTES_PER_S * 1e3,
+                     "block_bytes_probe_ms": block_bytes / (probe_gbps * 1e9) * 1e3,
+                     "abs_err": abs_err, "scaled_err": rel}
+        # the one-call library product: a BSR tensor times x
+        crow = torch.zeros(nb + 1, dtype=torch.int64, device=dev)
+        crow[1:] = torch.cumsum(torch.bincount(op.rows.long(), minlength=nb), 0)
+        try:
+            bsr = torch.sparse_bsr_tensor(crow, op.cols.long(), op.blocks[0],
+                                          size=(M_FULL, M_FULL))
+            X = x.T.contiguous().to(op.blocks.dtype)
+            yl = (bsr @ X).T.float()
+            lib_rel = scaled_err(yl.cpu().double(), want)[1]
+            res[name].update(library_ms=cuda_ms(lambda: bsr @ X, 10),
+                             library_scaled_err=lib_rel)
+        except (RuntimeError, NotImplementedError, TypeError) as e:
+            res[name].update(library_ms=None, library_refused=str(e).splitlines()[0][:200])
+        torch.cuda.empty_cache()
+    del ops
+
+    # long-range entries: block rows i and i + nb/2 paired every 64 block rows
+    rng = np.random.default_rng(11)
+    i = np.arange(0, nb // 2, 64)
+    rr = (i[:, None, None] * B + np.arange(B)[None, :, None]) + 0 * np.arange(B)[None, None, :]
+    cc = ((i[:, None, None] + nb // 2) * B + np.arange(B)[None, None, :]) + 0 * rr
+    vals = 0.01 * rng.uniform(-1.0, 1.0, rr.shape).astype(np.float32)
+    L = scipy.sparse.coo_matrix((vals.ravel(), (rr.ravel(), cc.ravel())), shape=R.shape)
+    R_lr = (R + L + L.T).tocsr()
+    op_lr = BlockSparseLD.from_csr([R_lr], block_size=B, dtype="float32", device=dev)
+    y_lr = op_lr.matvec(x)
+    want_lr, want_band = reference(R_lr, torch.float32), reference(R, torch.float32)
+    rel_lr = scaled_err(y_lr.cpu().double(), want_lr)[1]
+    effect = scaled_err(want_band, want_lr)[1]
+    if op_lr.nnzb != want_nnzb + 2 * len(i) or not rel_lr <= SCALED_TOL or not effect > 1e-4:
+        fail(f"9a: long-range blocks: {op_lr.nnzb} stored (expected {want_nnzb + 2 * len(i)}), "
+             f"deviation from scipy {rel_lr:.3e}, effect of the entries {effect:.3e}")
+    res["long_range"] = {"blocks_added": 2 * len(i), "scaled_err": rel_lr,
+                         "effect_on_y": effect}
+    del op_lr, R_lr, y_lr
+    torch.cuda.empty_cache()
+
+    # one heavy block row: block row h holds a tile in every block column
+    # (LD from one region to all others), every other row one more; the
+    # bytes one pass holds beyond its inputs, against the stored blocks
+    h = nb // 2
+    j = np.array([c for c in range(nb) if abs(c - h) > 2])
+    L = scipy.sparse.coo_matrix((np.full(len(j), 1e-3, np.float32),
+                                 (np.full(len(j), h * B + 5), j * B + 9)), shape=R.shape)
+    R_hv = (R + L + L.T).tocsr()
+    op_hv = BlockSparseLD.from_csr([R_hv], block_size=B, dtype="float32", device=dev)
+    op_hv = dataclasses.replace(op_hv, blocks=op_hv.blocks.to(torch.bfloat16))
+    widest = int(torch.bincount(op_hv.rows.long(), minlength=nb).max())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    y_hv = op_hv.matvec(x)
+    torch.cuda.synchronize()
+    transient = torch.cuda.max_memory_allocated() - base
+    rel_hv = scaled_err(y_hv.cpu().double(), reference(R_hv, torch.bfloat16))[1]
+    res["heavy_row"] = {"nnzb": op_hv.nnzb, "widest_row": widest,
+                        "block_bytes": op_hv.bytes_per_pass(), "transient_bytes": transient,
+                        "padded_table_bytes": S * nb * widest * B * 4,
+                        "ms": cuda_ms(lambda: op_hv.matvec(x), 10), "scaled_err": rel_hv}
+    if (widest < nb - 5 or not rel_hv <= SCALED_TOL
+            or not transient <= 0.25 * op_hv.bytes_per_pass()):
+        fail(f"9a: heavy block row: widest row {widest} of {nb} blocks, deviation from scipy "
+             f"{rel_hv:.3e}, {transient} bytes held by a pass over "
+             f"{op_hv.bytes_per_pass()} bytes of blocks")
+    del op_hv, R_hv, y_hv, R
+    torch.cuda.empty_cache()
+
+    # the sym path drops what is outside its band, and says so
+    R_sm = loaders.as_csr(loaders.load_R(small_prefix + "_R.npz"))
+    nb_sm = M_CLI_SMALL // B
+    i = np.arange(0, nb_sm // 2, 64)
+    pairs = [(a * B + 3, (a + nb_sm // 2) * B + 5) for a in i]
+    L = scipy.sparse.coo_matrix((np.full(len(pairs), 0.01, np.float32),
+                                 ([p[0] for p in pairs], [p[1] for p in pairs])),
+                                shape=R_sm.shape)
+    lr_prefix = os.path.join(work, "lr")
+    scipy.sparse.save_npz(lr_prefix + "_R.npz", (R_sm + L + L.T).tocsr(), compressed=False)
+    for ext in ("_r.npy", "_bet.npy"):
+        os.symlink(small_prefix + ext, lr_prefix + ext)
+    sym_warn = {}
+    for operator in ("sym", "blocksparse"):
+        argv = ["--ld-files", lr_prefix + "_R.npz", "--r-files", lr_prefix + "_r.npy",
+                "--N", str(N_SAMPLES), "--M", str(M_CLI_SMALL), "--bandwidth", str(BW_FULL),
+                "--iterations", "1", "--operator", operator, "--ld-dtype", "float32",
+                "--block-size", str(B)]
+        with LogCapture() as log:
+            if cli_main.main(argv) != 0:
+                fail(f"9a: cli.main --operator {operator} over the long-range panel failed")
+        sym_warn[operator] = [ln for ln in log.lines if "outside bandwidth" in ln]
+    if len(sym_warn["sym"]) != 1 or sym_warn["blocksparse"]:
+        fail(f"9a: the sym run must warn of dropped entries and blocksparse not: {sym_warn}")
+    res["sym_warning"] = sym_warn["sym"][0]
+    print(f"[9a blocksparse] M={M_FULL}, B={B}, S={S}: {res['nnzb']} blocks "
+          f"(from_csr {build_s:.1f} s); " + "; ".join(
+              f"{n} {res[n]['ms']:.4f} ms/pass (bound {res[n]['bound_ms']:.4f} ms by "
+              f"{res[n]['bound_by']}, block bytes {res[n]['block_bytes_hbm_ms']:.4f} ms at "
+              f"3.35 TB/s, {res[n]['block_bytes_probe_ms']:.4f} ms at the probe's "
+              f"{probe_gbps:.1f} GB/s), BSR @ x "
+              f"{res[n]['library_ms'] if res[n]['library_ms'] is None else round(res[n]['library_ms'], 4)}"
+              f" ms, against scipy {res[n]['scaled_err']:.1e}"
+              for n in ("bfloat16", "float32")) +
+          f"; long-range: {res['long_range']['blocks_added']} blocks kept, against scipy {rel_lr:.1e} (the entries "
+          f"move y by {effect:.1e}); heavy block row ({res['heavy_row']['widest_row']} tiles, "
+          f"{res['heavy_row']['nnzb']} in all): bfloat16 {res['heavy_row']['ms']:.4f} ms/pass, "
+          f"{res['heavy_row']['transient_bytes'] / 1e6:.1f} MB held by a pass over "
+          f"{res['heavy_row']['block_bytes'] / 1e6:.1f} MB of blocks (a table padded to the "
+          f"widest row would gather {res['heavy_row']['padded_table_bytes'] / 1e9:.2f} GB), "
+          f"against scipy {res['heavy_row']['scaled_err']:.1e}; "
+          f"--operator sym: {res['sym_warning']!r}", flush=True)
+    return res
+
+
+def same_files(a_dir: str, a_name: str, b_dir: str, b_name: str, what: str,
+               only=None) -> int:
+    """Fails unless the two runs wrote the same files (after their name),
+    equal to the byte; returns how many. only: the suffixes to compare."""
+    def files(d, name):
+        return {f[len(name):]: os.path.join(d, f) for f in os.listdir(d)
+                if f.startswith(name + "_") and (only is None or f[len(name):] in only)}
+
+    a, b = files(a_dir, a_name), files(b_dir, b_name)
+    if sorted(a) != sorted(b) or not a:
+        fail(f"{what}: file sets differ: {sorted(a)} against {sorted(b)}")
+    for rest in a:
+        with open(a[rest], "rb") as fa, open(b[rest], "rb") as fb:
+            if fa.read() != fb.read():
+                fail(f"{what}: {rest} differs")
+    return len(a)
+
+
+def blocksparse_cli(prefix: str, work: str) -> dict:
+    """Phase 9b: cli.main --operator blocksparse --ld-dtype bfloat16 with
+    the biobank flags at M_FULL, host loop and --fused 1 (the same files to
+    the byte), and a repeat of the host loop's first iterations (the same
+    xhat1 files to the byte)."""
+    runs = {}
+    for key, extra, iters in (("host loop", ("--fused", "0"), CLI_ITERATIONS),
+                              ("fused", ("--fused", "1"), CLI_ITERATIONS),
+                              ("repeat", ("--fused", "0"), 3)):
+        runs[key] = cli_run(prefix, os.path.join(work, "bs_" + key.replace(" ", "_")), M_FULL,
+                            "bfloat16", None, extra=extra, operator="blocksparse",
+                            iterations=iters, label="9b", check_alignment=key != "repeat",
+                            native=False)
+    name = runs["host loop"]["name"]
+    d = {k: os.path.join(work, "bs_" + k.replace(" ", "_")) for k in runs}
+    n_equal = same_files(d["host loop"], name, d["fused"], name, "9b --fused 1")
+    first = {f"_xhat_it_{i}.bin" for i in range(3)}
+    same_files(d["host loop"], name, d["repeat"], name, "9b repeat", only=first)
+    for k in ("host loop", "fused"):
+        if runs[k]["stopped_at"] != runs["host loop"]["stopped_at"]:
+            fail(f"9b: the {k} run stopped at {runs[k]['stopped_at']}")
+    print(f"[9b cli] --operator blocksparse: {runs['host loop']['blocks_stored']}; --fused 1 "
+          f"wrote the host loop's {n_equal} files to the byte; a repeat wrote the same xhat1 "
+          f"files; load/R {runs['host loop']['ingest_s']:.2f} s, precond/eig "
+          f"{runs['host loop']['precond_eig_s']:.2f} s, infer "
+          f"{runs['host loop']['infer_s']:.2f} s (fused {runs['fused']['infer_s']:.2f} s)",
+          flush=True)
+    keep = ("iterations", "stopped_at", "best_it", "alignment", "ingest_s", "precond_eig_s",
+            "infer_s", "s_per_iteration", "passes", "total_s", "blocks_stored")
+    return {k: {f: v[f] for f in keep} for k, v in runs.items()}
+
+
+def process_group_of_one(small_prefix: str, work: str) -> dict:
+    """Phase 9c: phase 4's M_CLI_SMALL int8 files through cli.main as a
+    process group of one over NCCL (--coordinator-address, --num-processes
+    1, --process-id 0), host loop and fused: the files of the run without
+    the flags, to the byte, and the NCCL backend named in the log."""
+    import torch.distributed as dist
+
+    res = {}
+    for fused in ("0", "1"):
+        runs = {}
+        for key in ("plain", "group"):
+            flags = (["--coordinator-address", f"localhost:{free_port()}", "--num-processes",
+                      "1", "--process-id", "0"] if key == "group" else [])
+            runs[key] = cli_run(small_prefix, os.path.join(work, f"pg_{key}_{fused}"),
+                                M_CLI_SMALL, "int8", "sym_band_matvec_int8",
+                                extra=("--fused", fused, *flags), label="9c")
+        if runs["group"]["backend"] != "NCCL" or runs["plain"]["backend"] is not None:
+            fail(f"9c: backends {runs['group']['backend']} (group), "
+                 f"{runs['plain']['backend']} (plain)")
+        if dist.is_initialized():
+            fail("9c: cli.main left its process group behind")
+        name = runs["plain"]["name"]
+        n_equal = same_files(os.path.join(work, f"pg_plain_{fused}"), name,
+                             os.path.join(work, f"pg_group_{fused}"), name,
+                             f"9c --fused {fused}")
+        res[f"fused {fused}"] = {"files_equal": n_equal,
+                                 "infer_s": runs["group"]["infer_s"],
+                                 "plain_infer_s": runs["plain"]["infer_s"],
+                                 "launches": runs["group"]["launches"]}
+        print(f"[9c process group] --fused {fused}: one process over NCCL wrote the plain "
+              f"run's {n_equal} files to the byte; infer {runs['group']['infer_s']:.2f} s "
+              f"against {runs['plain']['infer_s']:.2f} s", flush=True)
+    return res
+
+
+def dryrun_on_the_card() -> dict:
+    """Phase 9d: sgvamp_torch.dryrun.dryrun_multichip(8) with its default
+    devices, the card: two VAMP steps of each of the six operators over a
+    (2, 4) mesh whose cells are all the card, against the same steps
+    unsharded; the sym operators' spill kernels launched under the mesh."""
+    from sgvamp_torch.dryrun import OPERATORS, dryrun_multichip
+
+    reset_launches()
+    t0 = time.perf_counter()
+    dryrun_multichip(8)
+    seconds = time.perf_counter() - t0
+    launched = {k: v for k, v in band_launches().items() if v}
+    quantized = ("sym_band_matvec_int8_spill", "sym_band_matvec_int4_spill",
+                 "sym_band_matvec_hybrid_spill")
+    float_spill = [k for k in launched if k.endswith("_spill") and k not in quantized]
+    if any(not launched.get(k) for k in quantized) or not float_spill:
+        fail(f"9d: the dry run over the card's (2, 4) mesh launched {launched}: every "
+             f"quantized spill kernel and a float one must run")
+    print(f"[9d dryrun] {len(OPERATORS)} operators over a (2, 4) mesh of the card, two steps "
+          f"each, held against the unsharded steps in {seconds:.1f} s; band kernel launches "
+          f"{launched}", flush=True)
+    return {"seconds": seconds, "launches": launched}
+
+
 def main() -> None:
     import torch
 
@@ -1797,6 +2123,20 @@ def main() -> None:
             "hybrid host loop": checkpoint_legs(small_prefix, work.name, M_CLI_SMALL, "hybrid",
                                                 "sym_band_matvec_hybrid", "0")}
     seconds["checkpoint_cli"] = time.perf_counter() - t0
+
+    # ---- 9. BlockSparseLD and a process group of one ----
+    t0 = time.perf_counter()
+    blocksparse = blocksparse_full(prefix, small_prefix, work.name, gbps, dev)
+    seconds["blocksparse_full"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    blocksparse["cli"] = blocksparse_cli(prefix, work.name)
+    seconds["blocksparse_cli"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    processes = process_group_of_one(small_prefix, work.name)
+    seconds["process_group"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    processes["dryrun"] = dryrun_on_the_card()
+    seconds["dryrun_on_the_card"] = time.perf_counter() - t0
     work.cleanup()
     seconds["total"] = time.perf_counter() - t_start
 
@@ -1815,7 +2155,8 @@ def main() -> None:
                                                 "deviation")}
                              for f, v in mesh_runs.items()}},
                       "fused": fused, "fused_cli": fused_cli, "mle": mle_run,
-                      "checkpoints": ckpt}))
+                      "checkpoints": ckpt, "blocksparse": blocksparse,
+                      "process_group": processes}))
 
     def band_entry(name, key, source, line, n_launch, library=None, **extra):
         f = full[key]

@@ -33,7 +33,7 @@ def resolve_device(device=None) -> torch.device:
 from sgvamp_torch.config import PriorConfig, VampConfig
 from sgvamp_torch.core.cg import cg_batched
 from sgvamp_torch.core.denoiser import combine_cohorts, posterior_mean_and_slope
-from sgvamp_torch.core.operators import BandedLD, DenseLD
+from sgvamp_torch.core.operators import BandedLD, BlockSparseLD, DenseLD
 from sgvamp_torch.core.prior import PriorState, em_loop, em_update, mle_update
 from sgvamp_torch.core.vamp import (StopMonitor, VampEngine, VampInputs,
                                     VampState, vamp_step)
@@ -48,6 +48,7 @@ __all__ = [
     "combine_cohorts",
     "posterior_mean_and_slope",
     "BandedLD",
+    "BlockSparseLD",
     "DenseLD",
     "SymBandedLD",
     "PriorState",

@@ -1,29 +1,32 @@
 """sgVAMP command line (PyTorch port of sgvamp_tpu/cli/main.py).
 
 The same flags, defaults and value semantics as the JAX command line, so an
-invocation ports by changing the module name. All K cohorts run inside one
-process: on one CUDA GPU unless --platform cpu is given, or, with
+invocation ports by changing the module name. Without the multi-process
+flags all K cohorts run inside one process: on one CUDA GPU unless
+--platform cpu is given, or, with
 --mesh-cohort / --mesh-shard, with the LD operator cut over a (cohort,
 shard) mesh of the visible GPUs (parallel/sharding.py). A mesh with more
 cells than there are GPUs takes them round-robin, and under --platform cpu
 every cell is the CPU: the sharded path then runs its cells in turn.
 
-Ported: --operator dense, --operator banded (float storage) and
---operator sym with --ld-dtype float64, float32, bfloat16, int8, int4 or
-hybrid; .npz / .npy LD inputs and PLINK .ld tables with --bim-files
-(harmonized across cohorts, missing SNPs filled from their source cohort,
-the merged .bim written to --out-dir); the host loop with the block-Jacobi
-preconditioner, the StopMonitor and reference-format output files, and
---fused 1 (the whole run replayed as CUDA graphs of the VAMP step, the
-stop criteria on the device); --prior-update em|mle|none; checkpoints
-(--checkpoint-dir: after every iteration of the host loop, between chunks
-of --checkpoint-every iterations of a fused run) and --resume 1.
+Ported: --operator dense, --operator banded and --operator blocksparse
+(float storage) and --operator sym with --ld-dtype float64, float32,
+bfloat16, int8, int4 or hybrid; .npz / .npy LD inputs and PLINK .ld tables
+with --bim-files (harmonized across cohorts, missing SNPs filled from their
+source cohort, the merged .bim written to --out-dir); the host loop with
+the block-Jacobi preconditioner, the StopMonitor and reference-format
+output files, and --fused 1 (the whole run replayed as CUDA graphs of the
+VAMP step, the stop criteria on the device); --prior-update em|mle|none;
+checkpoints (--checkpoint-dir: after every iteration of the host loop,
+between chunks of --checkpoint-every iterations of a fused run) and
+--resume 1; runs over several processes (--coordinator-address,
+--num-processes, --process-id, or torchrun's MASTER_ADDR / MASTER_PORT /
+WORLD_SIZE / RANK): the cohorts divided over the processes
+(parallel/multihost.py), process 0 owning stdout and every output file.
 --operator sym leaves the operator's mode at "auto", so float storage
 runs the resident kernel where its run fits a CTA's shared memory. Not
-ported yet: --operator blocksparse, runs of several processes
-(--coordinator-address, --num-processes, --process-id), --profile-dir.
-Each is rejected with a message that names the flag and its ROADMAP item;
-none is silently ignored.
+ported yet: --profile-dir, rejected with a message that names the flag
+and its ROADMAP item rather than silently ignored.
 """
 
 from __future__ import annotations
@@ -165,13 +168,6 @@ def _reject_unported(args) -> None:
     if args.platform not in (None, "cuda", "cpu"):
         raise SystemExit(f"--platform {args.platform} is not supported by "
                          "sgvamp_torch: use cuda (the default) or cpu")
-    for flag, val in (("--coordinator-address", args.coordinator_address),
-                      ("--num-processes", args.num_processes),
-                      ("--process-id", args.process_id)):
-        if val is not None:
-            no(flag, "ROADMAP A8b, several processes over torch.distributed")
-    if args.operator == "blocksparse":
-        no("--operator blocksparse", "ROADMAP A, BlockSparseLD")
     if args.profile_dir:
         no("--profile-dir", "ROADMAP A15, tooling")
 
@@ -245,12 +241,42 @@ def main(argv: Optional[List[str]] = None) -> int:
     log.info(" ### VAMP for summary statistics (PyTorch/CUDA) ###\n")
 
     _reject_unported(args)
-
     import torch
+    import torch.distributed as dist
 
     from sgvamp_torch import default_device
+    from sgvamp_torch.parallel import multihost
+
+    try:
+        group = multihost.group_config(args.coordinator_address, args.num_processes,
+                                       args.process_id)
+    except ValueError as e:
+        raise SystemExit(str(e))
+
+    device = torch.device("cpu") if args.platform == "cpu" else default_device()
+    # several processes: join the group before anything runs on the device
+    was_joined = dist.is_initialized()
+    multi = group is not None and multihost.multihost_init(
+        *group, backend="gloo" if device.type == "cpu" else None)
+    level = log.level
+    if multihost.process_index() != 0:
+        # process 0 owns stdout and every output file
+        log.setLevel(logging.WARNING)
+    try:
+        return _run(args, log, device, multi)
+    finally:
+        log.setLevel(level)
+        if multi and not was_joined:
+            dist.destroy_process_group()
+
+
+def _run(args, log, device, multi: bool) -> int:
+    """main's run on `device`; multi: a run over a torch.distributed group,
+    its cohorts divided over the processes."""
+    import torch
+
     from sgvamp_torch.config import _DTYPES, PriorConfig, VampConfig
-    from sgvamp_torch.core.operators import BandedLD, DenseLD
+    from sgvamp_torch.core.operators import BandedLD, BlockSparseLD, DenseLD
     from sgvamp_torch.core.prior import PriorState
     from sgvamp_torch.core.vamp import VampEngine, VampInputs, alignment_l2
     from sgvamp_torch.data import harmonize as hz
@@ -258,9 +284,10 @@ def main(argv: Optional[List[str]] = None) -> int:
     from sgvamp_torch.io.checkpoint import CheckpointManager
     from sgvamp_torch.io.writers import OutputWriter, write_bin
     from sgvamp_torch.ops.band_kernel import SymBandedLD
+    from sgvamp_torch.parallel import multihost
     from sgvamp_torch.utils.profiling import PhaseTimers
 
-    device = torch.device("cpu") if args.platform == "cpu" else default_device()
+    owns_output = multihost.process_index() == 0
     if args.compile_cache_dir:
         log.info("--compile-cache-dir has no effect: PyTorch compiles nothing\n")
     want_x64 = (device.type == "cpu") if args.x64 is None else bool(int(args.x64))
@@ -326,9 +353,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     Nt = float(sum(N_list))
     a = np.asarray(N_list, dtype=np.float64) / Nt
 
-    # -- device mesh: one process drives every cell of it --
+    # -- device mesh --
     mesh = None
-    if args.mesh_cohort > 1 or args.mesh_shard:
+    own = slice(0, K)   # the cohorts whose operator this process holds
+    if multi:
+        # the cohort axis across the processes, --mesh-shard over each
+        # process's own devices (its cards round-robin; the CPU under
+        # --platform cpu)
+        P = multihost.process_count()
+        rows = max((args.mesh_cohort if args.mesh_cohort > 1 else P) // P, 1)
+        local = ([device] if device.type == "cpu" else
+                 [torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+        n_local = rows * (args.mesh_shard or max(len(local) // rows, 1))
+        mesh = multihost.make_multihost_mesh(
+            args.mesh_cohort if args.mesh_cohort > 1 else None,
+            devices=[local[i % len(local)] for i in range(n_local)])
+        own = multihost.own_cohorts(K)
+        log.info(f"Running on multi-host mesh {mesh.shape} over {P} processes")
+    elif args.mesh_cohort > 1 or args.mesh_shard:
         from sgvamp_torch.parallel.sharding import make_mesh
         # the cards taken round-robin; under --platform cpu every cell is the
         # CPU. Without --mesh-shard the shard axis takes the devices the
@@ -349,7 +391,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         out_bim = os.path.join(args.out_dir, args.out_name + ".bim") if args.out_dir else None
         if out_bim:
             os.makedirs(args.out_dir, exist_ok=True)
-        panel = hz.harmonize(bim_paths, N_list, out_bim)
+        panel = hz.harmonize(bim_paths, N_list, out_bim if owns_output else None)
     else:
         if len(set(M_list)) != 1:
             raise SystemExit("Without --bim-files all cohorts must share the same M")
@@ -418,17 +460,17 @@ def main(argv: Optional[List[str]] = None) -> int:
             log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
         ctor = SymBandedLD.from_band if args.operator == "sym" else BandedLD.from_band
         pack_cache = {}
-        for k in range(K):
+        for k in range(own.start, own.stop):
             if pack_keys[k] not in pack_cache:
                 pack_cache[pack_keys[k]] = ctor(_pad_band(band_views[k], bw), block_size=B,
                                                 s=s, dtype=ld_dtype, device=device)
         del band_views
-        ops = [pack_cache[key] for key in pack_keys]
+        ops = [pack_cache[key] for key in pack_keys[own]]
         del pack_cache
         if args.operator == "sym":
             op = cat_sym(ops)
         else:
-            op = ops[0] if K == 1 else BandedLD(
+            op = ops[0] if len(ops) == 1 else BandedLD(
                 blocks=torch.cat([o.blocks for o in ops], dim=0), s=s,
                 accum_dtype=ops[0].accum_dtype)
         del ops
@@ -444,7 +486,16 @@ def main(argv: Optional[List[str]] = None) -> int:
             # sparse-level fill: never materializes K M x M dense matrices
             Rs, rs = loaders.fill_missing_csr(Rs, rs, panel)
         rs = np.stack(rs)
-        if args.operator == "sym":
+        if args.operator == "blocksparse":
+            # built from the CSRs directly: every entry of any sparsity
+            # pattern is kept, without materializing M x M
+            op = BlockSparseLD.from_csr([loaders.as_csr(R, M) for R in Rs], block_size=B,
+                                        s=s, dtype=ld_dtype, M=M, device=device, cohorts=own)
+            Mp = op.M
+            pad = Mp - M
+            log.info(f"Block-sparse LD: {op.nnzb} of {op.nb * op.nb} "
+                     f"({op.B}x{op.B}) blocks stored")
+        elif args.operator == "sym":
             # dense .npy (or mixed) inputs go through CSR, one per cohort: the
             # dense stack is never needed on this path
             bands, dropped = [], 0
@@ -457,12 +508,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                 log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
             op = cat_sym([SymBandedLD.from_band(_pad_band(b, bw), block_size=B, s=s,
                                                 dtype=ld_dtype, device=device)
-                          for b in bands])
+                          for b in bands[own]])
             del bands
             Mp = op.M
             pad = Mp - M
         elif args.operator == "banded":
-            dense = loaders.to_dense_stack(Rs, M)
+            dense = loaders.to_dense_stack(Rs[own], M)
             bw = args.bandwidth
             if bw is None:
                 bw = max(loaders.estimate_bandwidth(R) for R in Rs)
@@ -476,7 +527,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                      dtype=ld_dtype, device=device)
             Mp = dense.shape[-1]
         else:
-            dense = loaders.to_dense_stack(Rs, M)
+            dense = loaders.to_dense_stack(Rs[own], M)
             op = DenseLD(mats=torch.as_tensor(dense).to(device=device, dtype=_DTYPES[ld_dtype]),
                          s=s)
             pad, Mp = 0, M
@@ -536,7 +587,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                 log.info(f"Resumed from checkpoint at iteration {start_it}")
 
     writer = None
-    if args.out_dir:
+    if args.out_dir and owns_output:
         writer = OutputWriter(args.out_dir, args.out_name, K, append=start_it > 0)
 
     log.info("...Running sgVAMP\n")

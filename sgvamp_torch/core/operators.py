@@ -1,10 +1,11 @@
-"""Dense and block-banded LD operators (PyTorch port of
-sgvamp_tpu/core/operators.py::DenseLD and ::BandedLD).
+"""Dense, block-banded and block-sparse LD operators (PyTorch port of
+sgvamp_tpu/core/operators.py::DenseLD, ::BandedLD and ::BlockSparseLD).
 
 Every operator has the batched matvec contract x (S*K, M) -> (S*K, M):
 row s*K + k is multiplied by cohort k's matrix, so one pass over the
 matrix serves S right-hand sides. The (1-s) R + s I regularization is
-folded into the matvec. Both matvecs here are one torch.einsum, as the JAX
+folded into the matvec. The matvecs here are plain torch (an einsum; for
+BlockSparseLD a gather, a batched product and a fixed-order sum), as the JAX
 package leaves them to XLA outside any Pallas kernel. The banded operator
 that the main path runs is ops/band_kernel.py::SymBandedLD, which stores
 half of BandedLD's blocks.
@@ -12,7 +13,9 @@ half of BandedLD's blocks.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -251,3 +254,221 @@ class BandedLD:
                     out[:, i, d] = mats[:, i * B:(i + 1) * B, j * B:(j + 1) * B]
         return BandedLD(blocks=_to_torch(out, name, device), s=s,
                         accum_dtype="" if name == "float64" else "float32")
+
+
+@contextlib.contextmanager
+def _ieee_float32(t: Tensor):
+    """Products of float32 CUDA tensors like t in IEEE float32: where the
+    caller let cuBLAS take them in TF32 (torch.backends.cuda.matmul
+    .fp32_precision "tf32", which the legacy switches set too), TF32 is off
+    while the block products are taken and on again after; otherwise
+    nothing is written."""
+    m = torch.backends.cuda.matmul
+    loose = t.is_cuda and t.dtype == torch.float32 and m.fp32_precision == "tf32"
+    if loose:
+        m.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        if loose:
+            m.fp32_precision = "tf32"
+
+
+def _row_buckets(rows: Tensor, nb: int) -> tuple:
+    """The block rows grouped by their slot count d: a (row ids (n,),
+    slots (n, d)) pair for each d, each row's slots in ascending order. A
+    row with no slot is in no bucket (its y is zero). The tables hold each
+    slot once: a row with many slots does not widen the others."""
+    r = rows.long()
+    order = torch.sort(r, stable=True).indices
+    counts = torch.bincount(r, minlength=nb)
+    start = torch.cumsum(counts, 0) - counts
+    buckets = []
+    for d in torch.unique(counts).tolist():
+        if d:
+            ids = torch.nonzero(counts == d).flatten()
+            j = torch.arange(d, device=rows.device)
+            buckets.append((ids, order[start[ids, None] + j[None, :]]))
+    return tuple(buckets)
+
+
+def _key_runs(keys: np.ndarray) -> tuple:
+    """(the key of each run, its length) for the runs of equal consecutive
+    keys. A CSR row's entries in one tile are one run, so a panel of a few
+    tiles a row has a few runs a row, not one an entry."""
+    new = np.ones(keys.size, dtype=bool)
+    np.not_equal(keys[1:], keys[:-1], out=new[1:])
+    starts = np.flatnonzero(new)
+    return keys[starts], np.diff(starts, append=keys.size)
+
+
+# tiles of bfloat16 blocks widened to float32 at a time where the product
+# of bf16 operands summed in f32 is not at hand (the CPU): bounds the
+# widened copy to this many (B, B) f32 tiles
+_WIDEN_TILES = 1024
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockSparseLD:
+    """Block-sparse LD operator: (B, B) tiles at arbitrary block coordinates.
+
+    It keeps every entry of any sparsity pattern, long-range LD far off the
+    band included, storing only the tiles that hold a nonzero:
+
+      blocks: (K, nnzb, B, B) tiles, over the union of the K cohorts'
+              patterns (a cohort lacking a tile holds zeros there);
+      rows, cols: (nnzb,) int32 block row and block column of each tile;
+      nb: block rows; s: the regularization weight; accum_dtype ("" |
+              "float32" | "float64"): the type the products are summed in
+              when it is wider than the blocks' (float32 for bfloat16).
+
+    matvec gathers the x blocks by `cols` (x rounded to the blocks' dtype,
+    as in the JAX package) and takes every tile's product in one batched
+    product, summed in accum_dtype (bf16 tiles on CUDA without a widened
+    copy, as JAX's preferred_element_type). Each block row's products are
+    then added through the table of the rows with its slot count, in one
+    fixed order. No atomics: the same bits on every run, on the CPU and on
+    CUDA alike.
+    """
+
+    blocks: Tensor
+    rows: Tensor
+    cols: Tensor
+    nb: int
+    s: float = 0.0
+    accum_dtype: str = ""
+
+    def __post_init__(self) -> None:
+        if self.accum_dtype not in _ACCUM:
+            raise ValueError(f"accum_dtype must be one of {sorted(_ACCUM)}, "
+                             f"got {self.accum_dtype!r}")
+        object.__setattr__(self, "_buckets", _row_buckets(self.rows, self.nb))
+        # the diagonal blocks' slots, found once (nonzero reads the device,
+        # which a CUDA graph cannot hold)
+        object.__setattr__(self, "_diag",
+                           torch.nonzero(self.rows == self.cols).flatten()[:self.nb])
+
+    @property
+    def K(self) -> int:
+        return self.blocks.shape[0]
+
+    @property
+    def nnzb(self) -> int:
+        return self.blocks.shape[1]
+
+    @property
+    def B(self) -> int:
+        return self.blocks.shape[-1]
+
+    @property
+    def M(self) -> int:
+        return self.nb * self.B
+
+    def bytes_per_pass(self) -> int:
+        """Bytes of LD blocks read by one matvec (roofline accounting)."""
+        return self.blocks.numel() * self.blocks.element_size()
+
+    def diag_blocks(self) -> Tensor:
+        """(K, nb, B, B) f32 regularized diagonal blocks of Rused (for the
+        block-Jacobi preconditioner, core/precond.py): the first nb slots
+        with rows == cols, in slot order, as the JAX package takes them.
+        from_csr stores every diagonal block, in block-row order; the
+        all-zero slots of a shard's padding (rows = cols = 0) come after
+        every real slot and are never taken."""
+        return _regularize_diag(self.blocks.index_select(1, self._diag).float(), self.s)
+
+    def apply(self, xb: Tensor) -> Tensor:
+        """(S, K, nb, B) block rows of R x, without the s term and in the
+        accumulation dtype, from the x blocks (S, K, nb, B)."""
+        S, K, nb, B = xb.shape
+        n = self.nnzb
+        # (K * nnzb, B, S): each tile's x block, its S columns side by side
+        xn = xb.to(self.blocks.dtype).index_select(2, self.cols).permute(1, 2, 3, 0)
+        xn = xn.reshape(K * n, B, S)
+        blocks = self.blocks.reshape(K * n, B, B)
+        acc = _ACCUM[self.accum_dtype]
+        if acc is None or acc == blocks.dtype:
+            with _ieee_float32(blocks):
+                yn = torch.bmm(blocks, xn)
+        elif blocks.is_cuda:
+            # cuBLAS takes the bf16 operands and sums in acc: no copy
+            yn = torch.bmm(blocks, xn, out_dtype=acc)
+        else:
+            # widen (exact) a bounded run of tiles at a time
+            yn = xn.new_empty((K * n, B, S), dtype=acc)
+            for t in range(0, K * n, _WIDEN_TILES):
+                c = slice(t, t + _WIDEN_TILES)
+                yn[c] = torch.bmm(blocks[c].to(acc), xn[c].to(acc))
+        yn = yn.reshape(K, n, B, S)
+        y = yn.new_zeros((K, nb, B, S))
+        for ids, slots in self._buckets:
+            y.index_copy_(1, ids, yn[:, slots].sum(dim=2))
+        return y.permute(3, 0, 1, 2)
+
+    def matvec(self, x: Tensor) -> Tensor:
+        """R @ x rowwise; x stacks S right-hand sides per cohort ((S*K, M)),
+        and one pass over the blocks serves all of them."""
+        S = x.shape[0] // self.K
+        y = self.apply(x.reshape(S, self.K, self.nb, self.B))
+        return _regularize(y.reshape(x.shape).to(x.dtype), x, self.s)
+
+    def to_dense(self) -> Tensor:
+        """Materialize dense (K, M, M) on the CPU - tests only."""
+        B = self.B
+        blocks = self.blocks.cpu()
+        blocks = (blocks.float() if blocks.dtype == torch.bfloat16 else blocks).numpy()
+        out = np.zeros((self.K, self.M, self.M), dtype=blocks.dtype)
+        for n, (i, j) in enumerate(zip(self.rows.tolist(), self.cols.tolist())):
+            out[:, i * B:(i + 1) * B, j * B:(j + 1) * B] = blocks[:, n]
+        eye = np.eye(self.M, dtype=out.dtype)
+        return torch.from_numpy((1.0 - self.s) * out + self.s * eye[None])
+
+    @staticmethod
+    def from_csr(Rs, block_size: int, s: float = 0.0, dtype=None,
+                 M: Optional[int] = None, device=None,
+                 cohorts: Optional[slice] = None) -> "BlockSparseLD":
+        """Build from K scipy sparse matrices without densifying M x M, as
+        the JAX package builds it (numpy on the host): the block pattern is
+        the union over the cohorts plus every diagonal block, slots in
+        ascending (row, col) order, and the padded markers past M get a
+        unit diagonal (the mask leaves them out of every statistic; this
+        keeps the operator SPD). dtype None: the first matrix's. The
+        tensors go to `device` (None: the default CUDA device). cohorts:
+        fill the blocks of these cohorts only (a process's share of a run
+        over several processes), over the union pattern of all K."""
+        device = resolve_device(device)
+        Rs = [R.tocoo() for R in Rs]
+        if M is None:
+            M = Rs[0].shape[0]
+        B = block_size
+        pad = (-M) % B
+        nb = (M + pad) // B
+
+        # each entry's tile key, as runs of equal keys; the union pattern,
+        # ascending: np.unique over the runs, not over every entry
+        runs = [_key_runs((R.row // B).astype(np.int64) * nb + (R.col // B)) for R in Rs]
+        diag = np.arange(nb, dtype=np.int64) * (nb + 1)
+        uniq = np.unique(np.concatenate([diag] + [run_key for run_key, _ in runs]))
+        rows = (uniq // nb).astype(np.int32)
+        cols = (uniq % nb).astype(np.int32)
+
+        name, out_dtype = _block_dtype(dtype, np.asarray(Rs[0].data).dtype)
+        own = slice(None) if cohorts is None else cohorts
+        Rs, runs = Rs[own], runs[own]
+        K = len(Rs)
+        blocks = np.zeros((K, uniq.shape[0], B, B), out_dtype)
+        for k, (R, (run_key, length)) in enumerate(zip(Rs, runs)):
+            slot = np.repeat(np.searchsorted(uniq, run_key), length)
+            # one flat index an entry: (slot, row in block, column in block)
+            flat = (slot * B + R.row % B) * B + R.col % B
+            del slot
+            blocks[k].reshape(-1)[flat] = R.data
+            del flat
+        if pad:
+            dslot = np.searchsorted(uniq, diag)
+            idx = np.arange(M, M + pad)
+            blocks[:, dslot[idx // B], idx % B, idx % B] = 1.0
+        return BlockSparseLD(
+            blocks=_to_torch(blocks, name, device),
+            rows=torch.from_numpy(rows).to(device), cols=torch.from_numpy(cols).to(device),
+            nb=nb, s=s, accum_dtype="" if name == "float64" else "float32")

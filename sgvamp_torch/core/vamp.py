@@ -8,6 +8,17 @@ LMMSE right-hand sides and the Hutchinson probes share A = gamw R + gam2 I,
 so each LD pass serves both), and one 2K-lane LD pass for the noise
 precision.
 
+Under several processes (a mesh from parallel/multihost.py) each process
+runs the LMMSE half of the step for its own cohorts only: it holds their
+operator, their CG lanes and their (K, M) LMMSE fields (xhat2, r2,
+sigma2_u). The prior update and the denoiser read every cohort's r1 and
+gam1, so the step ends with one exchange across processes (_exchange):
+each process's r1 and gam1, and the per-cohort scalars that the logs and
+writers read, all-gathered in one collective. The rest of the state is
+whole on every process, and the prior update, the denoiser and the stop
+criteria then compute the same values on every process from the same
+gathered values - which is how the processes agree on a stop.
+
 Two ways to run it, as in the JAX package. VampEngine.run is the host loop:
 vamp_step dispatched eagerly, its observables read back and written out
 after every step. run_scan / run_scan_stoppable are the fused run (JAX's
@@ -64,6 +75,11 @@ class VampInputs:
         eigenvalues (K, M/P, P) of the diagonal sub-blocks of Rused. When
         present, each step rebuilds the preconditioner with two batched
         matmuls instead of a batched inversion.
+    cohorts: None when this process runs all K cohorts; in a run over
+        several processes (VampEngine under a multihost mesh sets it) the
+        cohorts (lo, hi) of this process, whose operator and
+        preconditioner alone it holds (op.K = hi - lo); r, a, N and mask
+        stay whole.
     """
 
     op: Any
@@ -73,6 +89,7 @@ class VampInputs:
     mask: Optional[Tensor] = None
     precond_q: Optional[Tensor] = None
     precond_lam: Optional[Tensor] = None
+    cohorts: Optional[Tuple[int, int]] = None
 
     @property
     def M_active(self):
@@ -91,6 +108,8 @@ class VampState:
     amount whatever M is, so a state shares it with the states that follow
     it and a run over padded markers draws the probes of the unpadded run
     (on the CPU, where a draw's first values do not depend on its length).
+    Under several processes xhat2, r2 and sigma2_u hold this process's
+    cohorts only (LOCAL_FIELDS); every other field is whole.
     """
 
     it: int
@@ -261,13 +280,27 @@ def stop_state_update(mon: StopState, it, xhat1: Tensor, gam1: Tensor,
     )
 
 
+# the state's fields that hold this process's cohorts only in a run over
+# several processes
+LOCAL_FIELDS = ("xhat2", "r2", "sigma2_u")
+
+
+def _own(inputs: VampInputs) -> slice:
+    """The cohorts this process runs: all K, or its share under several
+    processes."""
+    if inputs.cohorts is None:
+        return slice(0, inputs.r.shape[0])
+    return slice(*inputs.cohorts)
+
+
 def init_state(inputs: VampInputs, cfg: VampConfig, prior: PriorState,
                gamw: float, gam1: float, seed: int = 0) -> VampState:
     """Initial state, on the device of inputs.r."""
     dtype = cfg.torch_dtype
     dev = inputs.r.device
     K, M = inputs.r.shape
-    z = torch.zeros((K, M), dtype=dtype, device=dev)
+    own = _own(inputs)
+    z = torch.zeros((own.stop - own.start, M), dtype=dtype, device=dev)
     return VampState(
         it=0,
         xhat1=torch.zeros(M, dtype=dtype, device=dev),
@@ -299,8 +332,12 @@ def draw_probe(gen: torch.Generator, K: int, M: int, device, dtype) -> Tensor:
     `device` from that seed."""
     step_seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen))
     g = torch.Generator(device=device).manual_seed(step_seed)
-    # drawn marker-major, so that padding M only appends to each row
-    return torch.randint(0, 2, (M, K), generator=g, device=device).T.to(dtype) * 2 - 1
+    # drawn marker-major, so that padding M only appends to each row; laid
+    # out row-major, as a row of fixed_u is, so that rowdot sums a row in
+    # the same order whatever the number of rows (a process of a run over
+    # several holds some of the rows)
+    return (torch.randint(0, 2, (M, K), generator=g, device=device).T.to(dtype) * 2
+            - 1).contiguous()
 
 
 class _Mid(NamedTuple):
@@ -340,8 +377,9 @@ def _before_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, u: Tensor,
     error): the denoiser, the LMMSE set-up and the preconditioner. Returns
     CG's right-hand sides and warm start beside.
     rho and rhoc = 1 - rho are floats, or () tensors that the fused run
-    fills before each replay; `first` is it == 0."""
-    K, M = state.r1.shape
+    fills before each replay; `first` is it == 0. u is this process's rows
+    of the probe."""
+    own = _own(inputs)
     dtype = cfg.torch_dtype
     r1s, gam1s = state.r1, state.gam1
     mask = inputs.mask
@@ -367,13 +405,14 @@ def _before_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, u: Tensor,
     if cfg.clip_alpha1:
         alpha1 = torch.clamp(alpha1, 1e-5, 1 - 1e-5)
 
-    # ---- LMMSE ----
+    # ---- LMMSE (this process's cohorts) ----
     gam2 = gam1s * (1 - alpha1) / alpha1
     if cfg.gam_clamp > 0:
         gam2 = torch.clamp(gam2, 1.0 / cfg.gam_clamp, cfg.gam_clamp)
-    r2 = (xhat1[None, :] - alpha1[:, None] * r1s) / (1 - alpha1)[:, None]
-    gamw = state.gamw
-    mu2 = gamw[:, None] * inputs.r + gam2[:, None] * r2
+    a1, g2 = alpha1[own], gam2[own]
+    r2 = (xhat1[None, :] - a1[:, None] * r1s[own]) / (1 - a1)[:, None]
+    gamw = state.gamw[own]
+    mu2 = gamw[:, None] * inputs.r[own] + g2[:, None] * r2
 
     u = u.to(dtype)
     if mask is not None:
@@ -389,10 +428,10 @@ def _before_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, u: Tensor,
         # inverted here.
         if inputs.precond_q is not None:
             pinv = block_jacobi_from_eig(
-                inputs.precond_q, inputs.precond_lam, gamw, gam2,
+                inputs.precond_q, inputs.precond_lam, gamw, g2,
                 dtype=cfg.precond_torch_dtype)
         else:
-            pinv = block_jacobi_inverse(inputs.op, gamw, gam2,
+            pinv = block_jacobi_inverse(inputs.op, gamw, g2,
                                         cfg.cg_precond_block,
                                         dtype=cfg.precond_torch_dtype)
         # the values keep their storage rounding; the cast to the apply's
@@ -401,7 +440,7 @@ def _before_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, u: Tensor,
 
     mid = _Mid(prior=prior, em_sweeps=em_sweeps, em_rel_err=em_rel_err,
                xhat1=xhat1, alpha1=alpha1, gam2=gam2, r2=r2, u=u,
-               gamw2=torch.cat([gamw, gamw]), gam22=torch.cat([gam2, gam2]), pinv=pinv)
+               gamw2=torch.cat([gamw, gamw]), gam22=torch.cat([g2, g2]), pinv=pinv)
     return (mid, torch.cat([mu2, u], dim=0),
             torch.cat([state.xhat2, state.sigma2_u], dim=0))
 
@@ -410,22 +449,24 @@ def _after_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, mid: _Mid,
               cg: CGResult, rho, rhoc) -> Tuple[Dict[str, Tensor], PriorState, StepAux]:
     """The step after CG: damping, Hutchinson, the precision recursions and
     the gamw pass. Returns the new state's vectors by field name, its prior
-    and the step's aux."""
-    K = state.r1.shape[0]
+    and the step's aux. Under several processes the fields and aux entries
+    that _exchange gathers hold this process's cohorts only."""
+    own = _own(inputs)
+    K = own.stop - own.start
     M_active = inputs.M_active
     xhat2, sigma2_u = cg.x[:K], cg.x[K:]
     if cfg.lmmse_damp:
         xhat2 = rho * xhat2 + rhoc * state.xhat2
 
     # ---- Hutchinson / Onsager-2 ----
-    alpha2 = mid.gam2 * rowdot(mid.u, sigma2_u) / M_active
+    gam2 = mid.gam2[own]
+    alpha2 = gam2 * rowdot(mid.u, sigma2_u) / M_active
     if cfg.lmmse_damp:
-        alpha2 = rho * alpha2 + rhoc * state.alpha2
+        alpha2 = rho * alpha2 + rhoc * state.alpha2[own]
     if cfg.clip_alpha2:
         alpha2 = torch.clamp(alpha2, 1e-5, 1 - 1e-5)
 
     # ---- Precision recursions ----
-    gam2 = mid.gam2
     gam1_new = gam2 * (1 - alpha2) / alpha2
     if cfg.gam_clamp > 0:
         gam1_new = torch.clamp(gam1_new, 1.0 / cfg.gam_clamp, cfg.gam_clamp)
@@ -435,21 +476,22 @@ def _after_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, mid: _Mid,
     if cfg.learn_gamw:
         # One 2K-lane pass gives R @ xhat2 and R @ Sigma2_u together.
         Rboth = inputs.op.matvec(torch.cat([xhat2, sigma2_u], dim=0))
-        z = (inputs.N - 2.0 * rowdot(xhat2, inputs.r)
+        N = inputs.N[own]
+        z = (N - 2.0 * rowdot(xhat2, inputs.r[own])
              + rowdot(xhat2, Rboth[:K]))
         z = torch.clamp(z, min=0.0)
-        gamw_raw = 1.0 / (z / inputs.N + rowdot(mid.u, Rboth[K:]) / inputs.N)
+        gamw_raw = 1.0 / (z / N + rowdot(mid.u, Rboth[K:]) / N)
     else:
-        gamw_raw = state.gamw
+        gamw_raw = state.gamw[own]
     gamw_new = torch.clamp(gamw_raw, min=1.0)
 
     prior = mid.prior
     fields = dict(xhat1=mid.xhat1, alpha1=mid.alpha1, r1=r1_new, gam1=gam1_new,
-                  xhat2=xhat2, r2=mid.r2, alpha2=alpha2, gam2=gam2, gamw=gamw_new,
+                  xhat2=xhat2, r2=mid.r2, alpha2=alpha2, gam2=mid.gam2, gamw=gamw_new,
                   sigma2_u=sigma2_u)
     aux = StepAux(
         xhat1=mid.xhat1, r1_in=state.r1, gamw_raw=gamw_raw, gamw=gamw_new,
-        gam1=gam1_new, gam2=gam2, alpha1=mid.alpha1, alpha2=alpha2,
+        gam1=gam1_new, gam2=mid.gam2, alpha1=mid.alpha1, alpha2=alpha2,
         lam=prior.lam,
         cg1_iters=cg.iters[:K], cg1_converged=cg.converged[:K],
         cg2_iters=cg.iters[K:], cg2_converged=cg.converged[K:],
@@ -457,6 +499,53 @@ def _after_cg(state: VampState, inputs: VampInputs, cfg: VampConfig, mid: _Mid,
         mle_ok=prior.mle_last_ok, cg_passes=cg.passes,
     )
     return fields, prior, aux
+
+
+# what the exchange gathers: state fields, then StepAux fields (the aux's
+# gam1, alpha2 and gamw are the state's), largest elements first
+_GATHERED = ("r1", "gam1", "alpha2", "gamw")
+_GATHERED_AUX = ("gamw_raw", "cg1_iters", "cg2_iters", "cg1_converged", "cg2_converged")
+
+
+def _sent(fields: Dict[str, Tensor], aux: StepAux) -> list:
+    return [fields[f] for f in _GATHERED] + [getattr(aux, f) for f in _GATHERED_AUX]
+
+
+def _pack(tensors) -> Tensor:
+    """The tensors' bytes in one flat uint8 tensor (one collective moves
+    them all, whatever their dtypes)."""
+    return torch.cat([t.contiguous().view(torch.uint8).reshape(-1) for t in tensors])
+
+
+def _unpack(parts, like) -> list:
+    """Each process's _pack of tensors shaped as `like`, in rank order, as
+    whole tensors: the processes' rows stacked along the leading axis."""
+    out, off = [], 0
+    for t in like:
+        n = t.numel() * t.element_size()
+        out.append(torch.cat([p[off:off + n].clone().view(t.dtype).reshape(t.shape)
+                              for p in parts], dim=0))
+        off += n
+    return out
+
+
+def _merged(fields: Dict[str, Tensor], aux: StepAux, whole: list):
+    """fields and aux with the exchanged entries whole."""
+    got = dict(zip(_GATHERED + _GATHERED_AUX, whole))
+    fields = dict(fields, **{f: got[f] for f in _GATHERED})
+    aux = aux._replace(gam1=got["gam1"], alpha2=got["alpha2"], gamw=got["gamw"],
+                       **{f: got[f] for f in _GATHERED_AUX})
+    return fields, aux
+
+
+def _exchange(fields: Dict[str, Tensor], aux: StepAux):
+    """The step's one exchange across processes: every process's r1, gam1,
+    alpha2 and gamw (and gamw_raw and the CG counts, for the logs and
+    writers), all-gathered in one collective and made whole."""
+    from sgvamp_torch.parallel.multihost import all_gather
+
+    sent = _sent(fields, aux)
+    return _merged(fields, aux, _unpack(all_gather(_pack(sent)), sent))
 
 
 def _prior_update(cfg: VampConfig, it: int) -> Optional[str]:
@@ -474,9 +563,11 @@ def vamp_step(
 
     `u` optionally injects the (K, M) Rademacher probe for the Hutchinson
     estimator (so that two engines can be compared step for step); when
-    None, the probe is drawn from state.gen. The device is read once per
-    chunk of the EM loop, of the MLE solve and of CG (CG: none under
-    cg_force_maxiter).
+    None, the probe is drawn from state.gen. Under several processes every
+    process draws (or is given) the whole probe and keeps its own rows, so
+    that the run draws the probes of a run of one process, and the step
+    ends with the exchange. The device is read once per chunk of the EM
+    loop, of the MLE solve and of CG (CG: none under cg_force_maxiter).
     """
     K, M = state.r1.shape
     it = state.it
@@ -494,18 +585,21 @@ def vamp_step(
                            mask=inputs.mask)
     if u is None:
         u = draw_probe(state.gen, K, M, state.r1.device, cfg.torch_dtype)
-    mid, b, x0 = _before_cg(state, inputs, cfg, u, rho, 1 - rho, it == 0, prior, em_stats)
+    mid, b, x0 = _before_cg(state, inputs, cfg, u[_own(inputs)], rho, 1 - rho, it == 0,
+                            prior, em_stats)
     cg = cg_batched(_amatvec(inputs, mid), b, x0, cfg.cg_maxit, cfg.cg_rtol, cfg.cg_atol,
                     cfg.cg_force_maxiter, precond=_precond(mid))
     fields, prior, aux = _after_cg(state, inputs, cfg, mid, cg, rho, 1 - rho)
+    if inputs.cohorts is not None:
+        fields, aux = _exchange(fields, aux)
     return VampState(it=it + 1, prior=prior, gen=state.gen, **fields), aux
 
 
-def _host(aux) -> Dict[str, Any]:
+def _host(aux, skip=()) -> Dict[str, Any]:
     """A StepAux's fields (tensors or numpy arrays) as numpy values (one
-    device sync)."""
+    device sync), but those named in `skip`."""
     return {name: (v.detach().cpu().numpy() if isinstance(v, Tensor) else np.asarray(v))
-            for name, v in aux._asdict().items()}
+            for name, v in aux._asdict().items() if name not in skip}
 
 
 def _assign(dst, src) -> None:
@@ -566,6 +660,12 @@ class _FusedStep:
     set captured at its first use. What changes from step to step is
     filled in before the replays: the probe u (drawn as vamp_step draws it, outside any graph),
     the iteration index and, when rho is annealed, rho.
+
+    Under several processes the part after CG packs what the exchange
+    gathers instead of writing it, the exchange runs eagerly between the
+    replays (no graph holds a collective), and one more piece, "merge",
+    unpacks the gathered values into S and the aux and then updates the
+    stop monitor.
     """
 
     def __init__(self, cfg: VampConfig, inputs: VampInputs, mesh, state: VampState) -> None:
@@ -579,12 +679,11 @@ class _FusedStep:
         self.graphs = dev.type == "cuda"
         K, M = state.r1.shape
         dtype = cfg.torch_dtype
+        self.own = _own(inputs)
         self.S = _clone_state(state, 0, None)
-        # the probe's buffer in the layout of its source, since the layout
-        # decides the order of rowdot's sums: draw_probe's (a transposed
-        # (M, K) draw) and a contiguous row of fixed_u
-        self.u = {True: torch.zeros((M, K), dtype=dtype, device=dev).T,
-                  False: torch.zeros((K, M), dtype=dtype, device=dev)}
+        # the probe's buffer (this process's rows), row-major as draw_probe
+        # and fixed_u give it: the layout decides the order of rowdot's sums
+        self.u = torch.zeros((K, M), dtype=dtype, device=dev)[self.own]
         self.it = torch.zeros((), dtype=torch.int32, device=dev)
         self.rho = None
         if cfg.rho_final is not None and cfg.rho_anneal_iters > 0:
@@ -677,22 +776,22 @@ class _FusedStep:
         self.rho[1].fill_(1 - rho)
         return self.rho
 
-    def step(self, it: int, u: Tensor, drawn: bool,
-             stop: Optional[Tuple[float, float]]) -> StepAux:
-        """Iteration `it` from S into S with the probe u (drawn: from
-        draw_probe, else a row of fixed_u); stop: the thresholds (tol,
-        gam1_drop) of stop_state_update on the monitor, None for none.
+    def step(self, it: int, u: Tensor, stop: Optional[Tuple[float, float]]) -> StepAux:
+        """Iteration `it` from S into S with the probe u (from draw_probe, or
+        a row of fixed_u); stop: the thresholds (tol, gam1_drop) of
+        stop_state_update on the monitor, None for none.
         Returns the step's aux (static tensors, valid until the next
         step)."""
         cfg, inputs, S = self.cfg, self.inputs, self.S
         maxit = cfg.cg_maxit
         update = _prior_update(cfg, it)
-        key = (it > 0, update, stop, drawn)
+        key = (it > 0, update, stop)
         P = self.sets.setdefault(key, {})
         self.it.fill_(it)
-        probe = self.u[drawn]
-        probe.copy_(u)
+        probe = self.u
+        probe.copy_(u[self.own])
         rho, rhoc = self._rho(it)
+        divided = inputs.cohorts is not None
 
         def em_begin():
             P["em"] = _distinct(em_init(S.prior.lam.clone(), S.prior.omegas.clone()))
@@ -744,7 +843,13 @@ class _FusedStep:
             static = {t.data_ptr() for t in _state_tensors(S)}
             aux = aux._replace(**{f: v.clone() for f, v in aux._asdict().items()
                                   if v.data_ptr() in static})
-            if stop is not None:
+            if divided:
+                # what the exchange gathers waits in P["send"]; S keeps
+                # this step's input values of those fields until "merge"
+                P["sent"] = _sent(fields, aux)
+                P["send"] = _pack(P["sent"])
+                fields = {f: v for f, v in fields.items() if f not in _GATHERED}
+            elif stop is not None:
                 _assign(self.mon, stop_state_update(self.mon, self.it, aux.xhat1, aux.gam1,
                                                     *stop))
             for f, v in fields.items():
@@ -752,6 +857,24 @@ class _FusedStep:
             for f in dataclasses.fields(prior):
                 getattr(S.prior, f.name).copy_(getattr(prior, f.name))
             P["aux"] = aux
+
+        def merge():
+            fields, aux = _merged({}, P["aux"], _unpack(P["recv"], P["sent"]))
+            if stop is not None:
+                _assign(self.mon, stop_state_update(self.mon, self.it, aux.xhat1, aux.gam1,
+                                                    *stop))
+            for f in _GATHERED:
+                getattr(S, f).copy_(fields[f])
+            P["merged"] = aux
+
+        def exchange():
+            from sgvamp_torch.parallel.multihost import all_gather
+
+            parts = all_gather(P["send"])
+            if "recv" not in P:
+                P["recv"] = torch.stack(parts)
+            else:
+                _assign(P["recv"], parts)
 
         def persistent():
             return _state_tensors(S) + list(self.mon)
@@ -785,7 +908,11 @@ class _FusedStep:
                 self._run(key, "cg_chunk", cg_iterations, lambda: [*P["cg"], P["live"]])
                 chunks += 1
             self._run(key, "after_cg", lambda: after(P["cg"]), persistent)
-        return P["aux"]
+        if not divided:
+            return P["aux"]
+        exchange()
+        self._run(key, "merge", merge, persistent)
+        return P["merged"]
 
 
 class VampEngine:
@@ -795,7 +922,27 @@ class VampEngine:
     def __init__(self, inputs: VampInputs, cfg: VampConfig, prior: PriorState,
                  gamw: float = 5.0, gam1: float = 1e-6, mesh=None) -> None:
         """mesh: a parallel.sharding.Mesh to cut the LD operator over (None:
-        one device)."""
+        one device). A mesh from parallel/multihost.py::make_multihost_mesh
+        divides the cohorts over the processes: this process keeps its own
+        cohorts' operator (inputs.op may hold all K cohorts, which are then
+        cut here, or this process's alone) and cuts it over its own rows of
+        the mesh; r, a, N and mask stay whole."""
+        if mesh is not None and mesh.processes is not None:
+            from sgvamp_torch.parallel.multihost import own_cohorts
+            from sgvamp_torch.parallel.sharding import cohort_slice
+
+            K = inputs.r.shape[0]
+            own = own_cohorts(K, mesh.processes, mesh.rank)
+            op, q, lam = inputs.op, inputs.precond_q, inputs.precond_lam
+            if op.K == K:
+                op = cohort_slice(op, own.start, own.stop)
+                q, lam = (None if t is None else t[own] for t in (q, lam))
+            elif op.K != own.stop - own.start:
+                raise ValueError(f"the operator holds {op.K} cohorts: neither all {K} nor "
+                                 f"this process's {own.stop - own.start}")
+            inputs = dataclasses.replace(inputs, op=op, precond_q=q, precond_lam=lam,
+                                         cohorts=(own.start, own.stop))
+        self.cells = None if mesh is None else mesh.local()
         if (cfg.cg_precond_block and cfg.cg_precond_eig
                 and inputs.precond_q is None):
             # one-time factorization of the diagonal sub-blocks; every step
@@ -806,7 +953,7 @@ class VampEngine:
             inputs = dataclasses.replace(inputs, precond_q=Q, precond_lam=lam)
         if mesh is not None:
             from sgvamp_torch.parallel.sharding import shard_inputs
-            inputs = shard_inputs(inputs, mesh)
+            inputs = shard_inputs(inputs, self.cells)
         self.inputs = inputs
         self.cfg = cfg
         self.prior = prior
@@ -820,8 +967,35 @@ class VampEngine:
                            self.gam10, seed)
         if self.mesh is not None:
             from sgvamp_torch.parallel.sharding import shard_state
-            state = shard_state(state, self.mesh)
+            state = shard_state(state, self.cells)
         return state
+
+    def _fetch_full(self, writer, fetch_aux_full: Optional[bool]) -> bool:
+        """Whether each step's r1_in is read to the host (only a writer reads
+        it). Under several processes the processes agree once, up front, in
+        one all-gather of (holds a writer, explicit value): by default a
+        writer on any process (the command line's process 0) opts every
+        process in; explicit values that differ raise on every process,
+        where an unagreed run would part ways."""
+        code = -1 if fetch_aux_full is None else int(bool(fetch_aux_full))
+        if self.inputs.cohorts is None:
+            writers, explicit = [writer is not None], [code]
+        else:
+            from sgvamp_torch.parallel.multihost import all_gather
+
+            flags = torch.stack(all_gather(
+                torch.tensor([int(writer is not None), code], dtype=torch.int32)))
+            writers, explicit = flags[:, 0].tolist(), flags[:, 1].tolist()
+        vals = {v for v in explicit if v >= 0}
+        if len(vals) > 1:
+            raise ValueError(
+                f"fetch_aux_full disagrees across processes (per-process values "
+                f"{explicit}; -1 = unset): every process must pass the same value")
+        fetch_full = bool(vals.pop()) if vals else any(writers)
+        if any(writers) and not fetch_full:
+            raise ValueError("fetch_aux_full=False is incompatible with a writer "
+                             "(it needs the r1_in aux leaf)")
+        return fetch_full
 
     def run(
         self,
@@ -838,6 +1012,7 @@ class VampEngine:
         abort_on_nonfinite: bool = True,
         stop_tol: float = 0.0,
         stop_gam1_drop: float = 0.0,
+        fetch_aux_full: Optional[bool] = None,
     ) -> Dict[str, Any]:
         """Run `iterations` VAMP steps with per-iteration host I/O.
 
@@ -846,10 +1021,15 @@ class VampEngine:
         is the true signal for the metrics; Nt scales the written xhat and
         r1 by 1/sqrt(Nt); M_out trims padded markers from the outputs; it0
         offsets iteration numbers; stop_tol / stop_gam1_drop are the
-        StopMonitor thresholds (0 = off). A non-finite state ends the run
-        (history["aborted_at"]) unless the monitor turns it into a stop.
-        history["best_it"] / ["best_xhat1"] hold the monitor's iterate.
+        StopMonitor thresholds (0 = off); fetch_aux_full: whether r1_in is
+        read to the host each step (None: where a writer needs it, agreed
+        across processes; see _fetch_full). A non-finite state ends the
+        run (history["aborted_at"]) unless the monitor turns it into a
+        stop. history["best_it"] / ["best_xhat1"] hold the monitor's
+        iterate. Under several processes every process runs the same
+        loop, and each decides to stop from the same gathered values.
         """
+        fetch_full = self._fetch_full(writer, fetch_aux_full)
         if state is None:
             state = self.init_state(seed)
         history: Dict[str, Any] = {
@@ -867,7 +1047,7 @@ class VampEngine:
             u = (None if fixed_u is None
                  else torch.as_tensor(np.asarray(fixed_u[rel_it]), device=dev))
             state, aux_t = vamp_step(state, self.inputs, self.cfg, u)
-            aux = _host(aux_t)
+            aux = _host(aux_t, skip=() if fetch_full else ("r1_in",))
             xhat1 = aux["xhat1"][:M_out]
             dt_step = time.perf_counter() - t_step
             # LD passes: the fused CG's iterations (masked ones too) + its
@@ -879,7 +1059,7 @@ class VampEngine:
                     f"[roofline] iteration {it}: {dt_step:.4f}s, "
                     f"{passes} LD passes, achieved "
                     f"{bpp * passes / dt_step / 1e9:.1f} GB/s (incl. dispatch)")
-            r1_in = aux["r1_in"][:, :M_out]
+            r1_in = aux["r1_in"][:, :M_out] if fetch_full else None
             self._log_iteration(it, aux)
             stop_reason = monitor.update(it, xhat1, aux["gam1"])
             if abort_on_nonfinite and not (
@@ -967,7 +1147,7 @@ class VampEngine:
         K, M = state.r1.shape
         dev, dtype = state.r1.device, self.cfg.torch_dtype
         if self.fused is None:
-            self.fused = _FusedStep(self.cfg, self.inputs, self.mesh, state)
+            self.fused = _FusedStep(self.cfg, self.inputs, self.cells, state)
         F = self.fused
         if stop is not None and stop_state is None:
             stop_state = StopState.create(M, dtype, dev)
@@ -988,7 +1168,7 @@ class VampEngine:
         for rel_it in range(iterations if live else 0):
             u = (draw_probe(state.gen, K, M, dev, dtype) if fixed_u is None
                  else torch.as_tensor(np.asarray(fixed_u[rel_it]), device=dev))
-            aux = F.step(it, u, fixed_u is None, stop)
+            aux = F.step(it, u, stop)
             for row, v in zip(rows, aux):
                 row[rel_it].copy_(v)
             it += 1

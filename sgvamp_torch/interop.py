@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from sgvamp_torch import resolve_device
-from sgvamp_torch.core.operators import BandedLD
+from sgvamp_torch.core.operators import BandedLD, BlockSparseLD
 from sgvamp_torch.core.prior import PriorState
 from sgvamp_torch.core.vamp import VampInputs, VampState
 from sgvamp_torch.ops.band_kernel import SymBandedLD
@@ -55,6 +55,18 @@ def banded_from_numpy(blocks: np.ndarray, s: float = 0.0, accum_dtype: str = "",
     dtype=torch.bfloat16), its s and its accum_dtype."""
     return BandedLD(blocks=_t(blocks, device, dtype).contiguous(), s=s,
                     accum_dtype=accum_dtype)
+
+
+def blocksparse_from_numpy(blocks: np.ndarray, rows: np.ndarray, cols: np.ndarray,
+                           nb: int, s: float = 0.0, accum_dtype: str = "",
+                           dtype: Optional[torch.dtype] = None,
+                           device=None) -> BlockSparseLD:
+    """BlockSparseLD from the JAX operator's (K, nnzb, B, B) blocks, rows
+    and cols as numpy arrays (bf16 blocks cross as float32 values with
+    dtype=torch.bfloat16), its nb, s and accum_dtype."""
+    return BlockSparseLD(blocks=_t(blocks, device, dtype).contiguous(),
+                         rows=_t(rows, device, torch.int32), cols=_t(cols, device, torch.int32),
+                         nb=nb, s=s, accum_dtype=accum_dtype)
 
 
 def mesh_like(shape, device=None):

@@ -8,6 +8,13 @@ uninterrupted run drew. Writes are atomic (a tmp file, then a rename), and
 only the newest `keep` files are kept. A structure fingerprint (the port's
 format tag, each field's name, dtype and shape) makes restoring into
 another structure raise, as it does for a checkpoint the JAX package wrote.
+
+Under several processes (parallel/multihost.py) the fields each process
+holds for its own cohorts only are gathered whole on every process before a
+save (a collective: every process calls save), and only process 0 writes.
+A restore reads the same file on every process, each keeping its own
+cohorts' rows. The file is the one a run of one process writes, so a run
+over P processes resumes in a run over one, and the other way round.
 """
 
 from __future__ import annotations
@@ -50,6 +57,24 @@ def _structure(fields: dict) -> str:
         for name, t in fields.items()]})
 
 
+def _divided(state) -> bool:
+    """Whether the state holds this process's cohorts only in its
+    LOCAL_FIELDS (a run over several processes)."""
+    return state.xhat2.shape[0] != state.r1.shape[0]
+
+
+def _whole(state):
+    """The state with every field whole: its LOCAL_FIELDS all-gathered from
+    the processes when it is divided. Every process must call it."""
+    from sgvamp_torch.core.vamp import LOCAL_FIELDS
+    from sgvamp_torch.parallel.multihost import fetch_global
+
+    if not _divided(state):
+        return state
+    return dataclasses.replace(state, **{f: fetch_global(getattr(state, f))
+                                         for f in LOCAL_FIELDS})
+
+
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
     t = t.detach().cpu()
     # numpy has no bfloat16: its bits go as int16
@@ -67,18 +92,28 @@ class CheckpointManager:
 
     def save(self, state, it: int) -> str:
         """Write `state` as the checkpoint of iteration `it` (the number of
-        iterations it has run) and drop all but the newest `keep`."""
+        iterations it has run) and drop all but the newest `keep`. Under
+        several processes every process calls it, process 0 writes, and it
+        returns on every process once the file is written (a restore that
+        follows then finds it on every process)."""
+        import torch.distributed as dist
+
+        from sgvamp_torch.parallel.multihost import process_index
+
         t0 = time.perf_counter()
-        fields = _fields(state)
-        arrays = {name: _to_numpy(t) for name, t in fields.items()}
-        arrays["__structure__"] = np.asarray(_structure(fields))
+        fields = _fields(_whole(state))
         path = self._path(it)
-        tmp = path + ".tmp.npz"
-        np.savez(tmp, **arrays)
-        os.replace(tmp, path)
-        self._gc()
-        logger.debug(f"[checkpoint] {path}: {os.path.getsize(path)} bytes in "
-                     f"{time.perf_counter() - t0:.4f} s")
+        if process_index() == 0:
+            arrays = {name: _to_numpy(t) for name, t in fields.items()}
+            arrays["__structure__"] = np.asarray(_structure(fields))
+            tmp = path + ".tmp.npz"
+            np.savez(tmp, **arrays)
+            os.replace(tmp, path)
+            self._gc()
+            logger.debug(f"[checkpoint] {path}: {os.path.getsize(path)} bytes in "
+                         f"{time.perf_counter() - t0:.4f} s")
+        if dist.is_initialized():
+            dist.barrier()
         return path
 
     def _existing(self):
@@ -98,13 +133,26 @@ class CheckpointManager:
     def restore_latest(self, template) -> Optional[Tuple[object, int]]:
         """Restore the newest checkpoint into the structure of `template`
         (a VampState, e.g. engine.init_state(seed)), onto the devices of its
-        tensors. Returns (state, iteration), or None if there is none.
-        Raises ValueError when the checkpoint holds another structure."""
+        tensors; a template that holds its own cohorts only in its
+        LOCAL_FIELDS gets its own rows of them. Returns (state, iteration),
+        or None if there is none. Raises ValueError when the checkpoint
+        holds another structure."""
+        from sgvamp_torch.core.vamp import LOCAL_FIELDS
+        from sgvamp_torch.parallel.multihost import own_cohorts
+
         existing = self._existing()
         if not existing:
             return None
         it, path = existing[-1]
-        want = _fields(template)
+        own = slice(None)
+        whole = template
+        if _divided(template):
+            K, M = template.r1.shape
+            own = own_cohorts(K)
+            whole = dataclasses.replace(template, **{
+                f: torch.empty((K, M), dtype=getattr(template, f).dtype, device="meta")
+                for f in LOCAL_FIELDS})
+        want = _fields(whole)
         with np.load(path) as data:
             if "__structure__" not in data.files:
                 raise ValueError(
@@ -131,11 +179,11 @@ class CheckpointManager:
                                  "that the current configuration does not have")
             arrays = {name: torch.from_numpy(np.array(data[name])) for name in want}
         values = {}
-        for name, t in want.items():
+        for name, t in _fields(template).items():
             v = arrays[name]
             if t.dtype == torch.bfloat16:
                 v = v.view(torch.bfloat16)
-            values[name] = v.to(t.device)
+            values[name] = (v[own] if name in LOCAL_FIELDS else v).to(t.device)
         gen = None
         if _GEN in values:
             gen = torch.Generator()

@@ -18,6 +18,11 @@ contiguous piece per cell, on that cell's device. The (K, M) vectors, the
 prior and the preconditioner's factors stay whole on the mesh's first
 device, so every reduction of the VAMP step runs there unchanged; a sharded
 matvec sends each cell the slice of x it needs and gathers y.
+
+A mesh made by parallel/multihost.py::make_multihost_mesh spans several
+processes: its cohort axis runs across them, each process drives the cells
+of its own rows (Mesh.local), and VampEngine exchanges what the step needs
+across processes once a step (core/vamp.py).
 """
 
 from __future__ import annotations
@@ -31,8 +36,8 @@ import torch
 from torch import Tensor
 
 from sgvamp_torch import default_device
-from sgvamp_torch.core.operators import (BandedLD, DenseLD, _regularize,
-                                         default_diag_block)
+from sgvamp_torch.core.operators import (BandedLD, BlockSparseLD, DenseLD, _regularize,
+                                         _regularize_diag, default_diag_block)
 from sgvamp_torch.ops.band_kernel import SymBandedLD
 
 COHORT_AXIS = "cohort"
@@ -44,17 +49,41 @@ logger = logging.getLogger("sgvamp")
 class Mesh:
     """A (n_cohort, n_shard) grid of torch.devices with the axis names
     (COHORT_AXIS, SHARD_AXIS). devices: the grid as a numpy object array;
-    shape: {axis name: size}, as a JAX mesh has it."""
+    shape: {axis name: size}, as a JAX mesh has it.
+
+    processes: None when one process drives every cell; else the size of
+    the torch.distributed group whose processes divide the cohort axis,
+    rank-major: process p drives rows p*R .. (p+1)*R - 1, R = n_cohort /
+    processes (each process names the devices of its rows as it sees
+    them), and `rank` is this process's."""
 
     axis_names = (COHORT_AXIS, SHARD_AXIS)
 
-    def __init__(self, devices) -> None:
+    def __init__(self, devices, processes: Optional[int] = None, rank: int = 0) -> None:
         grid = np.empty(np.shape(devices), dtype=object)
         if grid.ndim != 2:
             raise ValueError(f"a mesh is a 2-D grid of devices, got shape {grid.shape}")
         for idx in np.ndindex(grid.shape):
             grid[idx] = torch.device(devices[idx[0]][idx[1]])
+        if processes is not None and grid.shape[0] % processes:
+            raise ValueError(f"a cohort axis of {grid.shape[0]} rows does not divide over "
+                             f"{processes} processes")
         self.devices = grid
+        self.processes = processes
+        self.rank = rank
+
+    def row_process(self, row: int) -> int:
+        """The process that drives the cells of cohort row `row`."""
+        if self.processes is None:
+            return 0
+        return row // (self.devices.shape[0] // self.processes)
+
+    def local(self) -> "Mesh":
+        """The rows this process drives, as a mesh of one process."""
+        if self.processes is None:
+            return self
+        rows = [r for r in range(self.devices.shape[0]) if self.row_process(r) == self.rank]
+        return Mesh(self.devices[rows].tolist())
 
     @property
     def shape(self) -> dict:
@@ -116,9 +145,16 @@ class MeshLD:
       kind "dense": DenseLD rows, mats (K_l, M/n, M) - every cell gets the
         whole x;
       kind "banded": a BandedLD over the cell's block rows - every cell
-        gets its x blocks and hb blocks of halo on both sides.
-    For "dense" and "banded" the pieces carry s = 0 and the s term is added
-    once, to the gathered y. Same matvec contract as the other operators.
+        gets its x blocks and hb blocks of halo on both sides;
+      kind "blocksparse": a BlockSparseLD over a contiguous range of the
+        slots (the slot list padded to a multiple of n_shard with all-zero
+        blocks at rows = cols = 0, as the JAX package pads it), its own
+        rows and cols with it; every cell gets its cohorts' whole x and
+        returns a partial y over all block rows, and the partial y's are
+        added on the mesh's first device in cell order.
+    For "dense", "banded" and "blocksparse" the pieces carry s = 0 and the s
+    term is added once, to the gathered y. Same matvec contract as the other
+    operators.
     """
 
     cells: tuple
@@ -145,6 +181,15 @@ class MeshLD:
                 dev = self.mesh.devices[c, 0]
                 y = cell.matvec(xc.reshape(S * K_l, M).to(dev)).reshape(S, K_l, M)
                 rows.append(y.to(x.device))
+                continue
+            if self.kind == "blocksparse":
+                nb, B = self.cells[c][0].nb, self.cells[c][0].B
+                y = None
+                for j in range(n):
+                    cell, dev = self.cells[c][j], self.mesh.devices[c, j]
+                    part = cell.apply(xc.reshape(S, K_l, nb, B).to(dev)).to(x.device)
+                    y = part if y is None else y + part
+                rows.append(y.reshape(S, K_l, M))
                 continue
             if self.kind == "banded":
                 nb_l, hb, B = (getattr(self.cells[c][0], f) for f in ("nb", "hb", "B"))
@@ -174,6 +219,18 @@ class MeshLD:
             if self.kind == "cohort":
                 rows.append(cells[0].diag_blocks().to(dev))
                 continue
+            if self.kind == "blocksparse":
+                # the first nb slots with rows == cols over the whole slot
+                # list, as BlockSparseLD.diag_blocks takes them (the
+                # padding's rows = cols = 0 slots come last)
+                w = cells[0].nnzb
+                diag = torch.cat([(cell.rows == cell.cols).cpu() for cell in cells])
+                slots = torch.nonzero(diag).flatten()[:cells[0].nb]
+                parts = [cell.blocks.index_select(
+                    1, (slots[(slots >= j * w) & (slots < (j + 1) * w)] - j * w).to(
+                        cell.blocks.device)).to(dev) for j, cell in enumerate(cells)]
+                rows.append(_regularize_diag(torch.cat(parts, dim=1).float(), self.s))
+                continue
             if self.kind == "dense":
                 B = default_diag_block(self.M)   # as for the whole matrix
                 M_l = self.M // n
@@ -186,6 +243,20 @@ class MeshLD:
                 parts = [dataclasses.replace(cell, s=self.s).diag_blocks() for cell in cells]
             rows.append(torch.cat([p.to(dev) for p in parts], dim=1))
         return torch.cat(rows, dim=0)
+
+
+def cohort_slice(op, lo: int, hi: int):
+    """The operator of cohorts lo .. hi-1 alone (views of its blocks)."""
+    if isinstance(op, SymBandedLD):
+        if op.mesh is not None:
+            raise ValueError("cut the cohorts before the mesh cuts the operator")
+        return dataclasses.replace(op, upper=op.upper[lo:hi],
+                                   scales=None if op.scales is None else op.scales[lo:hi])
+    if isinstance(op, (BandedLD, BlockSparseLD)):
+        return dataclasses.replace(op, blocks=op.blocks[lo:hi])
+    if isinstance(op, DenseLD):
+        return dataclasses.replace(op, mats=op.mats[lo:hi])
+    raise ValueError(f"no cohort slice for operator {type(op).__name__}")
 
 
 def _shard_operator(op, mesh: Mesh):
@@ -234,6 +305,21 @@ def _shard_operator(op, mesh: Mesh):
         cells = tuple(tuple(dataclasses.replace(
             op, blocks=_cut(op.blocks, c, j, n_c, n, dev), s=op.s if n == 1 else 0.0)
             for c, j, dev in row) for row in grid)
+    elif isinstance(op, BlockSparseLD):
+        pad = (-op.nnzb) % n
+        if pad:
+            # all-zero blocks that add zeros into block row 0
+            op = dataclasses.replace(
+                op, blocks=torch.cat([op.blocks, op.blocks.new_zeros(
+                    (op.K, pad, op.B, op.B))], dim=1),
+                rows=torch.cat([op.rows, op.rows.new_zeros(pad)]),
+                cols=torch.cat([op.cols, op.cols.new_zeros(pad)]))
+        w = op.nnzb // n
+        cells = tuple(tuple(dataclasses.replace(
+            op, blocks=_cut(op.blocks, c, j, n_c, n, dev),
+            rows=op.rows[j * w:(j + 1) * w].to(dev), cols=op.cols[j * w:(j + 1) * w].to(dev),
+            s=op.s if n == 1 else 0.0)
+            for c, j, dev in row) for row in grid)
     elif isinstance(op, DenseLD):
         if op.M % n:
             raise ValueError(f"dense operator: {op.M} markers not divisible by "
@@ -243,7 +329,8 @@ def _shard_operator(op, mesh: Mesh):
             for c, j, dev in row) for row in grid)
     else:
         raise ValueError(f"no sharding for operator {type(op).__name__}")
-    kind = "cohort" if n == 1 else ("banded" if isinstance(op, BandedLD) else "dense")
+    kind = ("cohort" if n == 1 else "banded" if isinstance(op, BandedLD)
+            else "blocksparse" if isinstance(op, BlockSparseLD) else "dense")
     return MeshLD(cells=cells, mesh=mesh, kind=kind, K=op.K, M=op.M, s=op.s)
 
 

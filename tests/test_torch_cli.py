@@ -203,10 +203,6 @@ BASE = ["--ld-files", "R.npz", "--r-files", "r.npy", "--N", "10", "--M", "10",
 
 
 @pytest.mark.parametrize("extra,named", [
-    (["--coordinator-address", "localhost:1"], "--coordinator-address"),
-    (["--num-processes", "2"], "--num-processes"),
-    (["--process-id", "0"], "--process-id"),
-    (["--operator", "blocksparse"], "--operator blocksparse"),
     (["--profile-dir", "prof"], "--profile-dir"),
     (["--platform", "tpu"], "--platform tpu"),
 ])
@@ -217,7 +213,23 @@ def test_unported_flags_are_rejected_by_name(extra, named):
     if named.startswith("--platform"):
         assert "cuda" in str(exc.value)
     else:
-        assert "ROADMAP" in str(exc.value)
+        assert "ROADMAP A15" in str(exc.value)
+
+
+@pytest.mark.parametrize("extra", [
+    ["--coordinator-address", "localhost:1", "--num-processes", "2", "--process-id", "1"],
+    ["--num-processes", "2"],
+    ["--process-id", "0"],
+    ["--operator", "blocksparse"],
+])
+def test_multi_process_flags_and_blocksparse_pass_the_gate(extra):
+    """--operator blocksparse and the multi-process flags are ported: no
+    flag is refused as unported any more but --profile-dir."""
+    args = tcli.build_parser().parse_args(BASE + extra)
+    tcli._reject_unported(args)
+    if extra[0] == "--operator":
+        with pytest.raises(FileNotFoundError):
+            tcli.main(BASE + extra)
 
 
 @pytest.mark.parametrize("extra", [["--fused", "1", "--checkpoint-dir", "ck"],

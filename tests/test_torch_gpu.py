@@ -964,3 +964,149 @@ def test_mle_pieces_in_graphs_equal_the_eager_loop(cuda, case):
         assert torch.equal(getattr(got, f), getattr(want, f)), f
     assert bool(got.mle_last_ok) == (case == "panel")
     assert bool(torch.isfinite(P["c"].x).all())
+
+
+# ---------------------------------------------------------------------------
+# BlockSparseLD and runs over a process group (a group of one over NCCL)
+# ---------------------------------------------------------------------------
+
+def _blocksparse_csr(M, seed):
+    """A banded panel as a CSR matrix plus symmetric long-range entries (a
+    block row i paired with i + nb/2 every 4 block rows, B=128)."""
+    import scipy.sparse
+
+    from sgvamp_torch.core.operators import BandedLD
+
+    band, r, _ = simulate_ld_band(20000, M, 200, h2=0.7, lam=0.02,
+                                  rng=np.random.default_rng(seed), dtype=np.float64)
+    R = BandedLD.from_band(band, block_size=128, device="cpu").to_dense()[0].numpy()[:M, :M]
+    nb = M // 128
+    for i in range(0, nb // 2, 4):
+        a, b = i * 128 + 3, (i + nb // 2) * 128 + 5
+        R[a, b] = R[b, a] = 0.01
+    return scipy.sparse.csr_matrix(R), r
+
+
+@pytest.mark.parametrize("dtype", ["float64", "float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 2])
+def test_blocksparse_matvec_on_the_card_matches_the_cpu(cuda, dtype, S):
+    from sgvamp_torch.core.operators import BlockSparseLD
+
+    R, _ = _blocksparse_csr(2048, 3)
+    on_card = BlockSparseLD.from_csr([R, R * 0.5], block_size=128, s=0.05, dtype=dtype,
+                                     device=cuda)
+    f64 = BlockSparseLD.from_csr([R, R * 0.5], block_size=128, s=0.05, device="cpu")
+    x = torch.from_numpy(np.random.default_rng(S).normal(size=(2 * S, on_card.M)))
+    xt = x.to(cuda, torch.float64 if dtype == "float64" else torch.float32)
+    y = on_card.matvec(xt)
+    # the f64 product of what the blocks hold and x as they see it
+    xr = x.to(on_card.blocks.dtype).double()
+    blocks = on_card.blocks.cpu().double()
+    want = BlockSparseLD(blocks=blocks, rows=f64.rows, cols=f64.cols, nb=f64.nb).matvec(
+        xr) * 0.95 + 0.05 * x
+    err = float((y.cpu().double() - want).abs().max() / want.abs().max())
+    assert err <= (1e-12 if dtype == "float64" else SCALED_TOL), err
+    # no atomics: the same bits on a repeat
+    assert torch.equal(on_card.matvec(xt), y)
+
+
+def test_blocksparse_float32_products_stay_ieee_under_a_callers_tf32(cuda):
+    """A caller that allows TF32 gets the IEEE float32 product all the
+    same, and its setting back."""
+    from sgvamp_torch.core.operators import BlockSparseLD
+
+    R, _ = _blocksparse_csr(2048, 3)
+    op = BlockSparseLD.from_csr([R], block_size=128, dtype="float32", device=cuda)
+    x = torch.from_numpy(np.random.default_rng(4).normal(size=(2, op.M))).to(cuda,
+                                                                             torch.float32)
+    m = torch.backends.cuda.matmul
+    m.fp32_precision = "ieee"
+    want = op.matvec(x)
+    try:
+        m.fp32_precision = "tf32"
+        got = op.matvec(x)
+        assert m.fp32_precision == "tf32"
+    finally:
+        m.fp32_precision = "ieee"
+    assert torch.equal(got, want)
+
+
+def test_dryrun_multichip_on_the_card(cuda, capsys):
+    """The dry run with its default devices: the six operators over a
+    (2, 2) mesh of the card, the sym ones through their spill kernels."""
+    from sgvamp_torch.dryrun import OPERATORS, dryrun_multichip
+
+    for w in BAND_KERNELS:
+        w.launches = 0
+    dryrun_multichip(4)
+    ok = [ln for ln in capsys.readouterr().out.splitlines() if "device=cuda parity ok" in ln]
+    assert len(ok) == len(OPERATORS)
+    launched = {w.__name__ for w in BAND_KERNELS if w.launches}
+    assert {"sym_band_matvec_int8_spill", "sym_band_matvec_int4_spill",
+            "sym_band_matvec_hybrid_spill"} <= launched, launched
+
+
+def _blocksparse_engine(device):
+    from sgvamp_torch import PriorState, VampConfig, VampEngine, VampInputs
+    from sgvamp_torch.core.operators import BlockSparseLD
+
+    R, r = _blocksparse_csr(4096, 5)
+    op = BlockSparseLD.from_csr([R], block_size=128, dtype="bfloat16", device=device)
+    cfg = VampConfig(prior_update="em", dtype="float32", cg_maxit=500, cg_precond_block=64,
+                     rho=0.5, lmmse_damp=True)
+    N = 20000
+    inputs = VampInputs(op=op, r=torch.as_tensor(r[None], dtype=torch.float32, device=device),
+                        a=torch.ones(1, device=device), N=torch.full((1,), float(N), device=device))
+    return VampEngine(inputs, cfg, PriorState.create(0.02, [1.0], [0.7 / 80 * N], device=device))
+
+
+def test_blocksparse_fused_run_matches_the_host_loop_bit_for_bit(cuda):
+    engine = _blocksparse_engine(cuda)
+    hist = engine.run(4, seed=2)
+    state, aux = engine.run_scan(4, seed=2)
+    for it in range(4):
+        assert torch.equal(aux.xhat1[it].cpu(), torch.from_numpy(hist["xhat1"][it])), it
+        assert np.array_equal(aux.gam1[it].cpu().numpy(),
+                              np.asarray(hist["params"][it])[:, 2].astype(np.float32))
+    for f in ("xhat1", "r1", "xhat2", "sigma2_u", "gamw", "gam1"):
+        assert torch.equal(getattr(state, f), getattr(hist["state"], f)), f
+
+
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_process_group_of_one_over_nccl_writes_the_plain_run_s_files(cuda, tmp_path, fused,
+                                                                     caplog):
+    import os
+    import socket
+
+    import torch.distributed as dist
+
+    from sgvamp_torch.cli import main as cli
+    from sgvamp_torch.cli import simulate
+
+    if not dist.is_nccl_available():
+        pytest.skip("this PyTorch has no NCCL")
+    assert simulate.main(["gen-band", "--out", str(tmp_path / "p"), "--N", "20000", "--M",
+                          "4096", "--h2", "0.7", "--lam", "0.02", "--bandwidth", "200",
+                          "--seed", "3"]) == 0
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+
+    def run(out, *extra):
+        assert cli.main(["--ld-files", str(tmp_path / "p_R.npz"), "--r-files",
+                         str(tmp_path / "p_r.npy"), "--true-signal-file",
+                         str(tmp_path / "p_bet.npy"), "--out-dir", str(out), "--out-name", "g",
+                         "--N", "20000", "--M", "4096", "--iterations", "4", "--operator",
+                         "sym", "--ld-dtype", "int8", "--block-size", "128",
+                         "--cg-precond-block", "64", "--fused", fused, *extra]) == 0
+        return {n: (out / n).read_bytes() for n in sorted(os.listdir(out))}
+
+    plain = run(tmp_path / "plain")
+    with caplog.at_level("INFO", logger="sgvamp"):
+        group = run(tmp_path / "group", "--coordinator-address", f"localhost:{port}",
+                    "--num-processes", "1", "--process-id", "0")
+    assert any("over the NCCL backend" in m for m in caplog.messages)
+    assert not dist.is_initialized()   # main left the group it made
+    assert sorted(group) == sorted(plain) and "g_xhat_it_3.bin" in plain
+    for name in plain:
+        assert group[name] == plain[name], name

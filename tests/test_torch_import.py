@@ -25,6 +25,7 @@ MODULES = [
     "sgvamp_torch.data.loaders",
     "sgvamp_torch.data.plink",
     "sgvamp_torch.data.simulate",
+    "sgvamp_torch.dryrun",
     "sgvamp_torch.interop",
     "sgvamp_torch.io.checkpoint",
     "sgvamp_torch.io.writers",
@@ -33,6 +34,7 @@ MODULES = [
     "sgvamp_torch.ops.band_kernel",
     "sgvamp_torch.ops.membench",
     "sgvamp_torch.parallel",
+    "sgvamp_torch.parallel.multihost",
     "sgvamp_torch.parallel.sharding",
     "sgvamp_torch.utils",
     "sgvamp_torch.utils.kernel_bench",
