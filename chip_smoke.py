@@ -104,8 +104,8 @@ Phases, a few lines of output each (and fail on the first that fails):
          whether the bits are equal printed), the same stop and best
          iterate; s/iteration, host reads a step, and device ms a step and
          the device-busy share of both runs (torch.profiler over 2 steps
-         of each, whose trace also counts the int8 kernels inside the
-         graphs);
+         of each, whose trace must count the 102 int8 kernels a step
+         inside the graphs);
      7b. the same for phase 6c's int8 run under the (1, 4) mesh (4 x 102
          spill launches per iteration); ms per chained sharded pass
          replayed from a CUDA graph beside the eager chain and 6b's figure;
@@ -158,6 +158,33 @@ Phases, a few lines of output each (and fail on the first that fails):
          the six operators over a (2, 4) mesh whose cells are all the
          card, two steps each against the unsharded steps; the quantized
          and a float spill kernel launched.
+  10. the last modules: --profile-dir, the genotype simulators, plots:
+     10a. phase 4's hybrid run (--fused 0) and 7c's (--fused 1) at M=524288
+          again with --profile-dir: cli_run's checks, one trace file
+          (process0.*.pt.trace.json) whose JSON parses and whose
+          sym_band_packed_kernel<B, S, true> (hybrid) events equal the
+          run's launches (the
+          wrapper's eager count, a fused run's warm-ups included, plus its
+          graph replays), no other band kernel in it, and the output files
+          of the unprofiled run to the byte; the trace's MB and the infer
+          seconds with and without it.
+     10b. simulate gen-phen-mult (N=16384, M=8192, K=2, h2 0.8, lam 0.1,
+          seed 0; dense genotypes on the host, seconds printed), then
+          cli.main --K 2 over its files with --operator dense (no band
+          kernel) and --operator sym --ld-dtype int8 --block-size 128
+          without --bandwidth (the whole upper triangle, hb >= nb - 1):
+          the int8 kernel once per LD pass, best-iterate alignment >= 0.9
+          in both and within 0.02 of each other; the int8 kernel against
+          its plain version at that shape (K=2, S=2), timed beside its
+          bound and torch.matmul over the dense float32 panel.
+     10c. write_bed an N=16384 x M=8192 panel (binomial(2, 0.4), seed 1),
+          read_bed it back (equal; MB/s), simulate phen over it, R from
+          the same standardized genotypes on the card in float64, then
+          cli.main --operator sym --ld-dtype int8: the int8 kernel once
+          per LD pass, best-iterate alignment >= 0.9.
+     10d. where matplotlib imports: cli.plots over 10b's CSVs and
+          cli.vis_ld over one of its R files, each PNG written; where it
+          does not, a line says so.
 Then a JSON line of the kernels' numbers, and the result line last.
 """
 
@@ -199,6 +226,11 @@ FUSED_TOL = SCALED_TOL
 PROFILED_BLOCKS = 512  # of the 8192 64 x 64 blocks whose eigh torch.profiler traces
 CG_MAXIT = 100
 MIN_ALIGNMENT = 0.9
+# phase 10: the dense genotype generators (numpy on the host, as in the JAX
+# package): gen-phen-mult's cohorts and the .bed panel, and their signal
+MULT_N, MULT_M = 16384, 8192
+BED_N, BED_M = 16384, 8192
+SIM_LAM, SIM_H2 = 0.1, 0.8
 STORAGES = ("int8", "bfloat16", "float32", "int4", "hybrid")
 # the kernels of the slab layout and the resident mode: (layout, mode, window),
 # the wrapper each must take, and the kernel_bench variants that name it
@@ -283,16 +315,25 @@ def kernel_vs_plain(op, S: int, seed: int, what: str, tol: float = SCALED_TOL) -
     return abs_err, rel
 
 
+def held_blocks(nb: int, hb: int) -> int:
+    """Stored blocks of one cohort's band that hold data: the nb diagonal
+    blocks and, for each d = 1..hb, the nb - d that lie inside the matrix
+    (the rest of the nb (hb + 1) slots are zero past its end)."""
+    return nb + sum(max(nb - d, 0) for d in range(1, hb + 1))
+
+
 def bound_ms(op, S: int, storage: str) -> tuple:
     """The least time the card could take for one matvec of `op` with S
-    lanes: (ms, "bytes" or "operations", bytes moved). Bytes: blocks,
-    scales and x read once, y written once, over the HBM rate; operations:
-    two per stored element and lane for each block product the band holds
-    (row and mirror), over the peak rate of the storage's type."""
+    lanes: (ms, "bytes" or "operations", bytes moved). Bytes: the blocks
+    that hold data and their scales (every slot of the storage has the same
+    bytes), x read once, y written once, over the HBM rate; operations: two
+    per stored element and lane for each block product the band holds (row
+    and mirror), over the peak rate of the storage's type."""
     xb, yb = {"float32": (4, 4), "float64": (8, 8)}.get(storage, (2, 4))
-    nbytes = op.bytes_per_pass() + op.K * S * op.M * (xb + yb)
-    blocks = op.nb + 2 * sum(op.nb - d for d in range(1, op.hb + 1))
-    ops = 2.0 * S * op.K * blocks * op.B * op.B
+    held = held_blocks(op.nb, op.hb)
+    nbytes = (op.bytes_per_pass() * held // (op.nb * (op.hb + 1))
+              + op.K * S * op.M * (xb + yb))
+    ops = 2.0 * S * op.K * (2 * held - op.nb) * op.B * op.B
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[storage]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations",
             nbytes)
@@ -312,7 +353,7 @@ def design_block_bytes(op, S: int, spill: bool = False) -> int:
 
     nb, hb = op.nb, op.hb
     # stored off-diagonal blocks that hold data
-    off = nb * hb if spill else sum(nb - d for d in range(1, hb + 1))
+    off = nb * hb if spill else held_blocks(nb, hb) - nb
     if not spill and op._use_resident(S):
         G = _resident_rows(op.upper, S, op.rows_per_step)
         off += sum(1 for r0 in range(G, nb, G) for a in range(1, min(hb, r0) + 1)
@@ -581,7 +622,7 @@ class LogCapture(logging.Handler):
 def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
             operator: str = "sym", K: int = 1, per_pass: int = 1, tag: str = "",
             inputs=None, truth=None, iterations: int = CLI_ITERATIONS, label=None,
-            check_alignment: bool = True, native: bool = True) -> dict:
+            check_alignment: bool = True, native=True, prior=(LAM, H2)) -> dict:
     """One production-mode run of sgvamp_torch.cli.main over the panel
     files at `prefix` (the README's biobank flags), with its checks.
     `own` is the name of the wrapper this storage must launch, None for an
@@ -595,7 +636,10 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     phase printed; check_alignment False leaves out the alignment check (a
     resumed run, whose monitor starts after the first iterations); native
     False for an operator built from the CSR, which takes no native step
-    (--operator blocksparse)."""
+    (--operator blocksparse), None for a dense .npy panel, whose CSR ->
+    band has only its numpy path (in both packages). prior: the (lam, h2)
+    of the panel's signal, from which --prior-probs and --prior-vars are
+    set."""
     import torch
 
     from sgvamp_torch.cli import main as cli_main
@@ -603,7 +647,8 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     from sgvamp_torch.io.writers import read_bin
 
     name = f"bb_{operator}_{ld_dtype}{tag}"
-    cm = max(int(M * LAM), 1)
+    lam, h2 = prior
+    cm = max(int(M * lam), 1)
     if inputs is None:
         inputs = ["--ld-files", ",".join([prefix + "_R.npz"] * K),
                   "--r-files", ",".join([prefix + "_r.npy"] * K),
@@ -611,7 +656,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
                   "--N", str(N_SAMPLES), "--M", str(M), "--bandwidth", str(BW_FULL)]
     argv = [*inputs, "--out-dir", out_dir, "--out-name", name, "--K", str(K),
             "--iterations", str(iterations),
-            "--prior-probs", f"{1 - LAM:g},{LAM:g}", "--prior-vars", f"0,{H2 / cm:.6g}",
+            "--prior-probs", f"{1 - lam:g},{lam:g}", "--prior-vars", f"0,{h2 / cm:.6g}",
             "--operator", operator, "--ld-dtype", ld_dtype, "--block-size", str(B_FULL),
             "--cg-maxit", "500", "--cg-rtol", "1e-5",
             "--cg-precond-block", "64", "--cg-precond-dtype", "bfloat16",
@@ -656,7 +701,8 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     if others:
         fail(f"{what}: other band kernels were launched: {others}")
     routes = [ln for ln in log.lines if "through the n" in ln and "path" in ln]
-    if (native and not routes) or any("through the numpy path" in ln for ln in routes):
+    if native is not None and ((native and not routes)
+                               or any("through the numpy path" in ln for ln in routes)):
         fail(f"{what}: ingestion did not run through the native library only: {routes}")
     with open(os.path.join(out_dir, f"{name}_cohort_1.csv")) as f:
         rows = [ln.split("\t") for ln in f.read().splitlines()[1:]]
@@ -1042,7 +1088,7 @@ def fused_run(op, r, x0, own: str, iterations: int, phase: str, host: dict,
     host_ms, _ = profiled_steps(lambda: engine.run(2, stop_tol=STOP_TOL,
                                                    stop_gam1_drop=STOP_DROP),
                                 "sym_band_int8_kernel")
-    if traced not in (0, per_it):
+    if traced != per_it:
         fail(f"{phase}: the profiler traced {traced} int8 kernels a fused step, "
              f"the capture counted {per_it}")
     s_it = wall / n
@@ -1617,6 +1663,225 @@ def dryrun_on_the_card() -> dict:
     return {"seconds": seconds, "launches": launched}
 
 
+def trace_kernels(trace_dir: str) -> tuple:
+    """The one Chrome trace a process group of one writes into trace_dir:
+    (path, MB, {band kernel: events} by band_kernel.traced_kernel_counts,
+    {band kernel: mean us}, the band kernel events' distinct names)."""
+    from sgvamp_torch.ops.band_kernel import TRACED_KERNELS, traced_kernel_counts
+
+    traces = os.listdir(trace_dir)
+    if len(traces) != 1 or not re.fullmatch(r"process0\.\d+\.pt\.trace\.json", traces[0]):
+        fail(f"--profile-dir {trace_dir}: expected one process0.*.pt.trace.json, have {traces}")
+    path = os.path.join(trace_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = traced_kernel_counts(e["name"] for e in kernels)
+    mean_us = {k: float(np.mean([e["dur"] for e in kernels if re.search(p, e["name"])]))
+               for k, p in TRACED_KERNELS.items() if counts[k]}
+    names = sorted({e["name"] for e in kernels
+                    if any(traced_kernel_counts([e["name"]]).values())})
+    return path, os.path.getsize(path) / 1e6, counts, mean_us, names
+
+
+def profiled_cli(prefix: str, work: str, ref: dict, ref_dir: str, fused: str) -> dict:
+    """Phase 10a: phase 4's (--fused 0) or 7c's (--fused 1) hybrid run at
+    M_FULL again with --profile-dir: cli_run's checks; one trace, whose
+    hybrid kernel events equal the run's launches (the wrapper's eager
+    count, a fused run's warm-ups included, plus its graph replays) and
+    which holds no other band kernel; the output files equal to the byte
+    to the unprofiled run's."""
+    label = f"10a --profile-dir, --fused {fused}"
+    own = "sym_band_matvec_hybrid"
+    out = os.path.join(work, f"prof_out_{fused}")
+    trace_dir = os.path.join(work, f"prof_trace_{fused}")
+    res = cli_run(prefix, out, M_FULL, "hybrid", own,
+                  extra=("--fused", fused, "--profile-dir", trace_dir), label=label)
+    name = res["name"]
+    only = {f[len(name):] for f in os.listdir(ref_dir)
+            if f.startswith(name + "_") and not f.startswith(name + "_mesh")}
+    n_equal = same_files(ref_dir, name, out, name, label, only=only)
+    t0 = time.perf_counter()
+    path, mb, counts, mean_us, names = trace_kernels(trace_dir)
+    read_s = time.perf_counter() - t0
+    launches = res["launches"] + res["warm_up_launches"].get(own, 0)
+    want = {k: launches if k == "hybrid" else 0 for k in counts}
+    if counts != want:
+        fail(f"{label}: the trace holds the kernel events {counts} ({names}); the run's counters "
+             f"{launches} launches of {own} (graph replays {res['launches'] if res['fused'] else 0}"
+             f", eager {res['warm_up_launches'].get(own, 0) if res['fused'] else launches})")
+    out_res = {"fused": fused, "trace_mb": mb, "trace_read_s": read_s,
+               "kernel_events": counts["hybrid"], "kernel_names": names, "launches": launches,
+               "replayed": res["launches"] if res["fused"] else 0,
+               "kernel_mean_us": mean_us.get("hybrid"),
+               "infer_s": res["infer_s"], "unprofiled_infer_s": ref["infer_s"],
+               "files_equal": n_equal, "alignment": res["alignment"]}
+    print(f"[{label}] {os.path.basename(path)}: {mb:.1f} MB, read in {read_s:.2f} s; "
+          f"hybrid kernel events {counts['hybrid']} = the run's "
+          f"{launches} launches ({out_res['replayed']} by graph replay), no other band kernel "
+          f"({counts}; {names}), {mean_us.get('hybrid', float('nan')):.1f} us a launch "
+          f"by the trace; the "
+          f"unprofiled run's {n_equal} files to the byte; infer {res['infer_s']:.2f} s traced "
+          f"against {ref['infer_s']:.2f} s", flush=True)
+    return out_res
+
+
+def multi_cohort_path(work: str, dev) -> dict:
+    """Phase 10b: simulate gen-phen-mult (dense genotypes on the host, K=2,
+    one shared beta), then cli.main --K 2 over its files with --operator
+    dense (torch.matmul, no band kernel) and with --operator sym --ld-dtype
+    int8 --block-size 128 and no --bandwidth (the whole upper triangle: the
+    band reaches M - 1, so hb >= nb - 1), both at the biobank flags: best-iterate alignment >=
+    MIN_ALIGNMENT in both, the two within 0.02; the int8 kernel once per LD
+    pass and against its plain version at the run's shape (K=2, S=2)."""
+    import torch
+
+    from sgvamp_torch.cli import simulate as cli_simulate
+    from sgvamp_torch.data import loaders
+    from sgvamp_torch.ops.band_kernel import SymBandedLD, band_kernel_of
+
+    N, M = MULT_N, MULT_M
+    pre = os.path.join(work, "mult")
+    t0 = time.perf_counter()
+    if cli_simulate.main(["gen-phen-mult", "--out", pre, "--N", str(N), "--M", str(M),
+                          "--K", "2", "--h2", str(SIM_H2), "--lam", str(SIM_LAM),
+                          "--seed", "0"]) != 0:
+        fail("10b: simulate gen-phen-mult failed")
+    gen_s = time.perf_counter() - t0
+    inputs = ["--ld-files", f"{pre}_0_R.npy,{pre}_1_R.npy",
+              "--r-files", f"{pre}_0_r.npy,{pre}_1_r.npy",
+              "--true-signal-file", pre + "_bet.npy", "--N", str(N), "--M", str(M)]
+    runs = {}
+    for operator, ld_dtype, own in (("dense", "float32", None),
+                                    ("sym", "int8", "sym_band_matvec_int8")):
+        runs[operator] = cli_run(pre, os.path.join(work, "mult_out"), M, ld_dtype, own,
+                                 operator=operator, K=2, tag="_mult", inputs=inputs,
+                                 label="10b", native=None, prior=(SIM_LAM, SIM_H2))
+    gap = abs(runs["dense"]["alignment"] - runs["sym"]["alignment"])
+    if not gap <= 0.02:
+        fail(f"10b: best-iterate alignment {runs['dense']['alignment']:.5f} (dense) against "
+             f"{runs['sym']['alignment']:.5f} (sym int8)")
+    band = loaders.csr_to_band(np.load(pre + "_0_R.npy"), None)[0]
+    op = SymBandedLD.from_band(band, block_size=B_FULL, K=2, dtype="int8", device=dev)
+    del band
+    nb, hb = op.nb, op.hb
+    if nb != M // B_FULL or hb < nb - 1:
+        fail(f"10b: the int8 operator has nb={nb}, hb={hb}: its band does not cover the panel")
+    abs_err, rel = kernel_vs_plain(op, 2, 10, f"int8 at M={M}, nb={nb}, hb={hb}, K=2")
+    kernel, plain, args, xdt = band_kernel_of(op, 2)
+    x = torch.randn((op.K, 2, op.M), generator=torch.Generator(dev).manual_seed(3),
+                    device=dev).to(xdt)
+    ms, plain_ms = kernel_and_plain_ms(lambda: kernel(*args, x), lambda: plain(*args, x))
+    bound, bound_by, nbytes = bound_ms(op, 2, "int8")
+    del op
+    # the library call: torch.matmul over the dense float32 panel (the same
+    # R x before quantization), both cohorts
+    R = torch.from_numpy(np.load(pre + "_0_R.npy")).to(dev, torch.float32).expand(2, M, M)
+    R, xm = R.contiguous(), x.float().transpose(1, 2).contiguous()
+    library_ms = cuda_ms(lambda: torch.matmul(R, xm), 20)
+    del R
+    torch.cuda.empty_cache()
+    res = {"N": N, "M": M, "gen_s": gen_s, "gap": gap,
+           "runs": {k: {f: v[f] for f in ("alignment", "launches", "passes", "iterations",
+                                          "ingest_s", "precond_eig_s", "infer_s", "total_s")}
+                    for k, v in runs.items()},
+           "int8_full_band": {"nb": nb, "hb": hb, "K": 2, "S": 2,
+                              "max_abs_err": abs_err, "scaled_err": rel, "ms": ms,
+                              "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
+                              "bytes": nbytes, "library_ms": library_ms,
+                              "library_call": "torch.matmul, dense float32 panel"}}
+    print(f"[10b gen-phen-mult] N={N}, M={M}, K=2: generated on the host in {gen_s:.1f} s; "
+          f"best-iterate alignment dense {runs['dense']['alignment']:.5f}, sym int8 "
+          f"{runs['sym']['alignment']:.5f} (gap {gap:.5f}); int8 launches "
+          f"{runs['sym']['launches']} for {sum(runs['sym']['passes'])} LD passes; the int8 "
+          f"kernel at nb={nb}, hb={hb}, K=2, S=2: scaled error {rel:.1e}, "
+          f"{ms:.4f} ms a pass (plain {plain_ms:.4f}, bound {bound:.4f}, {bound_by}; "
+          f"torch.matmul over the dense float32 panel {library_ms:.4f})",
+          flush=True)
+    return res
+
+
+def bed_path(work: str, dev) -> dict:
+    """Phase 10c: write_bed an N x M genotype panel (binomial(2, 0.4), seed
+    1), read it back (equal, MB/s), simulate phen over it, R from the same
+    standardized genotypes on the card in float64, then cli.main --operator
+    sym --ld-dtype int8 --block-size 128 with the biobank flags: the int8
+    kernel once per LD pass, best-iterate alignment >= MIN_ALIGNMENT."""
+    import torch
+
+    from sgvamp_torch.cli import simulate as cli_simulate
+    from sgvamp_torch.data.bed import read_bed, write_bed
+
+    N, M = BED_N, BED_M
+    pre = os.path.join(work, "geno")
+    G = np.random.default_rng(1).binomial(2, 0.4, size=(N, M)).astype(np.float64)
+    t0 = time.perf_counter()
+    write_bed(pre + ".bed", G)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = read_bed(pre + ".bed")
+    read_s = time.perf_counter() - t0
+    if not np.array_equal(back, G):
+        fail("10c: read_bed does not give back the genotypes write_bed wrote")
+    del back
+    bed_mb = os.path.getsize(pre + ".bed") / 1e6
+    t0 = time.perf_counter()
+    if cli_simulate.main(["phen", "--bed", pre + ".bed", "--out", pre, "--M", str(M),
+                          "--h2", str(SIM_H2), "--lam", str(SIM_LAM), "--seed", "0"]) != 0:
+        fail("10c: simulate phen failed")
+    phen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    X = torch.from_numpy(G).to(dev)
+    del G
+    X = (X - X.mean(0)) / X.std(0, correction=0) / np.sqrt(N)
+    np.save(pre + "_R.npy", (X.T @ X).cpu().numpy())
+    del X
+    torch.cuda.empty_cache()
+    r_s = time.perf_counter() - t0
+    run = cli_run(pre, os.path.join(work, "geno_out"), M, "int8", "sym_band_matvec_int8",
+                  tag="_bed", label="10c", native=None, prior=(SIM_LAM, SIM_H2),
+                  inputs=["--ld-files", pre + "_R.npy", "--r-files", pre + "_r.npy",
+                          "--true-signal-file", pre + "_bet.npy", "--N", str(N),
+                          "--M", str(M)])
+    res = {"N": N, "M": M, "bed_mb": bed_mb, "write_s": write_s, "read_s": read_s,
+           "read_MB_per_s": bed_mb / read_s, "phen_s": phen_s, "R_on_card_s": r_s,
+           "alignment": run["alignment"], "launches": run["launches"],
+           "passes": run["passes"], "infer_s": run["infer_s"], "total_s": run["total_s"]}
+    print(f"[10c .bed] N={N}, M={M}: write_bed {write_s:.2f} s, read_bed {read_s:.2f} s = "
+          f"{res['read_MB_per_s']:.1f} MB/s over {bed_mb:.1f} MB; simulate phen {phen_s:.1f} s; "
+          f"R on the card (float64) {r_s:.1f} s; sym int8 best-iterate alignment "
+          f"{run['alignment']:.5f}, {run['launches']} launches for {sum(run['passes'])} LD "
+          f"passes", flush=True)
+    return res
+
+
+def plots_path(work: str) -> dict:
+    """Phase 10d, where matplotlib imports: cli.plots over 10b's sym run's
+    CSVs and cli.vis_ld over its first R file; each PNG must exist."""
+    try:
+        import matplotlib
+    except ImportError:
+        print("[10d plots] matplotlib does not import here: plots and vis_ld not run "
+              "(not a fault of the port)", flush=True)
+        return {"ran": False}
+    from sgvamp_torch.cli import plots, vis_ld
+
+    out = os.path.join(work, "mult_out")
+    t0 = time.perf_counter()
+    plots.main(["--csv-params", os.path.join(out, "bb_sym_int8_mult_cohort_1.csv"),
+                "--csv-metrics", os.path.join(out, "bb_sym_int8_mult_metrics.csv"),
+                "--out-name", "plots_10d"])
+    vis_ld.main(["--ld-file", os.path.join(work, "mult_0_R.npy"), "--ld-format", "npy",
+                 "--out-dir", out])
+    seconds = time.perf_counter() - t0
+    pngs = [os.path.join(out, f) for f in ("plots_10d.png", "mult_0_R.png")]
+    if not all(os.path.exists(p) for p in pngs):
+        fail(f"10d: missing {[p for p in pngs if not os.path.exists(p)]}")
+    print(f"[10d plots] plots and vis_ld ran (matplotlib {matplotlib.__version__}) in "
+          f"{seconds:.1f} s: {[os.path.basename(p) for p in pngs]}", flush=True)
+    return {"ran": True, "seconds": seconds}
+
+
 def main() -> None:
     import torch
 
@@ -2137,6 +2402,21 @@ def main() -> None:
     t0 = time.perf_counter()
     processes["dryrun"] = dryrun_on_the_card()
     seconds["dryrun_on_the_card"] = time.perf_counter() - t0
+
+    # ---- 10. --profile-dir, the genotype simulators, plots ----
+    t0 = time.perf_counter()
+    traced = {"host loop": profiled_cli(prefix, work.name, cli["hybrid"], out_dir, "0"),
+              "fused": profiled_cli(prefix, work.name, fused_cli, fused_dir, "1")}
+    seconds["profile_dir"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mult = multi_cohort_path(work.name, dev)
+    seconds["gen_phen_mult"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    geno = bed_path(work.name, dev)
+    seconds["bed_phen"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    figures = plots_path(work.name)
+    seconds["plots"] = time.perf_counter() - t0
     work.cleanup()
     seconds["total"] = time.perf_counter() - t_start
 
@@ -2156,7 +2436,9 @@ def main() -> None:
                              for f, v in mesh_runs.items()}},
                       "fused": fused, "fused_cli": fused_cli, "mle": mle_run,
                       "checkpoints": ckpt, "blocksparse": blocksparse,
-                      "process_group": processes}))
+                      "process_group": processes,
+                      "last_modules": {"profile_dir": traced, "gen_phen_mult": mult,
+                                       "bed": geno, "plots": figures}}))
 
     def band_entry(name, key, source, line, n_launch, library=None, **extra):
         f = full[key]
@@ -2216,14 +2498,18 @@ def main() -> None:
                    launches["sym_band_matvec_int8"], **int8_once(M_FULL // B_FULL),
                    fused_launches=fused["int8"]["launches"]["sym_band_matvec_int8"],
                    mle_launches=mle_run["launches"]["sym_band_matvec_int8"],
-                   mle_fused_launches=mle_run["fused_launches"]["sym_band_matvec_int8"]),
+                   mle_fused_launches=mle_run["fused_launches"]["sym_band_matvec_int8"],
+                   full_band=dict(mult["int8_full_band"],
+                                  launches=mult["runs"]["sym"]["launches"]),
+                   bed_launches=geno["launches"]),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
                     bench_launches["streamed"], **read_once),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
                    cli["int4"]["launches"], **packed),
         band_entry("sym_band_matvec_hybrid", "hybrid", csrc + "sym_band_hybrid.cu", 179,
                    cli["hybrid"]["launches"], **packed, fused_launches=fused_cli["launches"],
-                   checkpoint_launches=[n for c in ckpt.values() for n in c["launches"]]),
+                   checkpoint_launches=[n for c in ckpt.values() for n in c["launches"]],
+                   traced_events={k: v["kernel_events"] for k, v in traced.items()}),
         float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
                     333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"],
                     **read_once),

@@ -24,9 +24,11 @@ between chunks of --checkpoint-every iterations of a fused run) and
 WORLD_SIZE / RANK): the cohorts divided over the processes
 (parallel/multihost.py), process 0 owning stdout and every output file.
 --operator sym leaves the operator's mode at "auto", so float storage
-runs the resident kernel where its run fits a CTA's shared memory. Not
-ported yet: --profile-dir, rejected with a message that names the flag
-and its ROADMAP item rather than silently ignored.
+runs the resident kernel where its run fits a CTA's shared memory.
+--profile-dir writes a torch.profiler trace of the inference
+(utils/profiling.py::device_trace), one Chrome-trace JSON per process.
+Every flag of the JAX command line is accepted; only --platform tpu is
+refused.
 """
 
 from __future__ import annotations
@@ -146,7 +148,8 @@ def build_parser() -> argparse.ArgumentParser:
     g.add_argument("--checkpoint-every", type=int, default=10,
                    help="With --fused 1: checkpoint between chunks of this many iterations")
     g.add_argument("--resume", help="Resume from the latest checkpoint (1/0)", default=0)
-    g.add_argument("--profile-dir", help="Write a device trace of the run here", default=None)
+    g.add_argument("--profile-dir", help="Write a torch.profiler trace of the run here "
+                   "(one Chrome-trace JSON per process)", default=None)
     g.add_argument("--compile-cache-dir", default="~/.cache/sgvamp_tpu/xla",
                    help="Accepted for compatibility with the JAX command line; "
                    "PyTorch compiles nothing, so it has no effect")
@@ -161,15 +164,10 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _reject_unported(args) -> None:
-    """SystemExit for every flag whose code is not ported, naming it."""
-    def no(flag: str, item: str) -> None:
-        raise SystemExit(f"{flag} is not ported to sgvamp_torch yet ({item})")
-
+    """SystemExit for a --platform the port does not run on, naming it."""
     if args.platform not in (None, "cuda", "cpu"):
         raise SystemExit(f"--platform {args.platform} is not supported by "
                          "sgvamp_torch: use cuda (the default) or cpu")
-    if args.profile_dir:
-        no("--profile-dir", "ROADMAP A15, tooling")
 
 
 def _fused_run(engine, iterations: int, writer, x0, Nt: float, M: int, seed: int,
@@ -285,7 +283,7 @@ def _run(args, log, device, multi: bool) -> int:
     from sgvamp_torch.io.writers import OutputWriter, write_bin
     from sgvamp_torch.ops.band_kernel import SymBandedLD
     from sgvamp_torch.parallel import multihost
-    from sgvamp_torch.utils.profiling import PhaseTimers
+    from sgvamp_torch.utils.profiling import PhaseTimers, device_trace
 
     owns_output = multihost.process_index() == 0
     if args.compile_cache_dir:
@@ -595,7 +593,7 @@ def _run(args, log, device, multi: bool) -> int:
     stop_drop = (float(args.stop_gam1_drop)
                  if bool(int(args.stop_on_divergence)) else 0.0)
     ts = time.time()
-    with timers.phase("infer"):
+    with device_trace(args.profile_dir, device), timers.phase("infer"):
         if bool(int(args.fused)):
             history = _fused_run(engine, iterations, writer, x0, Nt, M, args.seed,
                                  stop_tol, stop_drop, ckpt=ckpt, every=args.checkpoint_every,

@@ -1,12 +1,16 @@
 """Simulation CLI: test data for the sgVAMP command line, as sub-commands:
 
-  gen-phen   single cohort, dense genotypes: {out}_{phen,bet,r,R}.npy
-  gen-band   biobank-scale banded LD panel at any M (never materializes
-             MxM), written as files cli.main ingests: {out}_R.npz sparse
-             CSR, {out}_r.npy, {out}_bet.npy
+  gen-phen       single cohort, dense genotypes: {out}_{phen,bet,r,R}.npy
+  gen-phen-mult  K cohorts sharing one beta (--K, default 2), fresh dense
+                 genotypes per cohort: {out}_bet.npy and
+                 {out}_{i}_{phen,r,R}.npy for i = 0..K-1
+  phen           a phenotype over real PLINK .bed genotypes (--bed; N comes
+                 from the .fam file): {out}_{phen,bet,r}.npy, no R
+  gen-band       biobank-scale banded LD panel at any M (never materializes
+                 MxM), written as files cli.main ingests: {out}_R.npz sparse
+                 CSR, {out}_r.npy, {out}_bet.npy
 
-The same seed writes the same files as sgvamp_tpu.cli.simulate. Its
-gen-phen-mult and phen sub-commands are not ported yet.
+The same seed writes the same files as sgvamp_tpu.cli.simulate.
 """
 
 from __future__ import annotations
@@ -24,15 +28,23 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Simulate data for sgVAMP")
     sub = p.add_subparsers(dest="cmd", required=True)
 
-    def common(sp):
+    def common(sp, with_bed=False, with_K=False):
+        if with_bed:
+            sp.add_argument("-bed", "--bed", help="Path to bed file", required=True)
         sp.add_argument("-out", "--out", help="Output path", required=True)
-        sp.add_argument("-N", "--N", help="Number of samples", required=True)
+        sp.add_argument("-N", "--N", help="Number of samples", required=not with_bed)
         sp.add_argument("-M", "--M", help="Number of markers", required=True)
         sp.add_argument("-h2", "--h2", help="Heritability", default=0.8)
         sp.add_argument("-lam", "--lam", help="Sparsity (lambda)", default=0.5)
+        if with_K:
+            sp.add_argument("-K", "--K", help="Number of cohorts", default=2)
         sp.add_argument("--seed", help="RNG seed", type=int, default=None)
 
     common(sub.add_parser("gen-phen", help="single-cohort synthetic genotypes"))
+    common(sub.add_parser("gen-phen-mult", help="multi-cohort, shared signal"),
+           with_K=True)
+    common(sub.add_parser("phen", help="phenotype over real .bed genotypes"),
+           with_bed=True)
     gb = sub.add_parser("gen-band",
                         help="biobank-scale banded LD panel (sparse .npz)")
     common(gb)
@@ -65,6 +77,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         np.save(args.out + "_R.npy", d.R)
         print(f"wrote {args.out}_{{phen,bet,r,R}}.npy  "
               f"(Var(g)={np.var(d.y - 0):.3f} target h2={h2})")
+    elif args.cmd == "gen-phen-mult":
+        ds = sim.simulate_multi(int(args.N), M, int(args.K), h2, lam, rng)
+        np.save(args.out + "_bet.npy", ds[0].beta.reshape(M, 1))
+        for i, d in enumerate(ds):
+            np.save(f"{args.out}_{i}_phen.npy", d.y)
+            np.save(f"{args.out}_{i}_r.npy", d.r)
+            np.save(f"{args.out}_{i}_R.npy", d.R)
+        print(f"wrote {args.out}_bet.npy and per-cohort files for K={args.K}")
     elif args.cmd == "gen-band":
         import scipy.sparse as sp
 
@@ -97,6 +117,12 @@ def main(argv: Optional[List[str]] = None) -> int:
               f"{args.out}_bet.npy  (matched prior: "
               f"--prior-probs {1 - lam:g},{lam:g} --prior-vars "
               f"0,{h2 / max(int(M * lam), 1):.6g})")
+    elif args.cmd == "phen":
+        d = sim.simulate_from_bed(args.bed, M, h2, lam, rng)
+        np.save(args.out + "_phen.npy", d.y)
+        np.save(args.out + "_bet.npy", d.beta.reshape(M, 1))
+        np.save(args.out + "_r.npy", d.r)
+        print(f"wrote {args.out}_{{phen,bet,r}}.npy")
     return 0
 
 

@@ -1,25 +1,40 @@
 """Data simulators, numpy only.
 
-A copy of sgvamp_tpu/data/simulate.py::simulate_single, simulate_ld_band,
-band_matvec and band_to_dense: importing anything under sgvamp_tpu imports
-jax, which the port does not use. The same seed gives the same arrays in
-both packages.
+A copy of sgvamp_tpu/data/simulate.py: importing anything under sgvamp_tpu
+imports jax, which the port does not use. The same seed gives the same
+arrays in both packages:
+
+  simulate_single     one cohort: beta variance 1/cm, noise sd
+                      sqrt(1/h2 - 1), y standardized, dense R
+  simulate_multi      K cohorts sharing one beta (variance h2/cm), fresh
+                      genotypes per cohort, noise sd sqrt(1 - h2), y not
+                      standardized, a dense R per cohort
+  simulate_from_bed   a phenotype over PLINK .bed genotypes (bed_reader if
+                      installed, else data/bed.py): beta variance h2/cm,
+                      noise sd sqrt(1 - h2), r only (no R)
+  simulate_ld_band    a biobank-scale banded panel in band storage
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 
 
 @dataclasses.dataclass
 class SimData:
-    y: np.ndarray              # (N,)
-    beta: np.ndarray           # (M,)
-    r: np.ndarray              # (M,)
-    R: Optional[np.ndarray]    # (M, M) or None
+    """One cohort's data (simulate_multi returns one per cohort, all with
+    the same beta)."""
+    y: np.ndarray              # (N,), the cohort's phenotype
+    beta: np.ndarray           # (M,), shared by every cohort
+    r: np.ndarray              # (M,), the cohort's X^T y
+    R: Optional[np.ndarray]    # (M, M), the cohort's X^T X; None from a .bed
+
+
+def _standardize_genotypes(X: np.ndarray) -> np.ndarray:
+    return (X - X.mean(axis=0)) / X.std(axis=0)
 
 
 def _sparse_beta(rng: np.random.Generator, M: int, lam: float, var: float) -> np.ndarray:
@@ -38,7 +53,7 @@ def simulate_single(
     noise sd sqrt(1/h2 - 1), y standardized, dense R = X^T X."""
     rng = rng or np.random.default_rng()
     X = rng.binomial(2, 0.4, size=(N, M)).astype(np.float64)
-    X = (X - X.mean(axis=0)) / X.std(axis=0)
+    X = _standardize_genotypes(X)
     beta = _sparse_beta(rng, M, lam, var=1.0 / int(M * lam))
     g = X @ beta
     w = rng.normal(0.0, np.sqrt(1.0 / h2 - 1.0), size=N)
@@ -46,6 +61,62 @@ def simulate_single(
     y = (y - y.mean()) / y.std()
     X /= np.sqrt(N)
     return SimData(y=y, beta=beta, r=X.T @ y, R=X.T @ X)
+
+
+def simulate_multi(
+    N: int, M: int, K: int = 2, h2: float = 0.8, lam: float = 0.5,
+    rng: Optional[np.random.Generator] = None,
+) -> List[SimData]:
+    """Multi-cohort generator: one shared beta, fresh genotypes per cohort,
+    unstandardized y."""
+    rng = rng or np.random.default_rng()
+    beta = _sparse_beta(rng, M, lam, var=h2 / int(M * lam))
+    out = []
+    for _ in range(K):
+        X = rng.binomial(2, 0.4, size=(N, M)).astype(np.float64)
+        X = _standardize_genotypes(X)
+        y = X @ beta + rng.normal(0.0, np.sqrt(1.0 - h2), size=N)
+        X /= np.sqrt(N)
+        out.append(SimData(y=y, beta=beta, r=X.T @ y, R=X.T @ X))
+    return out
+
+
+def simulate_from_bed(
+    bed_path: str, M: int, h2: float = 0.8, lam: float = 0.5,
+    rng: Optional[np.random.Generator] = None,
+) -> SimData:
+    """Phenotype simulation over real genotypes.
+
+    Prefers the optional bed_reader package; falls back to the vendored
+    PLINK1 reader (data/bed.py, the same A1-count orientation).
+    """
+    try:
+        from bed_reader import open_bed
+        X = open_bed(bed_path).read()
+    except ImportError:
+        from sgvamp_torch.data.bed import read_bed
+        X = read_bed(bed_path)
+    rng = rng or np.random.default_rng()
+    N = X.shape[0]
+    X = _standardize_genotypes(X)
+    beta = _sparse_beta(rng, M, lam, var=h2 / int(M * lam))
+    y = X @ beta + rng.normal(0.0, np.sqrt(1.0 - h2), size=N)
+    X /= np.sqrt(N)
+    return SimData(y=y, beta=beta, r=X.T @ y, R=None)
+
+
+def simulate_banded(
+    N: int, M: int, bandwidth: int, h2: float = 0.8, lam: float = 0.1,
+    K: int = 1, rng: Optional[np.random.Generator] = None,
+    dtype=np.float32,
+):
+    """Small-M dense wrapper around band-storage simulation (tests):
+    (Rs (K, M, M), rs (K, M), x0), the panel and r repeated per cohort."""
+    band, r, x0 = simulate_ld_band(N, M, bandwidth, h2, lam, rng=rng, dtype=dtype)
+    R = band_to_dense(band)
+    Rs = np.repeat(R[None], K, axis=0)
+    rs = np.repeat(r[None], K, axis=0)
+    return Rs, rs, x0
 
 
 def simulate_ld_band(

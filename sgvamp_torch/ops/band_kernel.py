@@ -73,6 +73,7 @@ import ctypes
 import dataclasses
 import functools
 import logging
+import re
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -599,6 +600,35 @@ def sym_band_matvec_hybrid_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tu
     counts kernel launches."""
     return _packed(sym_band_matvec_hybrid_spill, sym_band_matvec_hybrid_spill_ref, upper,
                    scales, x, True, True)
+
+
+# the band kernels as a device trace (torch.profiler, cli.main --profile-dir)
+# names them: a kernel event's name is its demangled __global__ instantiation.
+# int4 and hybrid are one template told apart by its last argument; an int8
+# or float streamed pass is two launches, the kernel and fold_partials_kernel.
+TRACED_KERNELS = {
+    "int4": r"sym_band_packed_kernel<\d+, \d+, false>",
+    "hybrid": r"sym_band_packed_kernel<\d+, \d+, true>",
+    "int8": r"sym_band_int8_kernel\b",
+    "fold": r"fold_partials_kernel\b",
+    "float": r"sym_band_float_kernel\b",
+    "resident": r"sym_band_resident_kernel\b",
+    "slab-resident": r"sym_slab_resident_kernel\b",
+    "slab-streamed": r"sym_slab_streamed_kernel\b",
+}
+_TRACED_ANY = re.compile("|".join(sorted({re.match(r"\w+", p)[0]
+                                           for p in TRACED_KERNELS.values()})))
+
+
+def traced_kernel_counts(names) -> dict:
+    """Events of each band kernel among a trace's kernel event names, by the
+    keys of TRACED_KERNELS, and under "other" the events that name a band
+    kernel yet match none of them (an instantiation this table misses)."""
+    names = [n for n in names if _TRACED_ANY.search(n)]
+    counts = {k: sum(bool(re.search(p, n)) for n in names) for k, p in TRACED_KERNELS.items()}
+    counts["other"] = sum(not any(re.search(p, n) for p in TRACED_KERNELS.values())
+                          for n in names)
+    return counts
 
 
 # the kernels over float blocks that give one warp one block row: what a CTA

@@ -15,6 +15,7 @@ import torch
 
 from sgvamp_torch.data.simulate import simulate_ld_band
 from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel_of,
+                                          traced_kernel_counts,
                                           sym_band_matvec,
                                           sym_band_matvec_ref,
                                           sym_band_matvec_spill,
@@ -33,6 +34,7 @@ from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel
                                           sym_slab_matvec_streamed_spill,
                                           sym_slab_matvec_streamed_spill_ref)
 from sgvamp_torch.ops.membench import measure_read_gbps, read_max, read_max_ref
+from sgvamp_torch.utils.profiling import TRACE_PAD_S
 from torch_packed_slots import packed_slots, term_magnitudes, worst_termwise_error
 
 pytestmark = pytest.mark.gpu
@@ -635,6 +637,8 @@ def _int8_termwise(upper, scales, x, spill):
     (128, 0, 9, 2, 2),      # hb=0: no mirror blocks, no partials, one launch
     (64, 1, 5, 1, 4),       # fewer block rows than a run
     (256, 2, 3, 2, 1),
+    (128, 63, 64, 2, 2),    # hb = nb - 1 and hb = nb (a dense panel's band of width
+    (128, 64, 64, 2, 2),    # M - 1 at B=128): the whole upper triangle
 ])
 def test_int8_kernel_reads_once_matches_plain(cuda, force_int8_runs, runs, B, hb, nb, K, S):
     force_int8_runs(runs)
@@ -1110,3 +1114,77 @@ def test_process_group_of_one_over_nccl_writes_the_plain_run_s_files(cuda, tmp_p
     assert sorted(group) == sorted(plain) and "g_xhat_it_3.bin" in plain
     for name in plain:
         assert group[name] == plain[name], name
+
+
+# the trace of --profile-dir: the kernels loaded through ctypes appear as CUDA
+# kernel events under their __global__ names (band_kernel.TRACED_KERNELS), one
+# a launch
+TRACED = {"hybrid": ("sym_band_matvec_hybrid", {"hybrid": 1}),
+          "int8": ("sym_band_matvec_int8", {"int8": 1, "fold": 1})}
+
+
+@pytest.mark.parametrize("ld_dtype", ["hybrid", "int8"])
+@pytest.mark.parametrize("fused", ["0", "1"])
+def test_profile_dir_traces_every_launch(cuda, tmp_path, fused, ld_dtype, caplog):
+    """cli.main --profile-dir on the card: one trace, whose kernel events of
+    the storage's kernel equal the run's launches (the wrappers' eager
+    counts, a fused run's warm-ups included, plus its graph replays from the
+    [fused] log line; an int8 pass is the kernel and its fold), no other
+    band kernel; the files equal the run's without the flag."""
+    import glob
+    import json
+    import os
+
+    from sgvamp_torch.cli import main as cli
+    from sgvamp_torch.cli import simulate
+
+    assert simulate.main(["gen-band", "--out", str(tmp_path / "p"), "--N", "20000", "--M",
+                          "4096", "--h2", "0.7", "--lam", "0.02", "--bandwidth", "200",
+                          "--seed", "3"]) == 0
+
+    def run(out, *extra):
+        assert cli.main(["--ld-files", str(tmp_path / "p_R.npz"), "--r-files",
+                         str(tmp_path / "p_r.npy"), "--true-signal-file",
+                         str(tmp_path / "p_bet.npy"), "--out-dir", str(out), "--out-name", "g",
+                         "--N", "20000", "--M", "4096", "--iterations", "4", "--operator",
+                         "sym", "--ld-dtype", ld_dtype, "--block-size", "128",
+                         "--cg-precond-block", "64", "--fused", fused, *extra]) == 0
+        return {n: (out / n).read_bytes() for n in sorted(os.listdir(out))}
+
+    wrapper = next(w for w in BAND_KERNELS if w.__name__ == TRACED[ld_dtype][0])
+    plain = run(tmp_path / "plain")
+    before = wrapper.launches
+    with caplog.at_level("DEBUG", logger="sgvamp"):
+        traced = run(tmp_path / "traced", "--profile-dir", str(tmp_path / "prof"))
+    launches = wrapper.launches - before
+    for m in caplog.messages:
+        if m.startswith("[fused] "):
+            launches += json.loads(m[len("[fused] "):])["graph_launches"].get(wrapper.__name__, 0)
+    assert traced == plain and launches > 0
+    (trace,) = glob.glob(str(tmp_path / "prof" / "process0.*.pt.trace.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = traced_kernel_counts(e["name"] for e in kernels)
+    # an eager launch runs one kernel under its own correlation; a graph
+    # launch runs all of its graph's kernels under the graph launch's
+    stamp = {e["args"]["correlation"]: e["ts"] for e in kernels}
+    want = {k: TRACED[ld_dtype][1].get(k, 0) * launches for k in counts}
+    # a kernel's stamp against its launch's, on the trace's clock: the
+    # offset device_trace's padded window must cover
+    runtime = [e for e in events if e.get("cat") == "cuda_runtime"
+               and e["name"] in ("cudaLaunchKernel", "cudaLaunchKernelExC")]
+    offsets = [stamp[e["args"]["correlation"]] - e["ts"] for e in runtime
+               if e["args"]["correlation"] in stamp]
+    unmatched = len(runtime) - len(offsets)
+    graphs = {e["args"]["correlation"] for e in events
+              if e.get("cat") == "cuda_runtime" and e["name"] == "cudaGraphLaunch"}
+    print(f"[trace] --fused {fused} {ld_dtype}: {counts} for {launches} launches; "
+          f"{len(offsets)} kernel launches, {unmatched} without a kernel event; kernel "
+          f"stamp - launch stamp min {min(offsets):.0f} us, median "
+          f"{sorted(offsets)[len(offsets) // 2]:.0f} us; {len(graphs)} graph launches, "
+          f"{sum(e['args']['correlation'] in graphs for e in kernels)} kernels from them")
+    assert counts == want, (counts, launches)
+    assert min(offsets) > -TRACE_PAD_S * 1e6
+    if fused == "0":   # a capture's launches run no kernel; eager ones each run one
+        assert unmatched == 0

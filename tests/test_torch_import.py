@@ -1,4 +1,5 @@
-"""The port imports without jax and pandas, and without CUDA, nvcc or Triton."""
+"""The port imports without jax and pandas, and without CUDA, nvcc, Triton
+or matplotlib (cli/plots.py and cli/vis_ld.py import it in main())."""
 
 import os
 import subprocess
@@ -13,7 +14,9 @@ MODULES = [
     "sgvamp_torch.cli",
     "sgvamp_torch.cli.main",
     "sgvamp_torch.cli.plink2np",
+    "sgvamp_torch.cli.plots",
     "sgvamp_torch.cli.simulate",
+    "sgvamp_torch.cli.vis_ld",
     "sgvamp_torch.config",
     "sgvamp_torch.core.cg",
     "sgvamp_torch.core.denoiser",
@@ -21,6 +24,7 @@ MODULES = [
     "sgvamp_torch.core.precond",
     "sgvamp_torch.core.prior",
     "sgvamp_torch.core.vamp",
+    "sgvamp_torch.data.bed",
     "sgvamp_torch.data.harmonize",
     "sgvamp_torch.data.loaders",
     "sgvamp_torch.data.plink",
@@ -78,7 +82,8 @@ def test_cli_main_imports_its_modules_without_jax():
 @pytest.mark.parametrize("module", MODULES)
 def test_imports_without_jax(module):
     code = (f"import sys, {module}\n"
-            "bad = [m for m in ('jax', 'sgvamp_tpu', 'triton', 'pandas') if m in sys.modules]\n"
+            "bad = [m for m in ('jax', 'sgvamp_tpu', 'triton', 'pandas', 'matplotlib')\n"
+            "       if m in sys.modules]\n"
             "assert not bad, bad\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(sgvamp_torch.__file__)))
     proc = subprocess.run([sys.executable, "-c", code], cwd=root,

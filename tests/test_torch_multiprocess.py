@@ -15,6 +15,7 @@ The parent holds what the children wrote against:
   * the one-process command line's files, byte for byte.
 """
 
+import json
 import os
 import shutil
 import socket
@@ -232,9 +233,10 @@ def test_cli_over_two_processes_writes_the_one_process_files(spawned, tmp_path, 
 
     def one(name):
         extra = [str(tmp_path / "ck") if v == "CK" else v for v in child.CLI_CASES[name]]
-        if "--mesh-shard" in extra:
-            i = extra.index("--mesh-shard")
-            extra = extra[:i] + extra[i + 2:]
+        for flag in ("--mesh-shard", "--profile-dir"):   # the run of one holds neither
+            if flag in extra:
+                i = extra.index(flag)
+                extra = extra[:i] + extra[i + 2:]
         assert tcli.main(child.cli_argv(str(panel), str(ref), "c", *extra)) == 0
 
     if case.startswith("ckpt"):
@@ -251,6 +253,20 @@ def test_cli_over_two_processes_writes_the_one_process_files(spawned, tmp_path, 
         assert got[name] == want[name], name
     if case.startswith("ckpt"):
         assert "c_xhat_it_3.bin" in got
+
+
+def test_every_process_writes_its_own_trace(spawned):
+    """--profile-dir over two processes (the int8 CLI case, --fused 1): one
+    trace a process, named by its index, each holding CPU events; the
+    traced run's files are the one-process run's (above)."""
+    _, out, _, _ = spawned
+    traces = sorted(os.listdir(out / "cli_prof"))
+    assert [t.split(".")[0] for t in traces] == ["process0", "process1"], traces
+    for t in traces:
+        assert t.endswith(".pt.trace.json")
+        with open(out / "cli_prof" / t) as f:
+            events = json.load(f)["traceEvents"]
+        assert any(e.get("cat") == "cpu_op" for e in events), t
 
 
 def test_multihost_init_without_configuration_returns_false(monkeypatch):

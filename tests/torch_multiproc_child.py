@@ -15,7 +15,8 @@ _p<p>) and prints one "OK <phase> process=<p>" line a phase:
     raising on every process;
   * checkpoint: a run over these processes resumed from a checkpoint that
     process 0 wrote;
-  * cli: cli.main over these processes, with and without --fused 1.
+  * cli: cli.main over these processes, with and without --fused 1 (the
+    int8 case with --profile-dir: a trace from each process).
 """
 
 import os
@@ -198,7 +199,8 @@ def cli_argv(panel, out, name, *extra):
 
 CLI_CASES = {
     "sym": ["--operator", "sym", "--cg-precond-block", "32", "--mesh-shard", "2"],
-    "int8": ["--operator", "sym", "--ld-dtype", "int8", "--x64", "0", "--fused", "1"],
+    "int8": ["--operator", "sym", "--ld-dtype", "int8", "--x64", "0", "--fused", "1",
+             "--profile-dir", "PROF"],
     "blocksparse": ["--operator", "blocksparse"],
     "ckpt": ["--operator", "sym", "--iterations", "2", "--checkpoint-dir", "CK"],
     "resume": ["--operator", "sym", "--iterations", "4", "--checkpoint-dir", "CK",
@@ -207,7 +209,8 @@ CLI_CASES = {
 
 
 def cli_case(name, out):
-    return [os.path.join(out, "cli_ck") if v == "CK" else v for v in CLI_CASES[name]]
+    dirs = {"CK": os.path.join(out, "cli_ck"), "PROF": os.path.join(out, "cli_prof")}
+    return [dirs.get(v, v) for v in CLI_CASES[name]]
 
 
 def run_cli(pid, nproc, port, out, panel):
