@@ -185,6 +185,33 @@ Phases, a few lines of output each (and fail on the first that fails):
      10d. where matplotlib imports: cli.plots over 10b's CSVs and
           cli.vis_ld over one of its R files, each PNG written; where it
           does not, a line says so.
+  11. the port bench and its A/B matrix, each a `python -m` child of this
+     script over the problem cache phase 2 fills with its M=524288 panel
+     (the bench's own problem, equal to the bit), so the host generates it
+     once:
+     11a. python -m sgvamp_torch.bench at its default size, the solve on:
+          exit 0 and no child error, the timed state finite, the
+          StopMonitor's iterate aligned >= 0.9 (printed beside phase 3's),
+          matvec_ms and the fused iter_ms_median within 15% of phase 6b's
+          chained int8 operator pass and 7a's fused s/iteration, 102 int8
+          launches a timed step by graph replay (none eager) and in the
+          host loop, the read probe and the int8 kernel launched by the
+          matvec child, the int8 kernel by the solve child, the int8
+          preconditioned solve converged; its JSON line printed;
+     11b. first every wrapper the A/B matrix launches (int8, int4, hybrid
+          and bfloat16 diag streamed, bfloat16 slab streamed, bfloat16
+          resident) on the card at its shapes, M=16384, bandwidth 128, S=2,
+          B=128 and 256, and at M=524288, bandwidth 256, B=256, against its
+          plain version (scaled error <= 1e-5); then python -m
+          sgvamp_torch.utils.ab_matrix --size small, the whole grid with
+          steps and solves: a row per storage x block x layout, the
+          quantized slab cells "unsupported", every other cell measured
+          and launching its own kernel and no other, every step row
+          measured with its storage's kernel (22 launches a timed step) and
+          its StopMonitor's iterate aligned >= 0.9, int8's preconditioned
+          solve converged (int4 stalling is that row's finding), and every
+          wrapper launched at a block size it was checked at; its document
+          printed on one line.
 Then a JSON line of the kernels' numbers, and the result line last.
 """
 
@@ -226,6 +253,9 @@ FUSED_TOL = SCALED_TOL
 PROFILED_BLOCKS = 512  # of the 8192 64 x 64 blocks whose eigh torch.profiler traces
 CG_MAXIT = 100
 MIN_ALIGNMENT = 0.9
+# phase 11a: the port bench's matvec_ms and fused iter_ms against phase 6b's
+# chained int8 operator pass and 7a's fused s/iteration, relative
+BENCH_TOL = 0.15
 # phase 10: the dense genotype generators (numpy on the host, as in the JAX
 # package): gen-phen-mult's cohorts and the .bed panel, and their signal
 MULT_N, MULT_M = 16384, 8192
@@ -1882,9 +1912,205 @@ def plots_path(work: str) -> dict:
     return {"ran": True, "seconds": seconds}
 
 
+def run_module(args: list, what: str, timeout: float) -> tuple:
+    """`python -m <args>` from the checkout's root with this process's
+    environment: (stdout, stderr, seconds). Fails on a non-zero exit or a
+    time-out."""
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                              timeout=timeout, cwd=os.path.dirname(os.path.abspath(__file__)))
+    except subprocess.TimeoutExpired:
+        fail(f"{what}: python -m {' '.join(args)} ran past {timeout:.0f} s")
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"{what}: python -m {' '.join(args)} exited {proc.returncode}: "
+             f"{proc.stdout[-1500:]} {proc.stderr[-1500:]}")
+    return proc.stdout, proc.stderr, seconds
+
+
+def port_bench(int8_run: dict, fused_int8: dict, pass_ms: float) -> dict:
+    """Phase 11a: python -m sgvamp_torch.bench at the default (large) size,
+    the solve child on, over the problem cache phase 2 filled. Checks: exit
+    0 and no child error, the timed state finite, the StopMonitor's iterate
+    aligned >= MIN_ALIGNMENT, matvec_ms and the fused iter_ms_median within
+    BENCH_TOL of phase 6b's chained int8 operator pass (the same timer over
+    the same operator) and 7a's fused s/iteration, 102 int8 launches a
+    timed step by graph replay (none eager) and eagerly in the host loop,
+    the read probe and the int8 kernel launched by the matvec child, the
+    int8 kernel by the solve child, the preconditioned solve converged."""
+    out, err, seconds = run_module(["sgvamp_torch.bench"], "11a bench", 900)
+    line = json.loads(out.splitlines()[-1])
+    step = line["launches"]["step"]
+    n = 102 * 12   # 4 blocks x 3 steps
+    mv = line["launches"]["matvec"]["launches"]
+    solve = line["solve_rtol1e5"]
+    checks = {
+        "no child failed": line["errors"] == {},
+        "step timed, state finite": line["step_timed"] and line["state_finite"],
+        f"align_stop_vs_x0 >= {MIN_ALIGNMENT}": line["align_stop_vs_x0"] >= MIN_ALIGNMENT,
+        f"matvec_ms within {BENCH_TOL:.0%} of 6b's chained int8 pass":
+            abs(line["matvec_ms"] / pass_ms - 1) <= BENCH_TOL,
+        f"fused iter_ms_median within {BENCH_TOL:.0%} of 7a":
+            abs(line["iter_ms_median"] / 1e3 / fused_int8["s_per_iteration"] - 1) <= BENCH_TOL,
+        "102 int8 launches a fused step, by replay": step["launches_fused"] ==
+            {"sym_band_matvec_int8": n} and step["launches_fused_eager"] == {},
+        "102 int8 launches a host-loop step": step["launches_host"] == {"sym_band_matvec_int8": n},
+        "matvec child: the probe and the int8 kernel": set(mv) == {"read_max",
+                                                                   "sym_band_matvec_int8"},
+        "solve child: the int8 kernel": set(solve["launches"]) == {"sym_band_matvec_int8"},
+        "int8 preconditioned solve converged": solve["precond_converged"],
+        "the card's own spec": line["hbm_spec_GBps"] == HBM_BYTES_PER_S / 1e9,
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    print(f"[11a bench] python -m sgvamp_torch.bench, M={line['M']} B={line['block_size']} "
+          f"{line['ld_dtype']}, in {seconds:.1f} s (problem loaded from the cache in "
+          f"{line['gen_s']} s): fused {line['iter_ms_median']} ms/iteration (7a "
+          f"{fused_int8['s_per_iteration'] * 1e3:.2f}), host loop "
+          f"{line['iter_ms_median_host']} ms (3: {int8_run['s_per_iteration'] * 1e3:.2f}), "
+          f"device {line['device_ms_per_step']} ms a fused step; matvec {line['matvec_ms']} ms "
+          f"(6b {pass_ms:.4f}), {line['matvec_GBps']} GB/s, ceiling "
+          f"{line['hbm_read_ceiling_GBps']}, {line['roofline_frac_vs_spec']} of "
+          f"{line['hbm_spec_GBps']} GB/s; align_stop {line['align_stop_vs_x0']} (phase 3's best "
+          f"iterate {int8_run['alignment']:.5f}), stop {line['stop_reason']} at "
+          f"{line['stop_it']}; solve plain {solve['plain_iters']} its {solve['plain_s']} s, "
+          f"precond {solve['precond_iters']} its {solve['precond_s']} s; compile_s "
+          f"{line['compile_s']}, kernels built {line['kernels_built']}; launches "
+          f"{line['launches']}; checks failed: {bad}", flush=True)
+    if bad:
+        fail(f"11a: the port bench failed {bad}: {err[-1500:]}")
+    print(json.dumps(line), flush=True)
+    return dict(line, seconds=seconds)
+
+
+def ab_kernels_vs_plain(dev) -> dict:
+    """Phase 11b, before the A/B matrix runs: every wrapper its grid, step
+    and solve rows launch, called on the card at the shapes they give it
+    and held against its plain version (scaled error <= SCALED_TOL): int8,
+    int4 and hybrid diag streamed, bfloat16 diag and slab streamed, and
+    bfloat16 resident (the solve rows' mode "auto" takes it), each at
+    M=16384, bandwidth 128, K=1, S=2 and B=128 and 256 (--size small), and
+    at M=524288, bandwidth 256, B=256 (the full-size grid's other block;
+    its B=128 cells are phase 2's full shape). The panels are the bench's
+    problems, which the A/B matrix then finds in the cache. Returns
+    {wrapper: {B: worst scaled error}}."""
+    from sgvamp_torch import bench
+    from sgvamp_torch.ops.band_kernel import SymBandedLD, band_kernel_of
+    from sgvamp_torch.utils import ab_matrix
+
+    shapes = [(ab_matrix.M_OF["small"], 128, B) for B in ab_matrix.BLOCKS]
+    shapes.append((M_FULL, BW_FULL, 256))
+    worst = {}
+    for M, bw, B in shapes:
+        band = bench.build_problem(M, bw, bench.N_SAMPLES, bench.LAM, bench.H2)[0]
+        for storage in ab_matrix.DTYPES:
+            diag = dataclasses.replace(
+                SymBandedLD.from_band(band, block_size=B, dtype=storage, device=dev),
+                mode="streamed")
+            ops = {"diag": diag}
+            if storage == "bfloat16":
+                ops["slab"] = dataclasses.replace(
+                    SymBandedLD.from_band(band, block_size=B, dtype=storage, layout="slab",
+                                          device=dev), mode="streamed")
+                ops["resident"] = dataclasses.replace(diag, mode="resident")
+            for form, op in ops.items():
+                name = band_kernel_of(op, 2)[0].__name__
+                _, rel = kernel_vs_plain(op, 2, B, f"{storage} {form}, 11b M={M} bandwidth "
+                                                   f"{bw} hb={op.hb} B={B} K=1 S=2")
+                got = worst.setdefault(name, {})
+                got[B] = max(got.get(B, 0.0), rel)
+            del ops, diag
+        del band
+    print(f"[11b kernels] the A/B matrix's wrappers against their plain versions at "
+          f"M=16384 bandwidth 128 B=128 and 256, and M={M_FULL} bandwidth {BW_FULL} B=256, "
+          f"K=1 S=2: worst scaled error "
+          + ", ".join(f"{k} " + " ".join(f"B={B} {v:.2e}" for B, v in b.items())
+                      for k, b in worst.items())
+          + f" (tol {SCALED_TOL})", flush=True)
+    return worst
+
+
+def ab_grid(out: str, checked: dict) -> dict:
+    """Phase 11b: python -m sgvamp_torch.utils.ab_matrix --size small over
+    the whole grid, steps and solves. Checks: one row per storage x block x
+    layout, quantized slab cells "unsupported", every other cell measured
+    and launching its own kernel and no other, every step row measured with
+    its storage's kernel and its StopMonitor's iterate aligned >=
+    MIN_ALIGNMENT, int8's preconditioned solve converged (int4 may stall:
+    that is the solve row's finding, not a failure), and every wrapper the
+    matrix launched held against its plain version at each block size it
+    ran (`checked`, ab_kernels_vs_plain's)."""
+    _, err, seconds = run_module(["sgvamp_torch.utils.ab_matrix", "--size", "small",
+                                  "--out", out], "11b ab_matrix", 600)
+    with open(out) as f:
+        doc = json.load(f)
+    own = {"bfloat16": "sym_band_matvec", "int8": "sym_band_matvec_int8",
+           "int4": "sym_band_matvec_int4", "hybrid": "sym_band_matvec_hybrid"}
+    cells = {(c["dtype"], c["B"], c["layout"]): c for c in doc["matvec_grid"]}
+    bad = []
+    if len(cells) != len(doc["matvec_grid"]) or len(cells) != 16:
+        bad.append(f"{len(doc['matvec_grid'])} rows for {len(cells)} cells, expected 16")
+    for (dtype, B, layout), c in cells.items():
+        if dtype != "bfloat16" and layout == "slab":
+            if "unsupported" not in c:
+                bad.append(f"{dtype} B={B} slab: {c}")
+            continue
+        kernel = "sym_slab_matvec_streamed" if layout == "slab" else own[dtype]
+        if "ms_per_pass" not in c or c.get("kernel") != kernel or set(c["launches"]) != {kernel}:
+            bad.append(f"{dtype} B={B} {layout}: {c}")
+    for dtype, row in doc["step_by_dtype"].items():
+        if ("error" in row or row["launches"] != {own[dtype]: 22 * 12}
+                or not row["align_stop"] >= MIN_ALIGNMENT):
+            bad.append(f"step {dtype}: {row}")
+    if set(doc["step_by_dtype"]) != set(own) or set(doc["solve_by_dtype"]) != set(own):
+        bad.append(f"step rows {sorted(doc['step_by_dtype'])}, solve rows "
+                   f"{sorted(doc['solve_by_dtype'])}")
+    if not doc["solve_by_dtype"].get("int8", {}).get("precond_converged"):
+        bad.append(f"int8 solve {doc['solve_by_dtype'].get('int8')}")
+    launches = {}
+    for c in doc["matvec_grid"]:
+        for k, v in c.get("launches", {}).items():
+            launches[k] = launches.get(k, 0) + v
+    for rows in (doc["step_by_dtype"], doc["solve_by_dtype"]):
+        for row in rows.values():
+            for k, v in row.get("launches", {}).items():
+                launches[k] = launches.get(k, 0) + v
+    ran_at = {}   # wrapper -> the block sizes at which the matrix launched it
+    for c in doc["matvec_grid"]:
+        for k in c.get("launches", {}):
+            ran_at.setdefault(k, set()).add(c["B"])
+    for rows in (doc["step_by_dtype"], doc["solve_by_dtype"]):
+        for row in rows.values():
+            for k in row.get("launches", {}):
+                ran_at.setdefault(k, set()).add(row["B"])
+    for k, blocks in ran_at.items():
+        if not blocks <= set(checked.get(k, {})):
+            bad.append(f"{k} launched at B={sorted(blocks)}, held against its plain version "
+                       f"at B={sorted(checked.get(k, {}))}")
+    print(f"[11b ab_matrix] --size small (M={doc['M']}) in {seconds:.1f} s: "
+          + ", ".join(f"{d} B={B} {lay} " + (f"{c['ms_per_pass']} ms" if "ms_per_pass" in c
+                                             else "unsupported")
+                      for (d, B, lay), c in cells.items())
+          + "; steps " + ", ".join(f"{d} {r.get('iter_ms_median')} ms (host "
+                                   f"{r.get('iter_ms_median_host')})"
+                                   for d, r in doc["step_by_dtype"].items())
+          + "; solves " + ", ".join(f"{d} precond {r.get('precond_iters')} its converged "
+                                    f"{r.get('precond_converged')}, plain "
+                                    f"{r.get('plain_iters')} converged "
+                                    f"{r.get('plain_converged')}"
+                                    for d, r in doc["solve_by_dtype"].items())
+          + f"; fastest {doc.get('fastest_cell')}; launches {launches}; checks failed: {bad}",
+          flush=True)
+    if bad:
+        fail(f"11b: the A/B matrix failed {bad}: {err[-1500:]}")
+    print(json.dumps(doc), flush=True)
+    return {"seconds": seconds, "launches": launches, "fastest_cell": doc.get("fastest_cell")}
+
+
 def main() -> None:
     import torch
 
+    from sgvamp_torch import bench as port_bench_mod
     from sgvamp_torch import native
     from sgvamp_torch.core.operators import BandedLD
     from sgvamp_torch.data.simulate import simulate_ld_band
@@ -2026,6 +2252,14 @@ def main() -> None:
     print(f"[2 set-up] gen-band at M={M_FULL} wrote its files in "
           f"{seconds['gen_band_full']:.1f} s; .npz -> band {band.shape} in "
           f"{seconds['load_panel_full']:.1f} s", flush=True)
+    # the port bench's problem is this panel (the same simulate_ld_band call,
+    # equal to the bit): phase 11 finds it in its cache and generates none
+    for k in [k for k in os.environ if k.startswith("SGVAMP_BENCH_")]:
+        del os.environ[k]
+    os.environ["SGVAMP_BENCH_CACHE_DIR"] = os.path.join(work.name, "bench_cache")
+    os.makedirs(os.environ["SGVAMP_BENCH_CACHE_DIR"])
+    np.savez(port_bench_mod.problem_path(M_FULL, BW_FULL), band=band,
+             r=r_full.astype(np.float32), x0=x0)
 
     t0 = time.perf_counter()
     S = 2
@@ -2276,8 +2510,10 @@ def main() -> None:
         counts = band_launches()
         if len(rows) != 1 or "error" in rows[0]:
             fail(f"kernel_bench variant {variant}: {rows}")
-        # one warm-up and four timed chains of n and of 2n passes
-        expect = 15 * BENCH_PASSES if own else 0
+        # two warm-ups (the second times the host's enqueue) and four timed
+        # chains of n and of 2n passes; a second try (a 2n chain no slower
+        # than its n chain) would show here as more
+        expect = 18 * BENCH_PASSES if own else 0
         got = {k: v for k, v in counts.items() if v}
         want = {own: expect} if own else {}
         if got != want:
@@ -2287,7 +2523,7 @@ def main() -> None:
     print("[5 kernel_bench] bfloat16, bench shape, ms per chained operator pass (kernel, "
           "casts, lane transposes and the regularization): "
           + ", ".join(f"{v} {r['ms_per_pass']} ({r['kernel']})" for v, r in bench_rows.items())
-          + "; each variant launched its own kernel 15 x passes times and no other",
+          + "; each variant launched its own kernel 18 x passes times and no other",
           flush=True)
     seconds["kernel_bench"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2417,6 +2653,19 @@ def main() -> None:
     t0 = time.perf_counter()
     figures = plots_path(work.name)
     seconds["plots"] = time.perf_counter() - t0
+
+    # ---- 11. the port bench and the A/B matrix ----
+    t0 = time.perf_counter()
+    bench_line = port_bench(int8_run, fused["int8"], spill["int8"]["unsharded_pass_ms"])
+    seconds["port_bench"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ab = ab_grid(os.path.join(work.name, "ab_small.json"), ab_kernels_vs_plain(dev))
+    seconds["ab_matrix"] = time.perf_counter() - t0
+    step_launches = bench_line["launches"]["step"]
+    bench_int8 = {"step_fused": step_launches["launches_fused"]["sym_band_matvec_int8"],
+                  "step_host": step_launches["launches_host"]["sym_band_matvec_int8"],
+                  "matvec": bench_line["launches"]["matvec"]["launches"]["sym_band_matvec_int8"],
+                  "solve": bench_line["launches"]["solve"]["launches"]["sym_band_matvec_int8"]}
     work.cleanup()
     seconds["total"] = time.perf_counter() - t_start
 
@@ -2438,7 +2687,13 @@ def main() -> None:
                       "checkpoints": ckpt, "blocksparse": blocksparse,
                       "process_group": processes,
                       "last_modules": {"profile_dir": traced, "gen_phen_mult": mult,
-                                       "bed": geno, "plots": figures}}))
+                                       "bed": geno, "plots": figures},
+                      "port_bench": {k: bench_line[k] for k in (
+                          "seconds", "value", "iter_ms_median", "iter_ms_median_host",
+                          "device_ms_per_step", "matvec_ms", "matvec_GBps",
+                          "hbm_read_ceiling_GBps", "roofline_frac_vs_spec",
+                          "align_stop_vs_x0", "solve_rtol1e5")},
+                      "ab_matrix": ab}))
 
     def band_entry(name, key, source, line, n_launch, library=None, **extra):
         f = full[key]
@@ -2501,18 +2756,22 @@ def main() -> None:
                    mle_fused_launches=mle_run["fused_launches"]["sym_band_matvec_int8"],
                    full_band=dict(mult["int8_full_band"],
                                   launches=mult["runs"]["sym"]["launches"]),
-                   bed_launches=geno["launches"]),
+                   bed_launches=geno["launches"], bench_launches=bench_int8,
+                   ab_matrix_launches=ab["launches"]["sym_band_matvec_int8"]),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
-                    bench_launches["streamed"], **read_once),
+                    bench_launches["streamed"], **read_once,
+                    ab_matrix_launches=ab["launches"]["sym_band_matvec"]),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
-                   cli["int4"]["launches"], **packed),
+                   cli["int4"]["launches"], **packed,
+                   ab_matrix_launches=ab["launches"]["sym_band_matvec_int4"]),
         band_entry("sym_band_matvec_hybrid", "hybrid", csrc + "sym_band_hybrid.cu", 179,
                    cli["hybrid"]["launches"], **packed, fused_launches=fused_cli["launches"],
+                   ab_matrix_launches=ab["launches"]["sym_band_matvec_hybrid"],
                    checkpoint_launches=[n for c in ckpt.values() for n in c["launches"]],
                    traced_events={k: v["kernel_events"] for k, v in traced.items()}),
         float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
                     333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"],
-                    **read_once),
+                    **read_once, ab_matrix_launches=ab["launches"]["sym_slab_matvec_streamed"]),
         float_entry("sym_band_matvec_resident", "resident", csrc + "sym_band_resident.cu", 46,
                     flavor_runs["resident"]["launches"]["sym_band_matvec_resident"]),
         float_entry("sym_band_matvec_window", "window", csrc + "sym_band_resident.cu", 83,
@@ -2525,7 +2784,8 @@ def main() -> None:
          "launches": launches["read_max"], "max_abs_err": probe_err,
          "ms": probe_s * 1e3, "plain_ms": probe_plain_ms,
          "bound_ms": probe_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-         "library_ms": probe_library_ms},
+         "library_ms": probe_library_ms,
+         "bench_launches": bench_line["launches"]["matvec"]["launches"]["read_max"]},
         spill_entry("sym_band_matvec_int8_spill", "int8", csrc + "sym_band_int8.cu", 197,
                     mesh_runs["int8"]["launches"]["sym_band_matvec_int8_spill"],
                     **int8_once(M_FULL // B_FULL // MESH_SHARDS),

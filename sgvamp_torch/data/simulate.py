@@ -144,21 +144,27 @@ def simulate_ld_band(
     Lb[:, 1:] = rng.uniform(-1.0, 1.0, size=(M, hb)) * prof[None, :]
     for d in range(1, hb + 1):  # zero out-of-range entries (row i < d)
         Lb[:d, d] = 0.0
+    # The JAX package's arithmetic, element for element, over transposed
+    # copies (Lt[d] = Lb[:, d], upper_t[k] = upper[:, k], band_t[j] =
+    # band[:, j]) whose rows are contiguous: the same values, several times
+    # faster at M=524288 than the strided columns.
+    Lt = np.ascontiguousarray(Lb.T)
+    del Lb
     # R[i, i+k] = sum_d Lb[i, d] * Lb[i+k, d+k]
-    upper = np.zeros((M, bandwidth + 1), dtype=np.float64)
+    upper_t = np.zeros((bandwidth + 1, M), dtype=np.float64)
     for k in range(0, bandwidth + 1):
-        acc = np.zeros(M)
+        acc = upper_t[k]
         for d in range(0, hb - k + 1):
-            acc[: M - k] += Lb[: M - k, d] * Lb[k:, d + k]
-        upper[:, k] = acc
-    diag = upper[:, 0].copy()
+            acc[: M - k] += Lt[d, : M - k] * Lt[d + k, k:]
+    diag = upper_t[0].copy()
     scale = 1.0 / np.sqrt(diag)
     for k in range(0, bandwidth + 1):
-        upper[: M - k, k] *= scale[: M - k] * scale[k:] if k else scale * scale
-    band = np.zeros((M, 2 * bandwidth + 1), dtype=dtype)
-    band[:, bandwidth:] = upper
+        upper_t[k, : M - k] *= scale[: M - k] * scale[k:] if k else scale * scale
+    band_t = np.zeros((2 * bandwidth + 1, M), dtype=dtype)
+    band_t[bandwidth:] = upper_t
     for k in range(1, bandwidth + 1):
-        band[k:, bandwidth - k] = upper[: M - k, k]
+        band_t[bandwidth - k, k:] = upper_t[k, : M - k]
+    del upper_t
 
     cm = max(int(M * lam), 1)
     beta = _sparse_beta(rng, M, lam, var=h2 / cm)
@@ -168,22 +174,24 @@ def simulate_ld_band(
     LW = np.zeros((n_r, M))
     for d in range(0, hb + 1):
         if d:
-            LW[:, d:] += Lb[d:, d] * W[:, : M - d]
+            LW[:, d:] += Lt[d, d:] * W[:, : M - d]
         else:
-            LW += Lb[:, 0] * W
+            LW += Lt[0] * W
     eps = np.sqrt(1.0 - h2) * scale * LW
-    r = (band_matvec(band, x0)[None, :] + eps).astype(dtype)
+    r = (_band_t_matvec(band_t, x0)[None, :] + eps).astype(dtype)
+    band = np.ascontiguousarray(band_t.T)
     return band, (r[0] if n_r == 1 else r), x0
 
 
-def band_matvec(band: np.ndarray, x: np.ndarray) -> np.ndarray:
-    """y = R @ x with R in symmetric band storage."""
-    M, nd = band.shape
+def _band_t_matvec(band_t: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """y = R @ x with R in symmetric band storage, given transposed:
+    band_t = band.T, whose rows are contiguous."""
+    nd, M = band_t.shape
     bw = (nd - 1) // 2
-    y = band[:, bw] * x
+    y = band_t[bw] * x
     for k in range(1, bw + 1):
-        y[: M - k] += band[: M - k, bw + k] * x[k:]
-        y[k:] += band[k:, bw - k] * x[: M - k]
+        y[: M - k] += band_t[bw + k, : M - k] * x[k:]
+        y[k:] += band_t[bw - k, k:] * x[: M - k]
     return y
 
 

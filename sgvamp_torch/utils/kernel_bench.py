@@ -8,7 +8,9 @@ tools/kernel_bench.py).
 
 Times chained matvec passes (each pass's output is the next one's input),
 n and 2n of them, and takes the difference over n, so that launch and fill
-costs cancel. On a CUDA device the chains are timed with CUDA events; with
+costs cancel. On a CUDA device the chains are timed with CUDA events,
+after the stream sleeps while the host queues the chain, so that the
+card's time is measured and not the host's rate of launches; with
 --platform cpu the host clock times the plain PyTorch versions, and the
 lines say "device": "cpu" (not a device number). PyTorch runs eagerly:
 there is no compile to warm.
@@ -18,6 +20,9 @@ window)?[G]: `einsum` is BandedLD, anything else SymBandedLD in diag or
 slab layout, with mode forced to resident (`window`: resident with
 window=True) or streamed, or left "auto", and G = rows_per_step. `memread`
 is the read probe of sgvamp_torch.ops.membench over the diag blocks.
+
+Without a band passed to main(), the panel is sgvamp_torch.bench's
+problem, from its cache (SGVAMP_BENCH_CACHE_DIR) when it holds it.
 
 Prints one JSON line per variant: {"variant": ..., "ms_per_pass": ...,
 "GBps": <block bytes / pass time>, "kernel": <the wrapper that ran>}; a
@@ -36,19 +41,18 @@ import time
 import numpy as np
 import torch
 
-from sgvamp_torch import default_device
+from sgvamp_torch import bench, default_device
 from sgvamp_torch.core.cg import cg_batched
 from sgvamp_torch.core.operators import BandedLD
-from sgvamp_torch.data.simulate import simulate_ld_band
 from sgvamp_torch.ops.band_kernel import SymBandedLD, band_kernel_of
 from sgvamp_torch.ops.membench import measure_read_gbps
 
 
 def build(M: int, bandwidth: int, seed: int = 0) -> np.ndarray:
-    """The bench's banded panel (N=300000, h2=0.7, lam=0.01) in band storage."""
-    band, _, _ = simulate_ld_band(300000, M, bandwidth, h2=0.7, lam=0.01,
-                                  rng=np.random.default_rng(seed), dtype=np.float32)
-    return band
+    """The bench's banded panel in band storage (sgvamp_torch.bench's
+    problem, from its cache when it holds it)."""
+    return bench.build_problem(M, bandwidth, bench.N_SAMPLES, bench.LAM, bench.H2,
+                               seed=seed)[0]
 
 
 def make(variant: str, band: np.ndarray, B: int, K: int, dtype: str, device):
@@ -71,29 +75,58 @@ def make(variant: str, band: np.ndarray, B: int, K: int, dtype: str, device):
     return dataclasses.replace(op, **kw)
 
 
-def _seconds(fn, device, reps: int = 4) -> float:
-    """The least of `reps` timings of fn(), after one warm-up call: CUDA
-    events on the card, the host clock on the CPU."""
+# clock cycles a second of torch.cuda._sleep: at least the card's clock
+# (1.98 GHz at most on an H100 SXM), so a sleep lasts at least its seconds
+_SLEEP_CYCLES_PER_S = 2e9
+
+
+def _once(fn, device, sleep_s: float) -> float:
+    """Seconds of one call of fn(): CUDA events on the card, after the
+    stream sleeps `sleep_s`, the host clock on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * _SLEEP_CYCLES_PER_S))
+    start.record()
     fn()
-    best = float("inf")
-    for _ in range(reps):
-        if device.type == "cuda":
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            best = min(best, start.elapsed_time(end) / 1e3)
-        else:
-            t0 = time.perf_counter()
-            fn()
-            best = min(best, time.perf_counter() - t0)
-    return best
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3
+
+
+def _enqueue_s(fn, device) -> float:
+    """The stream's sleep before a timed call: on the card, twice the host's
+    time to enqueue fn() on an idle stream (20 ms at least), so that every
+    launch of fn is queued before its first one runs and the events time
+    the card's work back to back, not a host that launches more slowly than
+    the card computes (a shared host's cores are); on the CPU none. Runs fn
+    once more to warm it."""
+    fn()
+    if device.type != "cuda":
+        return 0.0
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    fn()
+    enqueue = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    return max(0.02, 2.0 * enqueue)
+
+
+def _seconds(fn, device, reps: int = 4) -> float:
+    """The least of `reps` timings of fn() (see _once and _enqueue_s)."""
+    sleep_s = _enqueue_s(fn, device)
+    return min(_once(fn, device, sleep_s) for _ in range(reps))
 
 
 def time_passes(op, x: torch.Tensor, n: int) -> float:
-    """Seconds per matvec pass: the n / 2n difference of chained passes."""
+    """Seconds per matvec pass: the n / 2n difference of chained passes,
+    each chain's least of four timings, the two chains timed in turn so
+    that both see the same load. A try whose 2n chain is no slower than
+    its n chain (the host clock of a loaded CPU can show that) is made
+    again, three tries in all; then the 1e-12 floor is returned."""
     def chain(k):
         v = x
         for _ in range(k):
@@ -101,9 +134,16 @@ def time_passes(op, x: torch.Tensor, n: int) -> float:
             v = op.matvec(v) * 0.02
         return v
 
-    t_n = _seconds(lambda: chain(n), x.device)
-    t_2n = _seconds(lambda: chain(2 * n), x.device)
-    return max((t_2n - t_n) / n, 1e-12)
+    sleep_n = _enqueue_s(lambda: chain(n), x.device)
+    sleep_2n = _enqueue_s(lambda: chain(2 * n), x.device)
+    for _ in range(3):
+        t_n, t_2n = float("inf"), float("inf")
+        for _ in range(4):
+            t_n = min(t_n, _once(lambda: chain(n), x.device, sleep_n))
+            t_2n = min(t_2n, _once(lambda: chain(2 * n), x.device, sleep_2n))
+        if t_2n > t_n:
+            return (t_2n - t_n) / n
+    return 1e-12
 
 
 def time_cg(op, x: torch.Tensor, n: int) -> float:

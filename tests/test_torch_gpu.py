@@ -1188,3 +1188,52 @@ def test_profile_dir_traces_every_launch(cuda, tmp_path, fused, ld_dtype, caplog
     assert min(offsets) > -TRACE_PAD_S * 1e6
     if fused == "0":   # a capture's launches run no kernel; eager ones each run one
         assert unmatched == 0
+
+
+@pytest.fixture
+def bench_small(cuda, monkeypatch, tmp_path):
+    """sgvamp_torch.bench at the small size on the card (its knobs unset,
+    the problem cached under tmp_path); returns (bench, its problem)."""
+    import os
+
+    from sgvamp_torch import bench
+
+    for k in [k for k in os.environ if k.startswith("SGVAMP_BENCH_")]:
+        monkeypatch.delenv(k)
+    monkeypatch.setenv("SGVAMP_BENCH_SIZE", "small")
+    monkeypatch.setenv("SGVAMP_BENCH_CACHE_DIR", str(tmp_path))
+    M, bw, _, _, _ = bench._params()
+    return bench, bench.build_problem(M, bw, bench.N_SAMPLES, bench.LAM, bench.H2)
+
+
+def test_bench_step_child_on_the_card(bench_small):
+    """Both timings finite, the quality gate's iterate aligned, and the timed
+    blocks' int8 passes all kernels: cg_maxit + 2 = 22 a step, by graph
+    replay in the fused blocks (none eager) and eagerly in the host loop."""
+    bench, (band, r, x0) = bench_small
+    M, bw, B, cg_maxit, iters = bench._params()
+    got = bench.time_step_child(band, r, bench.N_SAMPLES, bench.LAM, bench.H2, iters, cg_maxit,
+                                B, x0=x0)
+    samples = got["iter_s_samples"] + got["iter_s_samples_host"]
+    assert len(samples) == 8 and all(np.isfinite(s) and s > 0 for s in samples)
+    assert np.isfinite(got["device_ms_per_step"]) and got["device_ms_per_step"] > 0
+    assert got["finite"] and got["align_stop"] > 0.95
+    n = got["timed_steps"] * (cg_maxit + 2)
+    assert got["launches_fused"] == {"sym_band_matvec_int8": n}
+    assert got["launches_host"] == {"sym_band_matvec_int8": n}
+    assert got["launches_fused_eager"] == {}
+
+
+def test_bench_matvec_child_on_the_card(bench_small):
+    """The child's bytes a pass are the operator's, the read probe ran, and
+    its ceiling is at least the chained pass's own rate."""
+    bench, (band, r, _) = bench_small
+    M, bw, B, cg_maxit, _ = bench._params()
+    matvec_s, memread_s, bpp, pre, post, launches = bench.time_matvec_child(
+        band, r, bench.N_SAMPLES, bench.LAM, bench.H2, cg_maxit, B)
+    op = SymBandedLD.from_band(band, block_size=B, dtype="int8", device="cuda")
+    assert bpp == op.bytes_per_pass()
+    assert launches["read_max"] > 0 and launches["sym_band_matvec_int8"] > 0
+    assert set(launches) == {"read_max", "sym_band_matvec_int8"}
+    assert 0 < memread_s and 0 < matvec_s
+    assert max(pre, post) >= bpp / matvec_s / 1e9

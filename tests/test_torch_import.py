@@ -11,6 +11,7 @@ import sgvamp_torch
 
 MODULES = [
     "sgvamp_torch",
+    "sgvamp_torch.bench",
     "sgvamp_torch.cli",
     "sgvamp_torch.cli.main",
     "sgvamp_torch.cli.plink2np",
@@ -41,6 +42,7 @@ MODULES = [
     "sgvamp_torch.parallel.multihost",
     "sgvamp_torch.parallel.sharding",
     "sgvamp_torch.utils",
+    "sgvamp_torch.utils.ab_matrix",
     "sgvamp_torch.utils.kernel_bench",
     "sgvamp_torch.utils.kernel_diag",
     "sgvamp_torch.utils.profiling",
