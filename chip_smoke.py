@@ -24,7 +24,9 @@ Phases, a few lines of output each (and fail on the first that fails):
      mode "auto" takes the streamed kernels (random bfloat16 blocks, hb=16,
      M=524288, S=2): the streamed diag and slab kernels and the resident
      kernel forced onto it (runs of 8 block rows), each against its plain
-     version and timed. The Triton read probe against its plain version,
+     version and timed. At the bench shape the int8 wrapper must keep the
+     runs with every diagonal in one range (ops/band_kernel.py::
+     _int8_tiles). The Triton read probe against its plain version,
      exactly. A small engine run on the GPU against the same run on the CPU
      (plain versions).
   3. the engine's library path: with the kernels' launch counts at zero,
@@ -175,8 +177,15 @@ Phases, a few lines of output each (and fail on the first that fails):
           without --bandwidth (the whole upper triangle, hb >= nb - 1):
           the int8 kernel once per LD pass, best-iterate alignment >= 0.9
           in both and within 0.02 of each other; the int8 kernel against
-          its plain version at that shape (K=2, S=2), timed beside its
-          bound and torch.matmul over the dense float32 panel.
+          its plain version at that shape (K=2, S=2) with the wrapper's
+          tiles of the band (ops/band_kernel.py::_int8_tiles, which must
+          cut the diagonals there) and with the runs alone (G=1, every
+          diagonal), the same bits on a repeat, the two timed beside each
+          other, the plain version, the bound and torch.matmul over the
+          dense float32 panel, the block bytes the counting build copies
+          (every held block once); the bf16 streamed kernel over the same
+          panel against its plain version, timed beside its bound and
+          torch.matmul over the dense bfloat16 panel.
      10c. write_bed an N=16384 x M=8192 panel (binomial(2, 0.4), seed 1),
           read_bed it back (equal; MB/s), simulate phen over it, R from
           the same standardized genotypes on the card in float64, then
@@ -1763,12 +1772,20 @@ def multi_cohort_path(work: str, dev) -> dict:
     int8 --block-size 128 and no --bandwidth (the whole upper triangle: the
     band reaches M - 1, so hb >= nb - 1), both at the biobank flags: best-iterate alignment >=
     MIN_ALIGNMENT in both, the two within 0.02; the int8 kernel once per LD
-    pass and against its plain version at the run's shape (K=2, S=2)."""
+    pass. Then at the run's shape (K=2, S=2): the int8 kernel against its
+    plain version, with the wrapper's tiles (ops/band_kernel.py::_int8_tiles)
+    and with the runs alone (G=1, every diagonal: the split before tiles),
+    the same bits on a repeat, timed beside each other and the plain
+    version, the block bytes the counting build copies (every held block
+    once), torch.matmul over the dense float32 panel; and the bf16 streamed
+    kernel over the same panel against its plain version, timed beside it
+    and torch.matmul over the dense bfloat16 panel."""
     import torch
 
     from sgvamp_torch.cli import simulate as cli_simulate
     from sgvamp_torch.data import loaders
-    from sgvamp_torch.ops.band_kernel import SymBandedLD, band_kernel_of
+    from sgvamp_torch.ops.band_kernel import SymBandedLD, _int8_tiles, _sm_count, band_kernel_of
+    from sgvamp_torch.utils.kernel_diag import forced_int8_tiles
 
     N, M = MULT_N, MULT_M
     pre = os.path.join(work, "mult")
@@ -1793,40 +1810,88 @@ def multi_cohort_path(work: str, dev) -> dict:
              f"{runs['sym']['alignment']:.5f} (sym int8)")
     band = loaders.csr_to_band(np.load(pre + "_0_R.npy"), None)[0]
     op = SymBandedLD.from_band(band, block_size=B_FULL, K=2, dtype="int8", device=dev)
-    del band
     nb, hb = op.nb, op.hb
     if nb != M // B_FULL or hb < nb - 1:
         fail(f"10b: the int8 operator has nb={nb}, hb={hb}: its band does not cover the panel")
+    tiles = _int8_tiles(nb, hb, _sm_count(torch.device(dev)))
+    runs_only = (1, hb + 1)
+    if tiles == runs_only:
+        fail(f"10b: the int8 wrapper keeps the runs alone (G, D) = {tiles} on the whole triangle")
     abs_err, rel = kernel_vs_plain(op, 2, 10, f"int8 at M={M}, nb={nb}, hb={hb}, K=2")
     kernel, plain, args, xdt = band_kernel_of(op, 2)
     x = torch.randn((op.K, 2, op.M), generator=torch.Generator(dev).manual_seed(3),
                     device=dev).to(xdt)
+    y = kernel(*args, x)
+    if not torch.equal(y, kernel(*args, x)):
+        fail(f"10b: the int8 kernel with tiles {tiles} gives other bits on a repeat")
+    del y
+    with forced_int8_tiles(*runs_only):
+        old_abs_err, old_rel = kernel_vs_plain(op, 2, 10, f"int8 at nb={nb}, hb={hb}, runs alone")
     ms, plain_ms = kernel_and_plain_ms(lambda: kernel(*args, x), lambda: plain(*args, x))
+
+    def old_split():
+        with forced_int8_tiles(*runs_only):
+            kernel(*args, x)
+
+    # the runs alone in the plain version's place: runs, tiles, tiles, runs
+    new_ms, old_ms = kernel_and_plain_ms(lambda: kernel(*args, x), old_split, n_plain=50)
     bound, bound_by, nbytes = bound_ms(op, 2, "int8")
+    counted = counted_block_bytes(op, 2, kernel, args, x)
     del op
-    # the library call: torch.matmul over the dense float32 panel (the same
-    # R x before quantization), both cohorts
+    # the bf16 streamed kernel over the same panel (measured beside int8)
+    op16 = dataclasses.replace(SymBandedLD.from_band(band, block_size=B_FULL, K=2,
+                                                     dtype="bfloat16", device=dev),
+                               mode="streamed")
+    del band
+    abs_err16, rel16 = kernel_vs_plain(op16, 2, 11, f"bfloat16 at M={M}, nb={nb}, hb={hb}, K=2")
+    kernel16, plain16, args16, xdt16 = band_kernel_of(op16, 2)
+    x16 = x.to(xdt16)
+    ms16, plain16_ms = kernel_and_plain_ms(lambda: kernel16(*args16, x16),
+                                           lambda: plain16(*args16, x16))
+    bound16, bound16_by, nbytes16 = bound_ms(op16, 2, "bfloat16")
+    del op16
+    # the library calls: torch.matmul over the dense float32 panel (the same
+    # R x before quantization) and over the panel in bfloat16, both cohorts
     R = torch.from_numpy(np.load(pre + "_0_R.npy")).to(dev, torch.float32).expand(2, M, M)
     R, xm = R.contiguous(), x.float().transpose(1, 2).contiguous()
     library_ms = cuda_ms(lambda: torch.matmul(R, xm), 20)
-    del R
+    R, xm = R.to(torch.bfloat16), xm.to(torch.bfloat16)
+    library16_ms = cuda_ms(lambda: torch.matmul(R, xm), 20)
+    del R, xm
     torch.cuda.empty_cache()
     res = {"N": N, "M": M, "gen_s": gen_s, "gap": gap,
            "runs": {k: {f: v[f] for f in ("alignment", "launches", "passes", "iterations",
                                           "ingest_s", "precond_eig_s", "infer_s", "total_s")}
                     for k, v in runs.items()},
-           "int8_full_band": {"nb": nb, "hb": hb, "K": 2, "S": 2,
+           "int8_full_band": {"nb": nb, "hb": hb, "K": 2, "S": 2, "tiles": list(tiles),
                               "max_abs_err": abs_err, "scaled_err": rel, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
-                              "bytes": nbytes, "library_ms": library_ms,
-                              "library_call": "torch.matmul, dense float32 panel"}}
+                              "bytes": nbytes, "block_bytes_read": counted,
+                              "library_ms": library_ms,
+                              "library_call": "torch.matmul, dense float32 panel",
+                              "runs_alone": {"tiles": list(runs_only), "ms": old_ms,
+                                             "tiles_ms": new_ms, "max_abs_err": old_abs_err,
+                                             "scaled_err": old_rel}},
+           "bf16_full_band": {"nb": nb, "hb": hb, "K": 2, "S": 2, "max_abs_err": abs_err16,
+                              "scaled_err": rel16, "ms": ms16, "plain_ms": plain16_ms,
+                              "bound_ms": bound16, "bound_by": bound16_by, "bytes": nbytes16,
+                              "library_ms": library16_ms,
+                              "library_call": "torch.matmul, dense bfloat16 panel",
+                              "float32_library_ms": library_ms}}
     print(f"[10b gen-phen-mult] N={N}, M={M}, K=2: generated on the host in {gen_s:.1f} s; "
           f"best-iterate alignment dense {runs['dense']['alignment']:.5f}, sym int8 "
           f"{runs['sym']['alignment']:.5f} (gap {gap:.5f}); int8 launches "
-          f"{runs['sym']['launches']} for {sum(runs['sym']['passes'])} LD passes; the int8 "
-          f"kernel at nb={nb}, hb={hb}, K=2, S=2: scaled error {rel:.1e}, "
-          f"{ms:.4f} ms a pass (plain {plain_ms:.4f}, bound {bound:.4f}, {bound_by}; "
-          f"torch.matmul over the dense float32 panel {library_ms:.4f})",
+          f"{runs['sym']['launches']} for {sum(runs['sym']['passes'])} LD passes", flush=True)
+    print(f"[10b int8 whole triangle] nb={nb}, hb={hb}, K=2, S=2, tiles (G, D) = {tiles}: "
+          f"scaled error {rel:.1e}, the same bits on a repeat, {ms:.4f} ms a pass (plain "
+          f"{plain_ms:.4f}, bound {bound:.4f}, {bound_by}, {nbytes} bytes; torch.matmul over "
+          f"the dense float32 panel {library_ms:.4f}); runs alone {runs_only}: scaled error "
+          f"{old_rel:.1e}, {old_ms:.4f} ms against {new_ms:.4f} with tiles in the same "
+          f"order (runs, tiles, tiles, runs); {counted} block bytes copied by the counting "
+          f"build", flush=True)
+    print(f"[10b bf16 whole triangle] {kernel16.__name__}: scaled error {rel16:.1e}, "
+          f"{ms16:.4f} ms a pass (plain {plain16_ms:.4f}, bound {bound16:.4f}, {bound16_by}, "
+          f"{nbytes16} bytes; torch.matmul over the dense bfloat16 panel {library16_ms:.4f})",
           flush=True)
     return res
 
@@ -2115,7 +2180,7 @@ def main() -> None:
     from sgvamp_torch.core.operators import BandedLD
     from sgvamp_torch.data.simulate import simulate_ld_band
     from sgvamp_torch.ops import _build
-    from sgvamp_torch.ops.band_kernel import SymBandedLD, _int8_runs, band_kernel_of
+    from sgvamp_torch.ops.band_kernel import SymBandedLD, _int8_runs, _int8_tiles, band_kernel_of
     from sgvamp_torch.ops.membench import (_prep, measure_read_gbps, read_max,
                                            read_max_ref)
     from sgvamp_torch.utils import kernel_bench
@@ -2282,7 +2347,13 @@ def main() -> None:
         counted = ""
         if key == "int8":
             full[key]["block_bytes_read"] = counted_block_bytes(op, S, kernel, args, xf)
-            counted = f", {full[key]['block_bytes_read']} counted by the kernel"
+            full[key]["hb"] = op.hb
+            full[key]["tiles"] = _int8_tiles(op.nb, op.hb, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            if full[key]["tiles"][1] != op.hb + 1:
+                fail(f"the int8 wrapper cuts the bench shape's diagonals: {full[key]['tiles']}")
+            counted = (f", {full[key]['block_bytes_read']} counted by the kernel, tiles (G, D) = "
+                       f"{full[key]['tiles']}")
         print(f"[2 {key}] {kernel.__name__}, full shape upper {tuple(op.upper.shape)} "
               f"{str(op.upper.dtype).split('.')[-1]} ({label}), "
               f"{op.bytes_per_pass()} bytes per pass, {nbytes} with x and y, {read} block "
@@ -2741,25 +2812,29 @@ def main() -> None:
                            "second launch"}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
-    def int8_once(nb):
-        return {"design": f"read once: runs of G={_int8_runs(nb, sms)} block rows, a warp a "
-                          "block row walks each int8 block once (cp.async ring, decoded "
-                          "without I2F), dot then scale, mirror sums that leave the run "
-                          "through a scratch of partial sums and a second launch"}
+    def int8_once(G, D):
+        return {"design": f"read once over tiles of G={G} block rows and D={D} diagonals, a "
+                          "warp a block row walks each int8 block of the tile once (cp.async "
+                          "ring, decoded without I2F), dot then scale, mirror sums that "
+                          "leave the run, and with several diagonal ranges the tiles' row "
+                          "sums, through a scratch of partial sums and a second launch"}
 
     print(smi)
     print(json.dumps({"kernels": [
         band_entry("sym_band_matvec_int8", "int8", csrc + "sym_band_int8.cu", 179,
-                   launches["sym_band_matvec_int8"], **int8_once(M_FULL // B_FULL),
+                   launches["sym_band_matvec_int8"],
+                   **int8_once(*full["int8"]["tiles"]),
                    fused_launches=fused["int8"]["launches"]["sym_band_matvec_int8"],
                    mle_launches=mle_run["launches"]["sym_band_matvec_int8"],
                    mle_fused_launches=mle_run["fused_launches"]["sym_band_matvec_int8"],
                    full_band=dict(mult["int8_full_band"],
-                                  launches=mult["runs"]["sym"]["launches"]),
+                                  launches=mult["runs"]["sym"]["launches"],
+                                  **int8_once(*mult["int8_full_band"]["tiles"])),
                    bed_launches=geno["launches"], bench_launches=bench_int8,
                    ab_matrix_launches=ab["launches"]["sym_band_matvec_int8"]),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
                     bench_launches["streamed"], **read_once,
+                    full_band=mult["bf16_full_band"],
                     ab_matrix_launches=ab["launches"]["sym_band_matvec"]),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
                    cli["int4"]["launches"], **packed,
@@ -2788,7 +2863,8 @@ def main() -> None:
          "bench_launches": bench_line["launches"]["matvec"]["launches"]["read_max"]},
         spill_entry("sym_band_matvec_int8_spill", "int8", csrc + "sym_band_int8.cu", 197,
                     mesh_runs["int8"]["launches"]["sym_band_matvec_int8_spill"],
-                    **int8_once(M_FULL // B_FULL // MESH_SHARDS),
+                    **int8_once(_int8_runs(M_FULL // B_FULL // MESH_SHARDS, sms),
+                                full["int8"]["hb"] + 1),
                     fused_launches=fused["int8 mesh"]["launches"]["sym_band_matvec_int8_spill"]),
         spill_entry("sym_band_matvec_spill", "bfloat16", csrc + "sym_band_float.cu", 197,
                     mesh_cli["bfloat16"]["launches"], timed_storage="bfloat16",

@@ -1,8 +1,8 @@
 // Symmetric block-banded matvec over int8 upper-triangle blocks (Hopper).
 //
-// Replaces sgvamp_tpu/ops/band_kernel.py::_sym_band_kernel_streamed, the
-// quantized flavor (quantized=True), with spill=False and, through the
-// second entry point, with spill=True.
+// Replaces sgvamp_tpu/ops/band_kernel.py:179, _sym_band_kernel_streamed
+// with quantized=True (int8 blocks, one f32 scale each), with spill=False
+// and, through the second entry point, with spill=True.
 //
 // What it computes, per cohort k and right-hand side s:
 //   y_i = sum_{d=0..hb, i+d<nb} sc[i,d]   * U[i,d]   @ x_{i+d}     (row part)
@@ -12,23 +12,36 @@
 // by the block's f32 scale, as the TPU kernel does. A bf16 times an int8 is
 // exact in f32, so only the order of the sums differs from the TPU.
 //
-// Bound. A pass must read every stored block once (1 byte an element) and
-// takes 2 S multiply-adds an element (row and mirror product), far below
-// the tensor cores' rate: bytes from HBM bound it on paper. Two things
-// stand in the way on this card. (1) The first design, a gather (one CTA an
-// output block row), read every off-diagonal block twice, (2hb+1)/(hb+1) of
-// the blocks, and already streamed that at the read probe's rate. (2) Once
-// the blocks are read once, the instructions an element, the decode and
-// the 2 S FMAs with the row sums' cross-lane adds, come close to the byte
-// bound: an int8 -> f32 conversion (I2F) issues at a fraction of the FMA
-// rate, so it is not used; and at S >= 2 the arithmetic, not the loads,
-// is what is left (PERF.md: utils/kernel_diag.py over S).
+// Bound. A pass must read every stored block that holds data once (1 byte
+// an element) and takes 2 S multiply-adds an element (row and mirror
+// product), far below the tensor cores' rate: bytes from HBM bound it on
+// paper. What stands in the way on this card: (1) a gather (one CTA an
+// output block row) reads every off-diagonal block twice; (2) once the
+// blocks are read once, the instructions an element, the decode and the
+// 2 S FMAs with the row sums' cross-lane adds, come close to the byte
+// bound (an int8 -> f32 conversion, I2F, issues at a fraction of the FMA
+// rate, so it is not used); (3) a warp streams its blocks at a few GB/s
+// while latency bounds it, so the card needs on the order of a thousand
+// warps, each with a similar share, to reach its rate: a band of few block
+// rows and many diagonals (a dense panel's whole triangle, nb = 64 and
+// hb = 64) must not be cut by block rows alone, where one warp of block
+// row 0 would stream all 64 of its blocks while the card idles.
 //
-// Design: the read-once scheme of sym_band_float.cu over int8 blocks.
-//  * Runs. A CTA owns a run of G consecutive block rows, one warp a block
-//    row; the wrapper chooses G from nb and the card's SM count
-//    (ops/band_kernel.py::_int8_runs), so that a 1024-row shard still gives
-//    every SM a CTA.
+// Design: the read-once scheme of sym_band_float.cu over int8 blocks, cut
+// into tiles of the band.
+//  * Tiles. A CTA takes the tile of run c (G consecutive block rows r0 =
+//    c G .. r0 + G - 1, one warp a block row) and diagonal range j
+//    (diagonals d0 = j D .. d0 + D - 1, at most hb): the band's J =
+//    ceil((hb + 1) / D) ranges. The wrapper picks (G, D)
+//    (ops/band_kernel.py::_int8_tiles): the runs of _int8_runs with D =
+//    hb + 1, one range, wherever that puts enough warps on the card (the
+//    bench shape, a 1024-row shard), else the fewest ranges that do. The
+//    grid holds only the tiles that hold data: a table in the kernel's
+//    parameters (Tiles) gives the first tile of each range, ranges in
+//    order and runs in order within each, and a CTA finds its (j, c) by a
+//    binary search of it. The spill form always takes one range. A pass of
+//    one range runs the kernel's instance without tiles (TILED false): no
+//    search, every diagonal from 0, y written in place.
 //  * One read. In phase d the warp of block row i walks block (i, d) once in
 //    row groups (sym_band_tile.cuh's Tile: 16 int8 a lane, 4 block rows a
 //    warp load at B = 128) and takes both products from the same
@@ -40,20 +53,35 @@
 //  * Row sums. A row's sum is spread over the LPR lanes that share it; one
 //    transposed butterfly adds a chunk's row groups over those lanes (3
 //    shuffles where a butterfly a row group takes 12, B = 128), then the
-//    sum is multiplied by sc[i,d] (dot, then scale) and added into the run's
-//    row sums in shared memory, one writer a row.
+//    sum is multiplied by sc[i,d] (dot, then scale) and added into the
+//    tile's row sums in shared memory, one writer a row.
 //  * Column sums (the mirror term, into block row t = i + d): x_i one value
 //    a row from a permuted copy of the run's x (4 rows a load), the sums of
 //    the lane's 16 columns in registers, added over the lanes' row positions
-//    by shuffles, multiplied by sc[i,d], then added into the run's mirror
-//    sums where t lies in the run (one writer a row a phase, a barrier
-//    between the phases that write there) or stored to the scratch of partial sums
-//    (sym_band_tile.cuh::Partials) where t lies in a later run or past the
-//    end of a shard.
-//  * The CTA writes y of its run once; the second launch, fold_partials,
-//    adds the partial sums into y in a fixed order of d, or writes them to
-//    the spill form's carry. No atomics (but the counting build's, below),
-//    no CTA waits on another: the same bits on every run.
+//    by shuffles, multiplied by sc[i,d], then added into the tile's mirror
+//    sums in shared memory where t lies in the tile's own run (d <= t mod G:
+//    one writer a row a phase, a barrier between the phases that write
+//    there) or stored to the scratch of partial sums
+//    (sym_band_tile.cuh::Partials, slot (t, d)) where t lies in a later run
+//    or past the end of a shard. Which mirror sums leave a CTA depends on
+//    the run only, not on the range, so Partials and its fold are the float
+//    kernels' as they are.
+//  * Out of a tile: with one range (J = 1) the CTA writes y of its run, row
+//    sums + mirror sums, once. With J > 1 no tile holds a whole row sum:
+//    the CTA stores its run's row + mirror sums to row j nb + t of a second
+//    part of the scratch (after the F hb partial slots of each cohort and
+//    lane; Scratch below), every row t < nb of the run, zeros included.
+//  * The second launch adds what went through the scratch in a fixed
+//    order: with J = 1 fold_partials (sym_band_tile.cuh) adds the partial
+//    slots into y in order of d, or writes them to the spill form's carry;
+//    with J > 1 fold_tiles writes y_t = the tile parts of ranges 0 ..
+//    J_t - 1 (those whose tile of t's run exists) and then its partial
+//    slots, in that order, dealt to groups of threads by a fixed rule and
+//    the groups added in order. fold_tiles is launched as the kernel's
+//    programmatic dependent, so that its launch and first CTAs overlap the
+//    kernel's last ones (about 1.5 µs a pass at nb = 64, hb = 64). No
+//    atomics (but the counting build's, below), no CTA waits on another
+//    of its grid: the same bits on every run.
 //
 // Spill form (one shard of a sharded operator; `carry` is not null): x
 // carries the next shard's first hb blocks after the shard's own nb (the
@@ -65,7 +93,7 @@
 //
 // Shared memory: the warps' rings (kStages x 2 KB a warp), x of the run,
 // its row sums and its mirror sums (3 G S B floats): 72 KB at G = 8,
-// B = 128, S = 2 (two CTAs an SM; registers bound it).
+// B = 128, S = 2 (two CTAs an SM; registers bound it), whatever D is.
 //
 // Built with -DSGV_COUNT_BLOCK_BYTES (ops/_build.py's library
 // sym_band_int8_counted), each warp also adds the bytes of every chunk of
@@ -88,15 +116,53 @@ constexpr int kMaxRunRows = 8;
 // in flight while it computes one, in no registers.
 constexpr int kChunk = 4;
 constexpr int kStages = 3;
+// the most diagonal ranges a pass may cut the band into: the wrapper's
+// INT8_MAX_RANGES
+constexpr int kMaxRanges = 128;
 
 #ifdef SGV_COUNT_BLOCK_BYTES
 __device__ unsigned long long g_block_bytes;   // block bytes the warps copied
 #endif
 
-// The stream of one warp over its blocks d = 0 .. n / NCH - 1 of block row
-// i: chunk c is row groups (c % NCH) CH .. + CH - 1 of block (i, c / NCH),
-// in slot c % kStages. Every lane copies and reads its own 16 bytes of each
-// row group, so a lane waits for its own copies only.
+// The tiles of a pass, in the kernel's parameters: D diagonals a range, J
+// ranges, and start[j] the first tile of range j (start[J] = all of them).
+// Range j holds the runs c whose first block row has data at diagonal j D:
+// c G + j D <= nx - 1, the x block rows less one (nb, or nb + hb with the
+// spill form's halo), and c G < nb.
+struct Tiles {
+  int D, J;
+  int start[kMaxRanges + 1];
+};
+
+Tiles tiles_of(int nb, int nx, int hb, int G, int D) {
+  Tiles tl{};
+  tl.D = D;
+  tl.J = (hb + D) / D;
+  const int runs = (nb + G - 1) / G;
+  for (int j = 0; j < tl.J && j < kMaxRanges; ++j) {
+    const int last = nx - 1 - j * D;   // the highest first row a run may have
+    const int n = last < 0 ? 0 : last / G + 1;
+    tl.start[j + 1] = tl.start[j] + (n < runs ? n : runs);
+  }
+  return tl;
+}
+
+// The scratch of a pass (K, S, rows, B) floats: Partials' F hb slots of
+// mirror sums, then with J > 1 the tiles' J nb rows of row sums (range j's
+// part of block row t in row F hb + j nb + t).
+struct Scratch {
+  Partials pp;
+  size_t rows;   // of B floats, a cohort and lane
+  __host__ __device__ Scratch(int nb, int hb, int G, bool spill, int J)
+      : pp(nb, hb, G, spill),
+        rows(static_cast<size_t>(pp.F) * hb + (J > 1 ? static_cast<size_t>(J) * nb : 0)) {}
+};
+
+// The stream of one warp over n / NCH consecutive blocks of block row i,
+// from block (i, d0): chunk c is row groups (c % NCH) CH .. + CH - 1 of
+// block (i, d0 + c / NCH), in slot c % kStages. Every lane copies and reads
+// its own 16 bytes of each row group, so a lane waits for its own copies
+// only.
 template <int B>
 struct Stream {
   using L = Tile<int8_t, B>;
@@ -105,7 +171,7 @@ struct Stream {
   static constexpr int NCH = NRG / CH;                      // chunks a block
   static constexpr int BYTES = kStages * CH * 32 * 16;      // the ring of a warp
   uint4* ring;          // the lane's vector in slot 0
-  const int8_t* src;    // the lane's first byte of block (i, 0)
+  const int8_t* src;    // the lane's first byte of block (i, d0)
   int n;                // chunks of the warp's blocks
 
   // copies chunk c (if there is one) and commits a group
@@ -136,8 +202,8 @@ struct Stream {
   }
 };
 
-// Both products of block (i, d), chunk by chunk (COLS:
-// d >= 1). Column sums go into cacc as in sym_band_tile.cuh's walker, with
+// Both products of block (i, d), the warp's n-th block, chunk by chunk
+// (COLS: d >= 1). Column sums go into cacc as in sym_band_tile.cuh's walker, with
 // x_i at the chunk's rows read 4 at a time from the run's x, which the
 // kernel stores permuted (xp: row p = g R + r of a block at r NRG + g, so
 // that a lane's rows in consecutive row groups are adjacent). The row sums
@@ -148,7 +214,7 @@ struct Stream {
 // u's total ends in the lanes l = u LPR / CH .. (u + 1) LPR / CH - 1 of its
 // row position, and the first of them adds it, times the scale, into rout.
 template <int B, int S, bool COLS>
-__device__ __forceinline__ void walk_stream(const Stream<B>& st, int d, int lane,
+__device__ __forceinline__ void walk_stream(const Stream<B>& st, int n, int lane,
                                             const float (&xc)[S][Tile<int8_t, B>::CV],
                                             const float* xp, float* rout, int stride,
                                             float (&cacc)[S][Tile<int8_t, B>::CV], float sc) {
@@ -160,7 +226,7 @@ __device__ __forceinline__ void walk_stream(const Stream<B>& st, int d, int lane
   const int sub = lane / L::LPR;
   const int l = lane % L::LPR;
   for (int b = 0; b < St::NCH; ++b) {
-    const uint4* slot = st.next(d * St::NCH + b);
+    const uint4* slot = st.next(n * St::NCH + b);
     uint4 v[CH];
 #pragma unroll
     for (int u = 0; u < CH; ++u) v[u] = slot[u * 32];
@@ -217,11 +283,16 @@ __device__ __forceinline__ void walk_stream(const Stream<B>& st, int d, int lane
   }
 }
 
-template <int B, int S>
+// TILED: the band is cut into J > 1 ranges (tl). Without it the CTA takes
+// run blockIdx.x over every diagonal and writes y: the kernel before tiles,
+// whose code a band that is not cut keeps (on an H100 with a few warps an
+// SM, the tile search's instructions slowed each warp by 7-8%).
+template <int B, int S, bool TILED>
 __global__ void __launch_bounds__(32 * kMaxRunRows, S <= 2 ? 2 : 1)
 sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__ scales,
                      const bf16_t* __restrict__ x, float* __restrict__ y,
-                     float* __restrict__ part, int nb, int hb, int G, bool spill) {
+                     float* __restrict__ part, int nb, int hb, int G, bool spill,
+                     const __grid_constant__ Tiles tl) {
   using L = Tile<int8_t, B>;
   using St = Stream<B>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -231,23 +302,42 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
   float* xs = reinterpret_cast<float*>(smem_raw + static_cast<size_t>(G) * St::BYTES);
   float* yr = xs + S * gstride;                     // S x G x B: row sums (xs: x of the run)
   float* ym = yr + S * gstride;                     // S x G x B: mirror sums from the run
-  const int r0 = blockIdx.x * G;
+
+  // the tile: range j (the last whose first tile is at most blockIdx.x),
+  // run c of it
+  int j = 0;
+  if (TILED) {
+    // fold_tiles, launched as this grid's programmatic dependent, may take
+    // the SMs that this grid's CTAs leave; it waits for all of them to
+    // finish before it reads the scratch
+    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+    for (int hi = tl.J - 1; j < hi;) {
+      const int mid = (j + hi + 1) / 2;
+      if (tl.start[mid] <= static_cast<int>(blockIdx.x)) j = mid;
+      else hi = mid - 1;
+    }
+  }
+  const int r0 = TILED ? (blockIdx.x - tl.start[j]) * G : blockIdx.x * G;
+  const int d0 = TILED ? j * tl.D : 0;
+  const int d1 = !TILED ? hb : d0 + tl.D - 1 < hb ? d0 + tl.D - 1 : hb;
   const int k = blockIdx.y;
   const int nx = spill ? nb + hb : nb;              // x block rows: with the halo in the spill form
   const size_t Mx = static_cast<size_t>(nx) * B;
   const int8_t* uk = upper + static_cast<size_t>(k) * nb * (hb + 1) * B * B;
   const float* sk = scales + static_cast<size_t>(k) * nb * (hb + 1);
   const bf16_t* xk = x + static_cast<size_t>(k) * S * Mx;
-  const Partials pp(nb, hb, G, spill);
-  const size_t pstride = static_cast<size_t>(pp.F) * hb * B;
+  const Scratch scr(nb, hb, G, spill, TILED ? tl.J : 1);
+  const Partials& pp = scr.pp;
+  const size_t pstride = scr.rows * B;              // between right-hand sides
   float* pk = part + static_cast<size_t>(k) * S * pstride;
 
-  // the warp's blocks: d = 0 .. min(hb, nx - 1 - i), none past the end
+  // the warp's blocks: d = d0 .. min(d1, nx - 1 - i), none past the end
   const int i = r0 + warp;
+  const int dend = d1 < nx - 1 - i ? d1 : nx - 1 - i;
   const St st{reinterpret_cast<uint4*>(smem_raw + static_cast<size_t>(warp) * St::BYTES) + lane,
-              uk + static_cast<size_t>(i) * (hb + 1) * B * B +
+              uk + (static_cast<size_t>(i) * (hb + 1) + d0) * B * B +
                   static_cast<size_t>(lane / L::LPR) * B + (lane % L::LPR) * L::V,
-              i < nb ? ((hb < nx - 1 - i ? hb : nx - 1 - i) + 1) * St::NCH : 0};
+              i < nb && d0 <= dend ? (dend - d0 + 1) * St::NCH : 0};
   for (int c = 0; c < kStages - 1; ++c) st.fetch(c);
 
   // x of the run, permuted within each block row for walk_stream; zeros past x
@@ -262,7 +352,7 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
   for (int e = threadIdx.x; e < 2 * S * gstride; e += blockDim.x) yr[e] = 0.0f;
   __syncthreads();
 
-  for (int d = 0; d <= hb; ++d) {
+  for (int d = d0; d <= d1; ++d) {
     const int t = i + d;   // the block's mirror term lands in block row t
     const bool live = i < nb && t < nx;
     const bool in_run = t < r0 + G && t < nb;
@@ -276,10 +366,10 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
         for (int c = 0; c < L::CV; ++c) cacc[s][c] = 0.0f;
       load_cols_global<int8_t, B, S, bf16_t>(xk + static_cast<size_t>(t) * B, Mx, lane, xc);
       if (d == 0) {
-        walk_stream<B, S, false>(st, d, lane, xc, nullptr, yr + warp * B, gstride, cacc, sc);
+        walk_stream<B, S, false>(st, 0, lane, xc, nullptr, yr + warp * B, gstride, cacc, sc);
       } else {
-        walk_stream<B, S, true>(st, d, lane, xc, xs + warp * B, yr + warp * B, gstride, cacc,
-                                sc);
+        walk_stream<B, S, true>(st, d - d0, lane, xc, xs + warp * B, yr + warp * B, gstride,
+                                cacc, sc);
         combine_cols<int8_t, B, S>(cacc);
 #pragma unroll
         for (int s = 0; s < S; ++s)
@@ -297,50 +387,133 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
   }
   __syncthreads();
 
-  // y of the run: row sums + the mirror sums from inside the run
+  // the run's row sums + the mirror sums from inside the run: y with one
+  // range, else the tile's rows of the scratch
   const size_t M = static_cast<size_t>(nb) * B;
-  float* yk = y + static_cast<size_t>(k) * S * M + static_cast<size_t>(r0) * B;
+  float* out = !TILED ? y + static_cast<size_t>(k) * S * M + static_cast<size_t>(r0) * B
+                      : pk + (static_cast<size_t>(pp.F) * hb + static_cast<size_t>(j) * nb +
+                              r0) * B;
+  const size_t ostride = !TILED ? M : pstride;
   for (int e = threadIdx.x; e < S * gstride; e += blockDim.x) {
     const int s = e / gstride;
     const int w = e - s * gstride;   // (block row of the run) * B + column
     if (r0 + w / B >= nb) continue;
-    yk[s * M + w] = yr[e] + ym[e];
+    out[s * ostride + w] = yr[e] + ym[e];
+  }
+}
+
+// The second launch of a pass over J > 1 ranges (the matvec form): CTA
+// (t, k) writes y_t of cohort k, the sum of the tile parts of t's run for
+// ranges 0 .. J_t - 1 (J_t: the ranges whose tile of that run exists) and
+// then of the partial slots d = t mod G + 1 .. min(hb, t) where t has
+// them (t mod G < H), in that order. The n sources are dealt round robin to
+// P groups of threads, a float4 of the S B values a thread; each group adds
+// its own in order, four loads at a time, and the groups' sums are added in
+// order of the group: one fixed order, the same bits on every run. It is
+// launched as the kernel's programmatic dependent (the launch attribute
+// cudaLaunchAttributeProgrammaticStreamSerialization): its CTAs may start
+// on the SMs the kernel's last CTAs leave, and wait (griddepcontrol.wait)
+// until the kernel's grid has finished and its writes are visible.
+template <int B, int S>
+__global__ void __launch_bounds__(256)
+fold_tiles_kernel(const float* __restrict__ part, float* __restrict__ y, int nb, int hb, int G,
+                  int D, int J) {
+  constexpr int V4 = S * B / 4;          // float4 of one source
+  constexpr int P = 256 / V4;            // groups of threads
+  __shared__ float4 sums[P][V4];
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // the kernel's grid has finished
+  const Scratch scr(nb, hb, G, false, J);
+  const Partials& pp = scr.pp;
+  const int t = blockIdx.x;
+  const int k = blockIdx.y;
+  const int r0 = t - t % G;
+  const int nj = (nb - 1 - r0) / D + 1 < J ? (nb - 1 - r0) / D + 1 : J;
+  const int o = t % G;
+  const int np = o < pp.H ? (hb < t ? hb : t) - o : 0;   // slots d = o + 1 .. min(hb, t)
+  const int n = nj + np;
+  const int g = threadIdx.x / V4;
+  const int v = threadIdx.x % V4;
+  const int s = v / (B / 4);
+  const size_t pstride = scr.rows * B;
+  const float* base = part + (static_cast<size_t>(k) * S + s) * pstride + (v % (B / 4)) * 4;
+  const float* tiles = base + (static_cast<size_t>(pp.F) * hb + t) * B;          // + j nb B
+  const float* slots = base + (static_cast<size_t>(pp.row(t)) * hb + o) * B;     // + (q - nj) B
+  auto src = [&](int q) {
+    return *reinterpret_cast<const float4*>(
+        q < nj ? tiles + static_cast<size_t>(q) * nb * B : slots + static_cast<size_t>(q - nj) * B);
+  };
+  auto add = [](float4& a, const float4& b) {
+    a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+  };
+  if (g < P) {
+    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    int q = g;
+    for (; q + 3 * P < n; q += 4 * P) {
+      const float4 a0 = src(q), a1 = src(q + P), a2 = src(q + 2 * P), a3 = src(q + 3 * P);
+      add(acc, a0); add(acc, a1); add(acc, a2); add(acc, a3);
+    }
+    for (; q < n; q += P) add(acc, src(q));
+    sums[g][v] = acc;
+  }
+  __syncthreads();
+  if (g == 0) {
+    float4 tot = sums[0][v];
+    for (int h = 1; h < P; ++h) add(tot, sums[h][v]);
+    *reinterpret_cast<float4*>(y + (static_cast<size_t>(k) * S + s) * nb * B +
+                               static_cast<size_t>(t) * B + (v % (B / 4)) * 4) = tot;
   }
 }
 
 template <int B, int S>
-int launch(const Args& a, const float* scales) {
-  if (a.G < 1 || a.G > kMaxRunRows) return -1;
+int launch(const Args& a, const float* scales, int D) {
+  const bool spill = a.carry != nullptr;
+  if (a.G < 1 || a.G > kMaxRunRows || D < 1 || D > a.hb + 1 ||
+      (a.hb + D) / D > kMaxRanges || (spill && D != a.hb + 1))
+    return -1;
   if (reinterpret_cast<uintptr_t>(a.upper) & 15)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  auto kernel = sym_band_int8_kernel<B, S>;
+  const Tiles tl = tiles_of(a.nb, spill ? a.nb + a.hb : a.nb, a.hb, a.G, D);
+  auto kernel = tl.J > 1 ? sym_band_int8_kernel<B, S, true> : sym_band_int8_kernel<B, S, false>;
   const size_t smem = static_cast<size_t>(a.G) * Stream<B>::BYTES +
                       static_cast<size_t>(3) * S * B * a.G * sizeof(float);
   if (const int err = reserve_shared(kernel, smem)) return err;
-  kernel<<<dim3((a.nb + a.G - 1) / a.G, a.K), 32 * a.G, smem, a.stream>>>(
+  kernel<<<dim3(tl.start[tl.J], a.K), 32 * a.G, smem, a.stream>>>(
       static_cast<const int8_t*>(a.upper), scales, static_cast<const bf16_t*>(a.x),
-      static_cast<float*>(a.y), static_cast<float*>(a.partials), a.nb, a.hb, a.G,
-      a.carry != nullptr);
-  return launch_fold<float>(a, B, S);
+      static_cast<float*>(a.y), static_cast<float*>(a.partials), a.nb, a.hb, a.G, spill, tl);
+  if (tl.J == 1) return launch_fold<float>(a, B, S);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(a.nb, a.K);
+  cfg.blockDim = dim3(256);
+  cfg.stream = a.stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, fold_tiles_kernel<B, S>,
+                                             static_cast<const float*>(a.partials),
+                                             static_cast<float*>(a.y), a.nb, a.hb, a.G, D,
+                                             tl.J));
 }
 
 template <int B>
-int launch_s(const Args& a, const float* scales, int S) {
+int launch_s(const Args& a, const float* scales, int S, int D) {
   switch (S) {
-    case 1: return launch<B, 1>(a, scales);
-    case 2: return launch<B, 2>(a, scales);
-    case 3: return launch<B, 3>(a, scales);
-    case 4: return launch<B, 4>(a, scales);
+    case 1: return launch<B, 1>(a, scales, D);
+    case 2: return launch<B, 2>(a, scales, D);
+    case 3: return launch<B, 3>(a, scales, D);
+    case 4: return launch<B, 4>(a, scales, D);
     default: return -1;
   }
 }
 
-int matvec(const Args& a, const void* scales, int B, int S) {
+int matvec(const Args& a, const void* scales, int B, int S, int D) {
   const auto* sc = static_cast<const float*>(scales);
   switch (B) {
-    case 64: return launch_s<64>(a, sc, S);
-    case 128: return launch_s<128>(a, sc, S);
-    case 256: return launch_s<256>(a, sc, S);
+    case 64: return launch_s<64>(a, sc, S, D);
+    case 128: return launch_s<128>(a, sc, S, D);
+    case 256: return launch_s<256>(a, sc, S, D);
     default: return -1;
   }
 }
@@ -349,33 +522,36 @@ int matvec(const Args& a, const void* scales, int B, int S) {
 
 // upper (K, nb, hb+1, B, B) int8, scales (K, nb, hb+1) f32, x (K, S, nb*B)
 // bf16 as raw 16-bit words, y (K, S, nb*B) f32, partials the scratch
-// (K, S, F, hb, B) f32 (sym_band_tile.cuh::Partials for runs of G; nothing
-// for hb = 0); all contiguous on the device, upper on a 16-byte boundary.
-// Runs of G block rows a CTA (1 <= G <= 8; any nb). Launches the kernel
-// and fold_partials on `stream`; returns 0 or the first launch's error
-// (cudaGetLastError() after each), 716 (cudaErrorMisalignedAddress) with
-// nothing launched for an unaligned upper, -1 for a block size, S or G the
-// kernel is not built for.
+// (K, S, rows, B) f32 (Scratch: Partials' F hb slots for runs of G, then J
+// nb rows with J = ceil((hb + 1) / D) > 1 ranges; nothing for hb = 0); all
+// contiguous on the device, upper on a 16-byte boundary. Tiles of G block
+// rows (1 <= G <= 8; any nb) and D diagonals (1 <= D <= hb + 1, at most
+// kMaxRanges ranges). Launches the kernel and its fold on `stream`;
+// returns 0 or the first launch's error (cudaGetLastError() after each),
+// 716 (cudaErrorMisalignedAddress) with nothing launched for an unaligned
+// upper, -1 for a block size, S, G or D the kernel is not built for.
 extern "C" int sgv_sym_band_int8_matvec(const void* upper, const void* scales,
                                         const void* x, void* y, void* partials, int K,
-                                        int nb, int hb, int B, int S, int G, void* stream) {
+                                        int nb, int hb, int B, int S, int G, int D,
+                                        void* stream) {
   const sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), nullptr,
                     partials};
-  return matvec(a, scales, B, S);
+  return matvec(a, scales, B, S, D);
 }
 
 // The spill form: upper and scales of one shard's nb block rows, x
 // (K, S, (nb+hb)*B) with the halo, y (K, S, nb*B) and carry (K, S, hb*B)
-// f32, the scratch with the carry's hb rows. With hb = 0 nothing is written
-// to carry (the caller's is one block of zeros). Returns as above.
+// f32, the scratch with the carry's hb rows; one range, D = hb + 1. With
+// hb = 0 nothing is written to carry (the caller's is one block of zeros).
+// Returns as above.
 extern "C" int sgv_sym_band_int8_spill(const void* upper, const void* scales,
                                        const void* x, void* y, void* carry, void* partials,
-                                       int K, int nb, int hb, int B, int S, int G,
+                                       int K, int nb, int hb, int B, int S, int G, int D,
                                        void* stream) {
   if (carry == nullptr) return -1;
   const sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), carry,
                     partials};
-  return matvec(a, scales, B, S);
+  return matvec(a, scales, B, S, D);
 }
 
 #ifdef SGV_COUNT_BLOCK_BYTES

@@ -463,8 +463,10 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
 
 def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool):
     """The int8 wrappers' body: `plain` on CPU tensors, else the kernel (a
-    pass of the read-once kernel and its fold of the partial sums, counted
-    once), counted on `wrapper`."""
+    pass of the read-once kernel over tiles of G block rows and D diagonals,
+    and its fold of the partial sums, counted once), counted on `wrapper`.
+    The matvec form takes the tiles of _int8_tiles, the spill form runs of
+    _int8_runs with every diagonal (D = hb + 1)."""
     _check_quantized(upper, scales, x, lambda u: u.shape[-1] == u.shape[-2],
                      lambda u: tuple(u.shape[:3]), "(K, nb, hb+1, B, B)")
     K, nb, nslot, B, _ = upper.shape
@@ -473,10 +475,11 @@ def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool)
     if x.device.type == "cpu":
         return plain(upper, scales, x)
     S = x.shape[1]
-    G = _int8_runs(nb, _sm_count(x.device))
+    sms = _sm_count(x.device)
+    G, D = (_int8_runs(nb, sms), hb + 1) if spill else _int8_tiles(nb, hb, sms)
     return _launch(wrapper, _int8_library, x, (upper, scales, x),
-                   (K, nb, hb, B, S, G), B, torch.float32, hb if spill else None,
-                   partials=_partials_shape(K, S, nb, hb, G, B, spill))
+                   (K, nb, hb, B, S, G, D), B, torch.float32, hb if spill else None,
+                   partials=_partials_shape(K, S, nb, hb, G, B, spill, D))
 
 
 # the library the int8 wrappers launch: its build that counts block bytes
@@ -605,12 +608,13 @@ def sym_band_matvec_hybrid_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tu
 # the band kernels as a device trace (torch.profiler, cli.main --profile-dir)
 # names them: a kernel event's name is its demangled __global__ instantiation.
 # int4 and hybrid are one template told apart by its last argument; an int8
-# or float streamed pass is two launches, the kernel and fold_partials_kernel.
+# or float streamed pass is two launches, the kernel and fold_partials_kernel
+# (an int8 pass whose tiles cut the band's diagonals: fold_tiles_kernel).
 TRACED_KERNELS = {
     "int4": r"sym_band_packed_kernel<\d+, \d+, false>",
     "hybrid": r"sym_band_packed_kernel<\d+, \d+, true>",
     "int8": r"sym_band_int8_kernel\b",
-    "fold": r"fold_partials_kernel\b",
+    "fold": r"fold_(?:partials|tiles)_kernel\b",
     "float": r"sym_band_float_kernel\b",
     "resident": r"sym_band_resident_kernel\b",
     "slab-resident": r"sym_slab_resident_kernel\b",
@@ -641,8 +645,17 @@ DIAG_RUN_ROWS = 8
 
 
 # the int8 kernel's longest run of block rows, one warp each
-# (csrc/sym_band_int8.cu kMaxRunRows)
+# (csrc/sym_band_int8.cu kMaxRunRows), and the most ranges it may cut the
+# band's diagonals into (kMaxRanges)
 INT8_MAX_RUN_ROWS = 8
+INT8_MAX_RANGES = 128
+# warps an SM that the int8 kernel's grid should hold before it cuts the
+# band's diagonals into ranges: a warp streams its blocks at a few GB/s, with
+# two 2 KB chunks in flight, so the card needs several warps an SM to reach
+# its rate. The bench shape (nb=4096, hb=2) holds 31 an SM over two waves,
+# a 1024-row shard 7.8; a dense panel's whole triangle (nb=64, hb=64) in
+# runs alone holds one warp on half the SMs.
+INT8_MIN_WARPS_PER_SM = 6
 
 
 def _int8_runs(nb: int, sms: int) -> int:
@@ -653,11 +666,46 @@ def _int8_runs(nb: int, sms: int) -> int:
     G = 8 would leave 4 of an H100's 132 SMs idle. A CTA's shared memory
     (each warp's ring of 3 chunks of 2 KB, and 3 G S B floats) is at most
     147,456 bytes (B = 256, S = 4), so it fits at every B and S, and hb
-    does not enter."""
+    and the tile's diagonals do not enter."""
     G = INT8_MAX_RUN_ROWS
     while G > 1 and -(-nb // G) < sms:
         G //= 2
     return G
+
+
+def _int8_tile_count(nb: int, hb: int, G: int, D: int) -> int:
+    """The tiles of the int8 kernel's matvec grid: for each run c of G block
+    rows (of ceil(nb / G)), one a range of D diagonals up to the last that
+    holds data in the run's first block row, min(hb, nb - 1 - c G)
+    (csrc/sym_band_int8.cu::tiles_of, which counts them by range)."""
+    return sum(-(-(min(hb, nb - 1 - r0) + 1) // D) for r0 in range(0, nb, G))
+
+
+def _int8_tiles(nb: int, hb: int, sms: int) -> tuple:
+    """(G, D): the int8 kernel's tiles over nb block rows and hb diagonals
+    past the first on a card of `sms` SMs, for the matvec form. G from
+    _int8_runs; D = hb + 1, every diagonal in one range, where the runs put
+    INT8_MIN_WARPS_PER_SM warps an SM on the card, else the fewest ranges J
+    (D = ceil((hb + 1) / J), at most INT8_MAX_RANGES) whose tiles do, or the
+    most there may be. A warp of a tile streams at most D blocks, so a band
+    of few block rows and many diagonals no longer waits on the warp of its
+    longest row."""
+    G = _int8_runs(nb, sms)
+    return G, _int8_diagonals(nb, hb, G, INT8_MIN_WARPS_PER_SM * sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _int8_diagonals(nb: int, hb: int, G: int, warps: int) -> int:
+    """D of _int8_tiles for runs of G: the fewest ranges whose tiles hold
+    `warps` warps (the count grows with the ranges: a binary search)."""
+    def enough(J):
+        return G * _int8_tile_count(nb, hb, G, -(-(hb + 1) // J)) >= warps
+
+    lo, hi = 1, min(hb + 1, INT8_MAX_RANGES)
+    while lo < hi:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if enough(mid) else (mid + 1, hi)
+    return -(-(hb + 1) // lo)
 
 
 @functools.lru_cache(maxsize=None)
@@ -668,13 +716,21 @@ def _sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _partials_shape(K: int, S: int, nb: int, hb: int, G: int, B: int, spill: bool) -> tuple:
-    """The streamed kernels' scratch of partial sums, (K, S, F, hb, B)
-    in y's type (csrc/sym_band_tile.cuh::Partials): one row for each of the
-    first min(hb, G) block rows of each run of G, and in the spill form one
-    for each of the carry's hb block rows."""
+def _partials_shape(K: int, S: int, nb: int, hb: int, G: int, B: int, spill: bool,
+                    D: Optional[int] = None) -> tuple:
+    """The streamed kernels' scratch of partial sums in y's type, (K, S,
+    rows, B). The mirror sums that leave a CTA's run of G block rows
+    (csrc/sym_band_tile.cuh::Partials) take F hb rows: hb slots for each of
+    the first min(hb, G) block rows of each run, and in the spill form for
+    each of the carry's hb block rows. The int8 kernel's tiles (D diagonals
+    of a run, csrc/sym_band_int8.cu::Scratch) leave the mirror sums as they
+    are (which leave depends on the run only); when D cuts the diagonals
+    into J = ceil((hb + 1) / D) > 1 ranges, no tile holds a whole row sum,
+    and each stores its run's rows after the slots of its cohort and lane:
+    J nb rows more."""
     F = -(-nb // G) * min(hb, G) + (hb if spill else 0)
-    return (K, S, F, hb, B)
+    J = 1 if D is None else -(-(hb + 1) // D)
+    return K, S, F * hb + (J * nb if J > 1 else 0), B
 
 
 def _geometry(upper: Tensor) -> tuple:

@@ -2,7 +2,8 @@
 
     python -m sgvamp_torch.utils.kernel_diag [--bytes 201326592] [--out FILE]
         [--storages int8,int4,hybrid,bfloat16,float32] [--hb 0,1,2]
-        [--bench-hb 2] [--int8-runs 8,4,2]
+        [--bench-hb 2] [--tile-shapes 64:64:2,4096:2:1]
+        [--int8-tiles 1:2,1:all,8:3]
 
 For each storage of SymBandedLD (int8, int4, hybrid, bfloat16, float32) the
 streamed diag kernel, and for the two float storages also the streamed
@@ -30,9 +31,14 @@ bound by bytes runs near the probe's time at hb=0 whatever S is; one bound
 by decoding keeps its elements per second from hb=0 to hb=2. The int4 and
 hybrid kernels read every off-diagonal slot twice, the int8 and float
 streamed kernels every block once (plus their partial sums), the resident
-ones once plus hb/(2G) of them at the run boundaries. `--int8-runs` also
-times the int8 kernel at the bench shape (whole and one shard) with each
-listed run length G in place of the wrapper's choice
+ones once plus hb/(2G) of them at the run boundaries. `--tile-shapes`
+(nb:hb:K or nb:hb:K:S, S=2 by default; 64:64:2 is a dense M=8192 panel's
+whole triangle over two cohorts, 4096:2:1 the bench shape) also times the
+int8 kernel over random bands of those shapes, with the wrapper's own tiles
+and with each tile G:D of `--int8-tiles` (G block rows and D diagonals; all:
+every diagonal, the runs before tiles) in place of its choice
+(ops/band_kernel.py::_int8_tiles); where the tile takes every diagonal, the
+spill form on one shard of four too, with runs of G
 (ops/band_kernel.py::_int8_runs). `--storages` times only
 the storages that a change touches (the whole run takes minutes). Run from
 another checkout's root with this file's path, the script times that
@@ -42,10 +48,12 @@ checkout's package (PYTHONPATH=. python /path/to/kernel_diag.py).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
 import sys
+from typing import Optional
 
 import torch
 
@@ -57,6 +65,7 @@ B = 128
 STORAGES = ("int8", "int4", "hybrid", "bfloat16", "float32")
 BENCH_NB, BENCH_S, BENCH_SHARDS = 4096, 2, 4   # M=524288
 PASSES = 20   # chained passes of a pass timing, as chip_smoke.py's BENCH_PASSES
+PROFILED_PASSES = 20   # --tile-shapes: passes under torch.profiler a line
 
 
 FLAVORS = {"streamed": ("diag", "streamed"), "slab-streamed": ("slab", "streamed"),
@@ -108,6 +117,90 @@ def _one_card_shards(op: bk.SymBandedLD, n: int) -> bk.SymBandedLD:
     return shard_inputs(inputs, make_mesh(1, n, devices=[dev] * n)).op
 
 
+@contextlib.contextmanager
+def forced_int8_tiles(G: int, D: Optional[int] = None):
+    """Within the block the int8 wrappers take runs of G block rows whatever
+    ops/band_kernel.py's rules would choose: the matvec form in tiles of D
+    diagonals (None: every diagonal; at most hb + 1) in place of
+    _int8_tiles', the spill form, which takes every diagonal, in place of
+    _int8_runs'."""
+    rules = bk._int8_tiles, bk._int8_runs
+    bk._int8_tiles = lambda nb, hb, sms: (G, hb + 1 if D is None else min(D, hb + 1))
+    bk._int8_runs = lambda nb, sms: G
+    try:
+        yield
+    finally:
+        bk._int8_tiles, bk._int8_runs = rules
+
+
+def _flat(out) -> torch.Tensor:
+    return torch.cat([t.flatten() for t in (out if isinstance(out, tuple) else (out,))])
+
+
+def _int8_tile_lines(smi: str, device, nb: int, hb: int, K: int, S: int, tiles: list) -> list:
+    """The int8 kernel over random blocks (zero past the matrix's end) of nb
+    block rows, hb diagonals past the first, K cohorts and S lanes: the
+    matvec form with the wrapper's own tiles and with each of `tiles` ((G,
+    D), D None for every diagonal); where D is every diagonal (and for the
+    wrapper's own), the spill form too over an interior shard of
+    BENCH_SHARDS when one holds more than hb block rows. Each form's cases
+    run in the order own, tiles, then back (A B C C B A), so that each is
+    timed twice and a drift of the card falls on both sides. Each line its
+    ms, its scaled error against the plain version, GB/s over the held
+    blocks, and the device µs a pass of the kernel and of its fold
+    (torch.profiler over PROFILED_PASSES passes: each launch's own span,
+    without the gaps; a fold_tiles launched as the kernel's programmatic
+    dependent starts while the kernel's last CTAs run, and its span holds
+    that wait)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    g = torch.Generator(device).manual_seed(nb + hb)
+    up = torch.randint(-128, 128, (K, nb, hb + 1, B, B), generator=g, device=device,
+                       dtype=torch.int8)
+    for d in range(1, hb + 1):
+        up[:, max(nb - d, 0):, d] = 0
+    sc = torch.rand((K, nb, hb + 1), generator=g, device=device) / 100
+    x = torch.randn((K, S, nb * B), generator=g, device=device).to(torch.bfloat16)
+    sms = bk._sm_count(device)
+    # a checkout from before the tiles takes runs of _int8_runs, every diagonal
+    own = (bk._int8_tiles(nb, hb, sms) if hasattr(bk, "_int8_tiles")
+           else (bk._int8_runs(nb, sms), hb + 1))
+    forms = [("whole", bk.sym_band_matvec_int8, bk.sym_band_matvec_int8_ref, (up, sc, x),
+              K * sum(min(hb, nb - 1 - i) + 1 for i in range(nb)), own)]
+    nb_l = nb // BENCH_SHARDS
+    if nb_l > hb:
+        x_l = torch.randn((K, S, (nb_l + hb) * B), generator=g, device=device)
+        forms.append(("one shard of 4", bk.sym_band_matvec_int8_spill,
+                      bk.sym_band_matvec_int8_spill_ref,
+                      (up[:, nb_l:2 * nb_l].contiguous(), sc[:, nb_l:2 * nb_l].contiguous(),
+                       x_l.to(torch.bfloat16)),
+                      K * nb_l * (hb + 1), (bk._int8_runs(nb_l, sms), hb + 1)))
+    lines = []
+    for form, kernel, plain, args, held, own_tiles in forms:
+        want = _flat(plain(*args))
+        cases = [None] + [t for t in dict.fromkeys(tiles) if form == "whole" or t[1] is None]
+        for tile in cases + cases[::-1]:
+            G, D = own_tiles if tile is None else (tile[0], min(tile[1] or hb + 1, hb + 1))
+            with contextlib.nullcontext() if tile is None else forced_int8_tiles(*tile):
+                err = float((_flat(kernel(*args)) - want).abs().max() / want.abs().max())
+                ms = _ms(lambda: kernel(*args))
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(PROFILED_PASSES):
+                        kernel(*args)
+                    torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+            us = {name: sum(e.device_time_total for e in ev if pat in e.key) / PROFILED_PASSES
+                  for name, pat in (("kernel_us", "sym_band_int8_kernel"), ("fold_us", "fold_"))}
+            lines.append({"card": smi, "storage": "int8", "shape": "tiles", "form": form,
+                          "nb": nb if form == "whole" else nb_l, "hb": hb, "K": K, "S": S,
+                          "G": G, "D": D, "chosen": tile is None, "ms": ms, "scaled_err": err,
+                          "held_block_bytes": held * B * B,
+                          "gbps_over_held_blocks": held * B * B / ms / 1e6, **us})
+            print(json.dumps(lines[-1]), flush=True)
+    return lines
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--bytes", type=int, default=201326592,
@@ -120,13 +213,16 @@ def main(argv=None) -> int:
     ap.add_argument("--bench-hb", default="2",
                     help="comma-separated block diagonals of the bench-shape cases "
                          "(2 is the bench's bandwidth 256)")
-    ap.add_argument("--int8-runs", default="",
-                    help="comma-separated run lengths G (block rows a CTA) at which to "
-                         "time the int8 kernel at the bench shape too")
+    ap.add_argument("--tile-shapes", default="",
+                    help="comma-separated nb:hb:K[:S] of random bands over which to time "
+                         "the int8 kernel with its own tiles and the --int8-tiles ones")
+    ap.add_argument("--int8-tiles", default="",
+                    help="comma-separated tiles G:D (D 'all': every diagonal) to force over "
+                         "the --tile-shapes bands")
     args = ap.parse_args(argv)
-    storages = args.storages.split(",")
-    hbs = [int(v) for v in args.hb.split(",")]
-    bench_hbs = [int(v) for v in args.bench_hb.split(",")]
+    storages = [v for v in args.storages.split(",") if v]
+    hbs = [int(v) for v in args.hb.split(",") if v]
+    bench_hbs = [int(v) for v in args.bench_hb.split(",") if v]
     if not set(storages) <= set(STORAGES):
         raise SystemExit(f"--storages takes {', '.join(STORAGES)}")
     if not torch.cuda.is_available():
@@ -171,28 +267,11 @@ def main(argv=None) -> int:
                     "probe_ms_for_the_blocks": probe_s * 1e3, "probe_gbps": gbps})
                 print(json.dumps(lines[-1]), flush=True)
             del op, k_args, x
-    forced = [int(g) for g in args.int8_runs.split(",") if g]
-    for G, hb in [(g, hb) for hb in bench_hbs for g in forced]:
-        op = _random_operator("int8", BENCH_NB, hb, device)
-        nb_l = BENCH_NB // BENCH_SHARDS
-        piece = dataclasses.replace(op, upper=op.upper[:, nb_l:2 * nb_l].contiguous(),
-                                    scales=op.scales[:, nb_l:2 * nb_l].contiguous())
-        chosen = bk._int8_runs
-        bk._int8_runs = lambda nb, sms: G
-        try:
-            for form, o, spill in (("whole", op, False), ("one shard of 4", piece, True)):
-                kernel, _, k_args, xdt = bk.band_kernel_of(o, BENCH_S, spill=spill)
-                x = torch.randn((1, BENCH_S, o.M + (o.hb * B if spill else 0)),
-                                device=device).to(xdt)
-                ms = _ms(lambda: kernel(*k_args, x))
-                lines.append({"card": smi, "storage": "int8", "flavor": "streamed",
-                              "shape": "bench", "form": form, "runs": G,
-                              "kernel": kernel.__name__, "hb": o.hb, "nb": o.nb, "S": BENCH_S,
-                              "bytes_per_pass": o.bytes_per_pass(), "ms": ms})
-                print(json.dumps(lines[-1]), flush=True)
-        finally:
-            bk._int8_runs = chosen
-        del op, piece, k_args, x
+    tiles = [(int(G), None if D == "all" else int(D))
+             for G, D in (v.split(":") for v in args.int8_tiles.split(",") if v)]
+    for shape in [v for v in args.tile_shapes.split(",") if v]:
+        nb, hb, K, S = (list(map(int, shape.split(":"))) + [BENCH_S])[:4]
+        lines += _int8_tile_lines(smi, device, nb, hb, K, S, tiles)
     bench = [(st, "streamed", hb) for hb in bench_hbs for st in storages]
     bench += [(st, "slab-streamed", hb) for hb in bench_hbs for st in ("bfloat16", "float32")
               if st in storages]

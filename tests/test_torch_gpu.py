@@ -7,6 +7,7 @@ there the JAX settings in conftest.py must be skipped:
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
 
+import contextlib
 import dataclasses
 
 import numpy as np
@@ -769,6 +770,121 @@ def test_int8_kernel_reads_every_block_once(cuda, force_int8_runs, spill, B, hb,
     want = kernel(upper, scales, x)
     got, want = (got[0], want) if spill else ((got[0],), (want,))
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+# The int8 kernel's tiles (csrc/sym_band_int8.cu): runs of G block rows and
+# ranges of D diagonals, so that a band of few block rows and many diagonals
+# (a dense panel's whole upper triangle, hb >= nb - 1) fills the card; with
+# more than one range the tiles' row sums go through the scratch too and
+# fold_tiles adds them. Held against the plain version (scaled 1e-5) at the
+# rule's own tiles (ops/band_kernel.py::_int8_tiles) and at forced ones, the
+# same bits on a repeat, one read of every held block by the counting build.
+
+
+@pytest.fixture
+def force_int8_tiles():
+    """force(tiles): until the test ends the int8 wrappers take tiles (G, D)
+    (D None: every diagonal; utils/kernel_diag.py::forced_int8_tiles), or
+    their own choice for None."""
+    from sgvamp_torch.utils.kernel_diag import forced_int8_tiles
+
+    with contextlib.ExitStack() as stack:
+        yield lambda tiles: tiles is None or stack.enter_context(forced_int8_tiles(*tiles))
+
+
+def _tiles_id(tiles):
+    return "chosen" if tiles is None else f"G{tiles[0]}D{tiles[1] or 'all'}"
+
+
+def _int8_pass(upper, scales, x):
+    """One counted pass of the int8 matvec kernel and its plain version."""
+    before = [w.launches for w in BAND_KERNELS]
+    y = sym_band_matvec_int8(upper, scales, x)
+    torch.cuda.synchronize()
+    after = [w.launches for w in BAND_KERNELS]
+    assert sum(after) == sum(before) + 1   # the kernel and its fold, counted once
+    assert sym_band_matvec_int8.launches == before[BAND_KERNELS.index(sym_band_matvec_int8)] + 1
+    want = sym_band_matvec_int8_ref(upper, scales, x)
+    assert y.dtype == want.dtype == torch.float32 and y.shape == want.shape
+    return y, want
+
+
+@pytest.mark.parametrize("S", range(1, 5))
+@pytest.mark.parametrize("wider", [0, 1], ids=["hb=nb-1", "hb=nb"])
+@pytest.mark.parametrize("nb", [16, 64])
+@pytest.mark.parametrize("B", [64, 128, 256])
+def test_int8_kernel_on_whole_triangle_matches_plain(cuda, B, nb, wider, S):
+    """The wrapper's own tiles over a dense panel's whole triangle, K 1 or 2."""
+    hb, K = nb - 1 + wider, 1 + S % 2
+    upper, scales = _int8_blocks(K, nb, hb, B, B + nb + hb + S, cuda)
+    x = torch.from_numpy(np.random.default_rng(nb + S).normal(size=(K, S, nb * B))).to(
+        cuda, torch.bfloat16)
+    y, want = _int8_pass(upper, scales, x)
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= SCALED_TOL, err
+    assert torch.equal(y, sym_band_matvec_int8(upper, scales, x))  # no atomics
+
+
+@pytest.mark.parametrize("tiles", [None, (1, 1), (1, None), (8, 1), (8, 3), (3, 2), (5, 7),
+                                   (2, None), (4, 2)], ids=_tiles_id)
+@pytest.mark.parametrize("B,hb,nb,K,S", [
+    (64, 15, 16, 2, 1),     # whole triangles
+    (128, 13, 13, 1, 2),
+    (256, 9, 9, 2, 3),
+    (128, 16, 37, 2, 4),    # a band, ragged: the last run is short
+    (64, 2, 11, 3, 2),      # K=3
+    (128, 0, 9, 2, 2),      # hb=0: one range whatever is forced
+])
+def test_int8_kernel_forced_tiles_match_plain(cuda, force_int8_tiles, tiles, B, hb, nb, K, S):
+    force_int8_tiles(tiles)
+    upper, scales = _int8_blocks(K, nb, hb, B, B + 3 * hb + nb, cuda)
+    x = torch.from_numpy(np.random.default_rng(hb + S).normal(size=(K, S, nb * B))).to(
+        cuda, torch.bfloat16)
+    y, want = _int8_pass(upper, scales, x)
+    err = float((y - want).abs().max() / want.abs().max())
+    assert err <= SCALED_TOL, err
+    assert torch.equal(y, sym_band_matvec_int8(upper, scales, x))  # no atomics
+
+
+@pytest.mark.parametrize("S", range(1, 5))
+@pytest.mark.parametrize("B", [64, 128, 256])
+def test_int8_whole_triangle_on_every_byte_value(cuda, force_int8_tiles, B, S):
+    """Every byte value in every position of every slot of a whole triangle
+    (nb=5, hb=5), with tiles that vary with the case: scaled 1e-5 by max|y|
+    and element by element by the sum of the element's own |terms|, the same
+    bits on a second run."""
+    force_int8_tiles([None, (1, 1), (2, 2), (3, None)][(B // 64 + S) % 4])
+    nb = hb = 5
+    K = 1 + S % 2
+    upper, scales = _int8_blocks(K, nb, hb, B, B + 10 * S, cuda, every_byte=True)
+    x = torch.from_numpy(np.random.default_rng(S).normal(size=(K, S, nb * B))).to(
+        cuda, torch.bfloat16)
+    y, want = _int8_pass(upper, scales, x)
+    err = float((y - want).abs().max()) / float(want.abs().max())
+    assert err <= SCALED_TOL, err
+    mags = _int8_termwise(upper, scales, x, False)
+    err = worst_termwise_error([y.cpu()], [want.cpu()], [m.numpy() for m in mags])
+    assert err <= SCALED_TOL, err
+    assert torch.equal(y, sym_band_matvec_int8(upper, scales, x))  # no atomics
+
+
+@pytest.mark.parametrize("tiles", [None, (1, 1), (8, 3), (1, None)], ids=_tiles_id)
+@pytest.mark.parametrize("B,nb,hb,K", [(128, 64, 64, 2), (64, 16, 15, 1), (256, 16, 16, 2)])
+def test_int8_whole_triangle_reads_every_block_once(cuda, force_int8_tiles, tiles, B, nb, hb,
+                                                    K):
+    """The counting build copies each held block (i + d < nb) of a whole
+    triangle once a pass, whatever the tiles; its results are the default
+    build's, bit for bit."""
+    from sgvamp_torch.ops.band_kernel import int8_block_bytes
+
+    force_int8_tiles(tiles)
+    upper, scales = _int8_blocks(K, nb, hb, B, nb + hb, cuda)
+    x = torch.from_numpy(np.random.default_rng(hb).normal(size=(K, 2, nb * B))).to(
+        cuda, torch.bfloat16)
+    got = []
+    n = int8_block_bytes(lambda: got.append(sym_band_matvec_int8(upper, scales, x)))
+    assert n == K * sum(min(hb, nb - 1 - i) + 1 for i in range(nb)) * B * B
+    assert torch.equal(got[0], sym_band_matvec_int8(upper, scales, x))
 
 
 @pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])

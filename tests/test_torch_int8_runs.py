@@ -1,15 +1,18 @@
 """The int8 kernel's read-once design, on the CPU: its plain versions against
-the JAX package's Pallas kernel at a band wider than the kernel's runs, and
-the wrapper's choice of run length as a plain function.
+the JAX package's Pallas kernel at a band wider than the kernel's runs, the
+wrapper's choice of tiles as a plain function, and the kernel's schedule
+over tiles emulated in plain torch on a dense panel's whole triangle.
 
-The kernel (csrc/sym_band_int8.cu) gives a CTA a run of G block rows, one
-warp a block row, and sends the mirror sums that leave a run through a
-scratch of partial sums (sym_band_tile.cuh::Partials) to a second launch,
-or to the spill form's carry. It runs only on the card
-(tests/test_torch_gpu.py, where forced run lengths reach every edge of the
-partial sums and the fold); here the plain versions it is held against
-there are held against Pallas in interpret mode (f32 sums of exact
-bf16 * int8 products in another order: scaled 1e-5).
+The kernel (csrc/sym_band_int8.cu) gives a CTA a tile of the band: a run of
+G block rows, one warp a block row, and a range of D diagonals. It sends the
+mirror sums that leave a run through a scratch of partial sums
+(sym_band_tile.cuh::Partials), and with more than one range each tile's row
+sums through a second part of the scratch, to a second launch (or the
+spill form's carry). It runs only on the card (tests/test_torch_gpu.py,
+where forced tiles reach every edge of the scratch and the fold); here the
+plain versions it is held against there are held against Pallas in
+interpret mode (f32 sums of exact bf16 * int8 products in another order:
+scaled 1e-5), and so is the emulation of its schedule.
 """
 
 import math
@@ -139,4 +142,202 @@ def test_int8_partials_are_written_once_and_all_folded(hb, spill):
         for G in {tbk._int8_runs(nb, H100_SMS), 1, tbk.INT8_MAX_RUN_ROWS}:
             C, H = -(-nb // G), min(hb, G)
             F = C * H + (hb if spill else 0)
-            assert tbk._partials_shape(2, 3, nb, hb, G, 64, spill) == (2, 3, F, hb, 64)
+            assert tbk._partials_shape(2, 3, nb, hb, G, 64, spill) == (2, 3, F * hb, 64)
+
+
+# ---------------------------------------------------------------------------
+# tiles of the band: the rule, the grid, the scratch and the schedule
+# ---------------------------------------------------------------------------
+
+def _tile_table(nb, hb, G, D):
+    """The tiles of the matvec grid as csrc/sym_band_int8.cu::tiles_of lists
+    them: range by range, the runs whose first block row has data at the
+    range's first diagonal, in order; [(j, r0), ...]."""
+    J, runs = -(-(hb + 1) // D), -(-nb // G)
+    return [(j, c * G) for j in range(J)
+            for c in range(min(runs, (nb - 1 - j * D) // G + 1 if j * D <= nb - 1 else 0))]
+
+
+@pytest.mark.parametrize("nb,hb", [(4096, 2), (1024, 2)])
+def test_int8_tiles_keep_the_runs_where_they_fill_the_card(nb, hb):
+    """At the bench shape and at one shard of its four the rule gives
+    today's schedule: the runs of _int8_runs, every diagonal in one range."""
+    assert tbk._int8_tiles(nb, hb, H100_SMS) == (tbk._int8_runs(nb, H100_SMS), hb + 1)
+
+
+@pytest.mark.parametrize("nb,hb", [(64, 64), (64, 63), (16, 15), (16, 16), (512, 2), (37, 16),
+                                   (300, 40), (5, 0), (1, 0)])
+@pytest.mark.parametrize("sms", [16, 132])
+def test_int8_tiles_put_enough_warps_on_the_card(nb, hb, sms):
+    """The fewest ranges whose tiles hold INT8_MIN_WARPS_PER_SM warps an SM,
+    or the most ranges there may be where none does; the ranges even
+    (D = ceil((hb + 1) / J)); every B and S within the shared memory."""
+    G, D = tbk._int8_tiles(nb, hb, sms)
+    assert G == tbk._int8_runs(nb, sms) and 1 <= D <= hb + 1
+    J = -(-(hb + 1) // D)
+    assert D == -(-(hb + 1) // J) and J <= tbk.INT8_MAX_RANGES
+    want = tbk.INT8_MIN_WARPS_PER_SM * sms
+
+    def warps(j):
+        return G * tbk._int8_tile_count(nb, hb, G, -(-(hb + 1) // j))
+
+    assert warps(J) >= want or J == min(hb + 1, tbk.INT8_MAX_RANGES)
+    assert J == 1 or warps(J - 1) < want
+    assert warps(J) == G * len(_tile_table(nb, hb, G, D))
+    for B in (64, 128, 256):
+        for S in range(1, 5):
+            ring = G * 3 * min(4, B * B // 512) * 512
+            assert ring + 3 * G * S * B * 4 <= tbk.SHARED_MEMORY_BYTES
+    if (nb, hb, sms) == (64, 64, 132):   # the dense panel of chip_smoke.py phase 10b
+        assert (G, D) == (1, 2) and warps(J) == 1056
+    if (nb, hb, sms) == (512, 2, 132):   # the CLI's M=65536: 2-6% faster than (2, 3) on an H100
+        assert (G, D) == (2, 2)
+
+
+@pytest.mark.parametrize("nb,hb", [(8, 8), (8, 7), (64, 64), (37, 16), (9, 3), (4, 0)])
+@pytest.mark.parametrize("G,D", [(1, 1), (1, 2), (8, 1), (8, 3), (3, 2), (5, 7), (2, None),
+                                 (8, None)])
+def test_int8_tiles_cover_every_held_block_once(nb, hb, G, D):
+    """Each stored block that holds data (i + d < nb) lies in one tile of the
+    grid, and every tile holds one: no CTA is launched only to return."""
+    D = min(D or hb + 1, hb + 1)
+    seen = {}
+    for tile in _tile_table(nb, hb, G, D):
+        j, r0 = tile
+        held = [(i, d) for i in range(r0, min(r0 + G, nb))
+                for d in range(j * D, min(j * D + D - 1, hb) + 1) if i + d < nb]
+        assert held, tile
+        for b in held:
+            assert b not in seen
+            seen[b] = tile
+    assert sorted(seen) == [(i, d) for i in range(nb) for d in range(hb + 1) if i + d < nb]
+    assert len(_tile_table(nb, hb, G, D)) == tbk._int8_tile_count(nb, hb, G, D)
+
+
+@pytest.mark.parametrize("hb", [1, 2, 16, 64])
+def test_int8_tile_scratch_has_the_kernels_rows(hb):
+    """_partials_shape with D: Partials' F rows of hb slots (C runs of G,
+    H = min(hb, G) of their rows), then with J > 1 ranges J nb rows of the
+    tiles' row sums, as csrc/sym_band_int8.cu::Scratch counts them; one
+    range leaves the float kernels' F hb rows."""
+    for nb in sorted({hb, hb + 1, 7, 64, 1024}):
+        for G in (1, 3, 8):
+            F = -(-nb // G) * min(hb, G)
+            assert tbk._partials_shape(2, 3, nb, hb, G, 64, False, hb + 1) == (2, 3, F * hb, 64)
+            for D in sorted({1, 2, hb} - {hb + 1}):
+                J = -(-(hb + 1) // D)
+                assert J > 1
+                assert tbk._partials_shape(2, 3, nb, hb, G, 64, False, D) == (
+                    2, 3, F * hb + J * nb, 64)
+
+
+def _emulate_tiles(upper, scales, x, G, D):
+    """The kernel's matvec schedule over tiles of G block rows and D
+    diagonals, in plain torch (f32): each tile's row sums and the mirror
+    sums that stay in its run in its own buffers, the mirror sums that leave
+    it in Partials' slots, with J > 1 ranges the tiles' rows in the second
+    part of the scratch, then the fold in its fixed order (fold_partials
+    with one range; fold_tiles' groups of sources with more). The scratch,
+    shaped by _partials_shape, starts as NaN: a slot read but never written
+    poisons y, and each is written once."""
+    K, nb, nslot, B, _ = upper.shape
+    hb, S = nslot - 1, x.shape[1]
+    J, H, P = -(-(hb + 1) // D), min(hb, G), 256 // (S * B // 4)
+    F = -(-nb // G) * H
+    scratch = torch.full(tbk._partials_shape(K, S, nb, hb, G, B, False, D), float("nan"))
+    xb = x.float().reshape(K, S, nb, B)
+    y = torch.full((K, S, nb, B), float("nan"))
+
+    def slot(t, d):   # Partials: row f(t), slot d - 1
+        return ((t // G) * H + t % G) * hb + d - 1
+
+    for j, r0 in _tile_table(nb, hb, G, D):
+        own = torch.zeros(K, S, G, B)   # row sums + the mirror sums that stay in the run
+        for d in range(j * D, min(j * D + D - 1, hb) + 1):
+            for i in range(r0, min(r0 + G, nb - d)):
+                u, sc = upper[:, i, d].float(), scales[:, i, d, None, None]
+                own[:, :, i - r0] += sc * torch.einsum("kpq,ksq->ksp", u, xb[:, :, i + d])
+                if d:
+                    m = sc * torch.einsum("kpq,ksp->ksq", u, xb[:, :, i])
+                    if i + d < r0 + G:
+                        own[:, :, i + d - r0] += m
+                    else:
+                        assert torch.isnan(scratch[:, :, slot(i + d, d)]).all()
+                        scratch[:, :, slot(i + d, d)] = m
+        for t in range(r0, min(r0 + G, nb)):
+            if J == 1:
+                y[:, :, t] = own[:, :, t - r0]
+            else:
+                assert torch.isnan(scratch[:, :, F * hb + j * nb + t]).all()
+                scratch[:, :, F * hb + j * nb + t] = own[:, :, t - r0]
+    for t in range(nb):
+        o, r0 = t % G, t - t % G
+        slots = [slot(t, d) for d in range(o + 1, min(hb, t) + 1)] if o < H else []
+        if J == 1:
+            for q in slots:
+                y[:, :, t] += scratch[:, :, q]
+            continue
+        nj = min((nb - 1 - r0) // D + 1, J)
+        src = [F * hb + q * nb + t for q in range(nj)] + slots
+        groups = []
+        for g in range(P):
+            acc = torch.zeros(K, S, B)
+            for q in src[g::P]:
+                acc += scratch[:, :, q]
+            groups.append(acc)
+        tot = groups[0]
+        for acc in groups[1:]:
+            tot = tot + acc
+        y[:, :, t] = tot
+    return y.reshape(K, S, nb * B)
+
+
+@pytest.fixture(scope="module")
+def triangle():
+    """A dense panel's whole upper triangle at B=8, ragged M=60 (nb=8): the
+    band of width M - 1 (hb = nb = 8) and one block narrower (hb = 7 = nb -
+    1), both from the JAX package's packer and the port's, equal; x, and
+    Pallas in interpret mode over each (one chunk of nb block rows: >= hb)."""
+    M, nb = 60, 8
+    band = simulate_ld_band(10000, M, M - 1, rng=np.random.default_rng(99))[0]
+    x = np.random.default_rng(5).normal(size=(2, 2, nb * WIDE_B))
+    x[:, :, M:] = 0   # past M, as the operator pads it
+    x = torch.from_numpy(x).to(torch.bfloat16)
+    out = {}
+    for hb, b in ((nb, band), (nb - 1, band[:, WIDE_B:-WIDE_B])):
+        jop = JSym.from_band(b, block_size=WIDE_B, dtype="int8")
+        op = SymBandedLD.from_band(b, block_size=WIDE_B, K=2, dtype="int8", device="cpu")
+        np.testing.assert_array_equal(op.upper[0].numpy(), np.asarray(jop.upper)[0])
+        assert (op.nb, op.hb) == (nb, hb)
+        jy, _ = _sym_band_matvec_streamed(jop.upper, jnp.asarray(x[:1].float().numpy(),
+                                                                 jnp.bfloat16),
+                                          nb, interpret=True, rows_per_step=nb,
+                                          scales=jop.scales)
+        out[hb] = op, np.asarray(jy)
+    return out, x
+
+
+@pytest.mark.parametrize("hb", [8, 7])
+@pytest.mark.parametrize("G,D", [(None, None), (1, 1), (1, 9), (8, 1), (8, 3), (3, 2), (4, 5),
+                                 (5, 9), (2, 4)], ids=lambda v: str(v))
+def test_tiled_schedule_matches_plain_pallas_and_dense(triangle, hb, G, D):
+    """The emulated schedule over tiles, at the rule's own (G, D) on an H100
+    (None) and at forced ones from one diagonal a tile to every one, on the
+    whole triangle: against sym_band_matvec_int8_ref, Pallas in interpret
+    mode and to_dense(), scaled 1e-5."""
+    ops, x = triangle
+    op, jy = ops[hb]
+    if G is None:
+        G, D = tbk._int8_tiles(op.nb, op.hb, H100_SMS)
+    D = min(D, hb + 1)
+    got = _emulate_tiles(op.upper, op.scales, x, G, D)
+    assert not torch.isnan(got).any()
+    want = tbk.sym_band_matvec_int8_ref(op.upper, op.scales, x)
+    scale = float(want.abs().max())
+    assert _scaled(got, want, scale) <= SCALED_TOL
+    assert _scaled(got[:1], jy, scale) <= SCALED_TOL
+    dense = op.to_dense().numpy().astype(np.float64)
+    M = dense.shape[-1]
+    for k in range(2):
+        assert _scaled(got[k, :, :M], x[k, :, :M].double().numpy() @ dense[k].T,
+                       scale) <= SCALED_TOL
