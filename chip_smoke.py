@@ -24,11 +24,11 @@ Phases, a few lines of output each (and fail on the first that fails):
      mode "auto" takes the streamed kernels (random bfloat16 blocks, hb=16,
      M=524288, S=2): the streamed diag and slab kernels and the resident
      kernel forced onto it (runs of 8 block rows), each against its plain
-     version and timed. At the bench shape the int8 wrapper must keep the
-     runs with every diagonal in one range (ops/band_kernel.py::
-     _int8_tiles). The Triton read probe against its plain version,
-     exactly. A small engine run on the GPU against the same run on the CPU
-     (plain versions).
+     version and timed. At the bench shape the int8 and float diag
+     wrappers must keep the runs with every diagonal in one range
+     (ops/band_kernel.py::_int8_tiles, _float_tiles). The Triton read
+     probe against its plain version, exactly. A small engine run on the
+     GPU against the same run on the CPU (plain versions).
   3. the engine's library path: with the kernels' launch counts at zero,
      the bench's sequence at its geometry - the read-probe ceiling over the
      int8 LD blocks, then VampEngine.run (EM prior, fused 2K-lane CG with a
@@ -173,19 +173,26 @@ Phases, a few lines of output each (and fail on the first that fails):
      10b. simulate gen-phen-mult (N=16384, M=8192, K=2, h2 0.8, lam 0.1,
           seed 0; dense genotypes on the host, seconds printed), then
           cli.main --K 2 over its files with --operator dense (no band
-          kernel) and --operator sym --ld-dtype int8 --block-size 128
-          without --bandwidth (the whole upper triangle, hb >= nb - 1):
-          the int8 kernel once per LD pass, best-iterate alignment >= 0.9
-          in both and within 0.02 of each other; the int8 kernel against
-          its plain version at that shape (K=2, S=2) with the wrapper's
-          tiles of the band (ops/band_kernel.py::_int8_tiles, which must
-          cut the diagonals there) and with the runs alone (G=1, every
-          diagonal), the same bits on a repeat, the two timed beside each
-          other, the plain version, the bound and torch.matmul over the
-          dense float32 panel, the block bytes the counting build copies
-          (every held block once); the bf16 streamed kernel over the same
-          panel against its plain version, timed beside its bound and
-          torch.matmul over the dense bfloat16 panel.
+          kernel) and --operator sym --ld-dtype int8, then bfloat16,
+          --block-size 128 without --bandwidth (the whole upper triangle,
+          hb >= nb - 1): the int8 kernel, and the float diag kernel
+          (sym_band_matvec: mode "auto" takes the streamed kernel there),
+          once per LD pass, best-iterate alignment >= 0.9 in each and each
+          sym run within 0.02 of the dense one, the three runs' infer
+          seconds; the int8 kernel against its plain version at that shape
+          (K=2, S=2) with the wrapper's tiles of the band
+          (ops/band_kernel.py::_int8_tiles, which must cut the diagonals
+          there) and with the runs alone (G=1, every diagonal), the same
+          bits on a repeat, the two timed beside each other, the plain
+          version, the bound and torch.matmul over the dense float32
+          panel, the block bytes the counting build copies (every held
+          block once); the float diag kernel over the same panel in
+          bfloat16 and float32 blocks the same way, with its wrapper's
+          tiles (_float_tiles, which must cut the diagonals there) and the
+          runs alone (8 block rows, every diagonal), beside torch.matmul
+          over the dense panel in the block type; the streamed slab kernel
+          over the bfloat16 blocks against its plain version, timed beside
+          its bound (measured, not changed).
      10c. write_bed an N=16384 x M=8192 panel (binomial(2, 0.4), seed 1),
           read_bed it back (equal; MB/s), simulate phen over it, R from
           the same standardized genotypes on the card in float64, then
@@ -1769,23 +1776,31 @@ def multi_cohort_path(work: str, dev) -> dict:
     """Phase 10b: simulate gen-phen-mult (dense genotypes on the host, K=2,
     one shared beta), then cli.main --K 2 over its files with --operator
     dense (torch.matmul, no band kernel) and with --operator sym --ld-dtype
-    int8 --block-size 128 and no --bandwidth (the whole upper triangle: the
-    band reaches M - 1, so hb >= nb - 1), both at the biobank flags: best-iterate alignment >=
-    MIN_ALIGNMENT in both, the two within 0.02; the int8 kernel once per LD
-    pass. Then at the run's shape (K=2, S=2): the int8 kernel against its
-    plain version, with the wrapper's tiles (ops/band_kernel.py::_int8_tiles)
-    and with the runs alone (G=1, every diagonal: the split before tiles),
-    the same bits on a repeat, timed beside each other and the plain
-    version, the block bytes the counting build copies (every held block
-    once), torch.matmul over the dense float32 panel; and the bf16 streamed
-    kernel over the same panel against its plain version, timed beside it
-    and torch.matmul over the dense bfloat16 panel."""
+    int8 and bfloat16, --block-size 128 and no --bandwidth (the whole upper
+    triangle: the band reaches M - 1, so hb >= nb - 1), all at the biobank
+    flags: best-iterate alignment >= MIN_ALIGNMENT in each, each sym run
+    within 0.02 of the dense one; the int8 kernel, and in the bfloat16 run
+    the float diag kernel (mode "auto": the resident kernel does not fit),
+    once per LD pass. Then at the runs' shape (K=2, S=2): the int8 kernel
+    against its plain version, with the wrapper's tiles
+    (ops/band_kernel.py::_int8_tiles) and with the runs alone (G=1, every
+    diagonal: the split before tiles), the same bits on a repeat, timed
+    beside each other and the plain version, the block bytes the counting
+    build copies (every held block once), torch.matmul over the dense
+    float32 panel; the float diag kernel over the same panel in bfloat16 and
+    float32 blocks, the same way, with the wrapper's tiles
+    (ops/band_kernel.py::_float_tiles, which must cut the diagonals there)
+    and with the runs alone (DIAG_RUN_ROWS block rows, every diagonal),
+    torch.matmul over the dense panel in the block type; and the streamed
+    slab kernel over the bfloat16 blocks against its plain version, timed
+    beside it (measured, not changed)."""
     import torch
 
     from sgvamp_torch.cli import simulate as cli_simulate
     from sgvamp_torch.data import loaders
-    from sgvamp_torch.ops.band_kernel import SymBandedLD, _int8_tiles, _sm_count, band_kernel_of
-    from sgvamp_torch.utils.kernel_diag import forced_int8_tiles
+    from sgvamp_torch.ops.band_kernel import (DIAG_RUN_ROWS, SymBandedLD, _float_tiles,
+                                              _int8_tiles, _sm_count, band_kernel_of)
+    from sgvamp_torch.utils.kernel_diag import forced_float_tiles, forced_int8_tiles
 
     N, M = MULT_N, MULT_M
     pre = os.path.join(work, "mult")
@@ -1799,21 +1814,25 @@ def multi_cohort_path(work: str, dev) -> dict:
               "--r-files", f"{pre}_0_r.npy,{pre}_1_r.npy",
               "--true-signal-file", pre + "_bet.npy", "--N", str(N), "--M", str(M)]
     runs = {}
-    for operator, ld_dtype, own in (("dense", "float32", None),
-                                    ("sym", "int8", "sym_band_matvec_int8")):
-        runs[operator] = cli_run(pre, os.path.join(work, "mult_out"), M, ld_dtype, own,
-                                 operator=operator, K=2, tag="_mult", inputs=inputs,
-                                 label="10b", native=None, prior=(SIM_LAM, SIM_H2))
-    gap = abs(runs["dense"]["alignment"] - runs["sym"]["alignment"])
-    if not gap <= 0.02:
-        fail(f"10b: best-iterate alignment {runs['dense']['alignment']:.5f} (dense) against "
-             f"{runs['sym']['alignment']:.5f} (sym int8)")
+    for key, operator, ld_dtype, own in (("dense", "dense", "float32", None),
+                                         ("sym", "sym", "int8", "sym_band_matvec_int8"),
+                                         ("sym bfloat16", "sym", "bfloat16", "sym_band_matvec")):
+        runs[key] = cli_run(pre, os.path.join(work, "mult_out"), M, ld_dtype, own,
+                            operator=operator, K=2, tag="_mult", inputs=inputs,
+                            label="10b", native=None, prior=(SIM_LAM, SIM_H2))
+    gaps = {k: abs(runs["dense"]["alignment"] - runs[k]["alignment"])
+            for k in ("sym", "sym bfloat16")}
+    for k, gap in gaps.items():
+        if not gap <= 0.02:
+            fail(f"10b: best-iterate alignment {runs['dense']['alignment']:.5f} (dense) against "
+                 f"{runs[k]['alignment']:.5f} ({k})")
     band = loaders.csr_to_band(np.load(pre + "_0_R.npy"), None)[0]
     op = SymBandedLD.from_band(band, block_size=B_FULL, K=2, dtype="int8", device=dev)
     nb, hb = op.nb, op.hb
     if nb != M // B_FULL or hb < nb - 1:
         fail(f"10b: the int8 operator has nb={nb}, hb={hb}: its band does not cover the panel")
-    tiles = _int8_tiles(nb, hb, _sm_count(torch.device(dev)))
+    sms = _sm_count(torch.device(dev))
+    tiles = _int8_tiles(nb, hb, sms)
     runs_only = (1, hb + 1)
     if tiles == runs_only:
         fail(f"10b: the int8 wrapper keeps the runs alone (G, D) = {tiles} on the whole triangle")
@@ -1838,28 +1857,74 @@ def multi_cohort_path(work: str, dev) -> dict:
     bound, bound_by, nbytes = bound_ms(op, 2, "int8")
     counted = counted_block_bytes(op, 2, kernel, args, x)
     del op
-    # the bf16 streamed kernel over the same panel (measured beside int8)
-    op16 = dataclasses.replace(SymBandedLD.from_band(band, block_size=B_FULL, K=2,
-                                                     dtype="bfloat16", device=dev),
-                               mode="streamed")
-    del band
-    abs_err16, rel16 = kernel_vs_plain(op16, 2, 11, f"bfloat16 at M={M}, nb={nb}, hb={hb}, K=2")
-    kernel16, plain16, args16, xdt16 = band_kernel_of(op16, 2)
-    x16 = x.to(xdt16)
-    ms16, plain16_ms = kernel_and_plain_ms(lambda: kernel16(*args16, x16),
-                                           lambda: plain16(*args16, x16))
-    bound16, bound16_by, nbytes16 = bound_ms(op16, 2, "bfloat16")
-    del op16
-    # the library calls: torch.matmul over the dense float32 panel (the same
-    # R x before quantization) and over the panel in bfloat16, both cohorts
+    # the library calls: torch.matmul over the dense panel (the same R x
+    # before quantization or rounding), both cohorts, in float32 and bfloat16
     R = torch.from_numpy(np.load(pre + "_0_R.npy")).to(dev, torch.float32).expand(2, M, M)
     R, xm = R.contiguous(), x.float().transpose(1, 2).contiguous()
-    library_ms = cuda_ms(lambda: torch.matmul(R, xm), 20)
+    library_ms = {"float32": cuda_ms(lambda: torch.matmul(R, xm), 20)}
     R, xm = R.to(torch.bfloat16), xm.to(torch.bfloat16)
-    library16_ms = cuda_ms(lambda: torch.matmul(R, xm), 20)
+    library_ms["bfloat16"] = cuda_ms(lambda: torch.matmul(R, xm), 20)
     del R, xm
     torch.cuda.empty_cache()
-    res = {"N": N, "M": M, "gen_s": gen_s, "gap": gap,
+    # the float diag kernel over the same panel, with its tiles and with the
+    # runs alone; the slab streamed kernel over the bfloat16 blocks
+    floats, slab = {}, None
+    float_runs = (DIAG_RUN_ROWS, hb + 1)
+    for storage in ("bfloat16", "float32"):
+        opf = dataclasses.replace(SymBandedLD.from_band(band, block_size=B_FULL, K=2,
+                                                        dtype=storage, device=dev),
+                                  mode="streamed")
+        ftiles = _float_tiles(nb, hb, sms)
+        if ftiles == float_runs:
+            fail(f"10b: the float diag wrapper keeps the runs alone {ftiles} on the whole "
+                 f"triangle")
+        f_abs, f_rel = kernel_vs_plain(opf, 2, 11, f"{storage} at M={M}, nb={nb}, hb={hb}, K=2")
+        kf, pf, af, xdf = band_kernel_of(opf, 2)
+        xf = x.to(xdf)
+        yf = kf(*af, xf)
+        if not torch.equal(yf, kf(*af, xf)):
+            fail(f"10b: the {storage} diag kernel with tiles {ftiles} gives other bits on a "
+                 f"repeat")
+        del yf
+        with forced_float_tiles(*float_runs):
+            fo_abs, fo_rel = kernel_vs_plain(opf, 2, 11, f"{storage} at nb={nb}, hb={hb}, runs "
+                                                          f"alone")
+        f_ms, f_plain_ms = kernel_and_plain_ms(lambda: kf(*af, xf), lambda: pf(*af, xf))
+
+        def float_old_split():
+            with forced_float_tiles(*float_runs):
+                kf(*af, xf)
+
+        f_new_ms, f_old_ms = kernel_and_plain_ms(lambda: kf(*af, xf), float_old_split,
+                                                 n_plain=20)
+        f_bound, f_bound_by, f_bytes = bound_ms(opf, 2, storage)
+        floats[storage] = {"nb": nb, "hb": hb, "K": 2, "S": 2, "tiles": list(ftiles),
+                           "max_abs_err": f_abs, "scaled_err": f_rel, "ms": f_ms,
+                           "plain_ms": f_plain_ms, "bound_ms": f_bound, "bound_by": f_bound_by,
+                           "bytes": f_bytes, "library_ms": library_ms[storage],
+                           "library_call": f"torch.matmul, dense {storage} panel",
+                           "runs_alone": {"tiles": list(float_runs), "ms": f_old_ms,
+                                          "tiles_ms": f_new_ms, "max_abs_err": fo_abs,
+                                          "scaled_err": fo_rel}}
+        if storage == "bfloat16":
+            ops = with_flavor(opf, "slab-streamed")
+            del opf
+            s_abs, s_rel = kernel_vs_plain(ops, 2, 12, f"slab-streamed at M={M}, nb={nb}, "
+                                                       f"hb={hb}, K=2")
+            ks, ps, as_, _ = band_kernel_of(ops, 2)
+            s_ms, s_plain_ms = kernel_and_plain_ms(lambda: ks(*as_, xf), lambda: ps(*as_, xf),
+                                                   n_kernel=20)
+            s_bound, s_bound_by, s_bytes = bound_ms(ops, 2, storage)
+            slab = {"kernel": ks.__name__, "nb": nb, "hb": hb, "K": 2, "S": 2,
+                    "max_abs_err": s_abs, "scaled_err": s_rel, "ms": s_ms,
+                    "plain_ms": s_plain_ms, "bound_ms": s_bound, "bound_by": s_bound_by,
+                    "bytes": s_bytes, "library_ms": library_ms[storage],
+                    "library_call": "torch.matmul, dense bfloat16 panel"}
+            del ops, as_
+        del af, xf
+        torch.cuda.empty_cache()
+    del band
+    res = {"N": N, "M": M, "gen_s": gen_s, "gap": gaps["sym"], "gap_bf16": gaps["sym bfloat16"],
            "runs": {k: {f: v[f] for f in ("alignment", "launches", "passes", "iterations",
                                           "ingest_s", "precond_eig_s", "infer_s", "total_s")}
                     for k, v in runs.items()},
@@ -1867,32 +1932,43 @@ def multi_cohort_path(work: str, dev) -> dict:
                               "max_abs_err": abs_err, "scaled_err": rel, "ms": ms,
                               "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                               "bytes": nbytes, "block_bytes_read": counted,
-                              "library_ms": library_ms,
+                              "library_ms": library_ms["float32"],
                               "library_call": "torch.matmul, dense float32 panel",
                               "runs_alone": {"tiles": list(runs_only), "ms": old_ms,
                                              "tiles_ms": new_ms, "max_abs_err": old_abs_err,
                                              "scaled_err": old_rel}},
-           "bf16_full_band": {"nb": nb, "hb": hb, "K": 2, "S": 2, "max_abs_err": abs_err16,
-                              "scaled_err": rel16, "ms": ms16, "plain_ms": plain16_ms,
-                              "bound_ms": bound16, "bound_by": bound16_by, "bytes": nbytes16,
-                              "library_ms": library16_ms,
-                              "library_call": "torch.matmul, dense bfloat16 panel",
-                              "float32_library_ms": library_ms}}
+           "bf16_full_band": dict(floats["bfloat16"], float32=floats["float32"]),
+           "slab_full_band": slab}
+    sym16 = runs["sym bfloat16"]
     print(f"[10b gen-phen-mult] N={N}, M={M}, K=2: generated on the host in {gen_s:.1f} s; "
           f"best-iterate alignment dense {runs['dense']['alignment']:.5f}, sym int8 "
-          f"{runs['sym']['alignment']:.5f} (gap {gap:.5f}); int8 launches "
-          f"{runs['sym']['launches']} for {sum(runs['sym']['passes'])} LD passes", flush=True)
+          f"{runs['sym']['alignment']:.5f} (gap {gaps['sym']:.5f}), sym bfloat16 "
+          f"{sym16['alignment']:.5f} (gap {gaps['sym bfloat16']:.5f}); int8 launches "
+          f"{runs['sym']['launches']} for {sum(runs['sym']['passes'])} LD passes, "
+          f"sym_band_matvec launches {sym16['launches']} for {sum(sym16['passes'])} LD passes; "
+          f"infer int8 {runs['sym']['infer_s']:.2f} s, bfloat16 {sym16['infer_s']:.2f} s, "
+          f"dense {runs['dense']['infer_s']:.2f} s", flush=True)
     print(f"[10b int8 whole triangle] nb={nb}, hb={hb}, K=2, S=2, tiles (G, D) = {tiles}: "
           f"scaled error {rel:.1e}, the same bits on a repeat, {ms:.4f} ms a pass (plain "
           f"{plain_ms:.4f}, bound {bound:.4f}, {bound_by}, {nbytes} bytes; torch.matmul over "
-          f"the dense float32 panel {library_ms:.4f}); runs alone {runs_only}: scaled error "
-          f"{old_rel:.1e}, {old_ms:.4f} ms against {new_ms:.4f} with tiles in the same "
-          f"order (runs, tiles, tiles, runs); {counted} block bytes copied by the counting "
-          f"build", flush=True)
-    print(f"[10b bf16 whole triangle] {kernel16.__name__}: scaled error {rel16:.1e}, "
-          f"{ms16:.4f} ms a pass (plain {plain16_ms:.4f}, bound {bound16:.4f}, {bound16_by}, "
-          f"{nbytes16} bytes; torch.matmul over the dense bfloat16 panel {library16_ms:.4f})",
-          flush=True)
+          f"the dense float32 panel {library_ms['float32']:.4f}); runs alone {runs_only}: "
+          f"scaled error {old_rel:.1e}, {old_ms:.4f} ms against {new_ms:.4f} with tiles in the "
+          f"same order (runs, tiles, tiles, runs); {counted} block bytes copied by the "
+          f"counting build", flush=True)
+    for storage, f in floats.items():
+        ro = f["runs_alone"]
+        print(f"[10b {storage} whole triangle] sym_band_matvec, tiles (G, D) = "
+              f"{tuple(f['tiles'])}: scaled error {f['scaled_err']:.1e}, the same bits on a "
+              f"repeat, {f['ms']:.4f} ms a pass (plain {f['plain_ms']:.4f}, bound "
+              f"{f['bound_ms']:.4f}, {f['bound_by']}, {f['bytes']} bytes; torch.matmul over "
+              f"the dense {storage} panel {f['library_ms']:.4f}); runs alone "
+              f"{tuple(ro['tiles'])}: scaled error {ro['scaled_err']:.1e}, {ro['ms']:.4f} ms "
+              f"against {ro['tiles_ms']:.4f} with tiles in the same order (runs, tiles, tiles, "
+              f"runs)", flush=True)
+    print(f"[10b slab-streamed whole triangle] {slab['kernel']}, bfloat16: scaled error "
+          f"{slab['scaled_err']:.1e}, {slab['ms']:.4f} ms a pass (plain {slab['plain_ms']:.4f}, "
+          f"bound {slab['bound_ms']:.4f}, {slab['bound_by']}; torch.matmul over the dense "
+          f"bfloat16 panel {slab['library_ms']:.4f})", flush=True)
     return res
 
 
@@ -2180,7 +2256,8 @@ def main() -> None:
     from sgvamp_torch.core.operators import BandedLD
     from sgvamp_torch.data.simulate import simulate_ld_band
     from sgvamp_torch.ops import _build
-    from sgvamp_torch.ops.band_kernel import SymBandedLD, _int8_runs, _int8_tiles, band_kernel_of
+    from sgvamp_torch.ops.band_kernel import (DIAG_RUN_ROWS, SymBandedLD, _float_tiles,
+                                              _int8_runs, _int8_tiles, band_kernel_of)
     from sgvamp_torch.ops.membench import (_prep, measure_read_gbps, read_max,
                                            read_max_ref)
     from sgvamp_torch.utils import kernel_bench
@@ -2354,6 +2431,13 @@ def main() -> None:
                 fail(f"the int8 wrapper cuts the bench shape's diagonals: {full[key]['tiles']}")
             counted = (f", {full[key]['block_bytes_read']} counted by the kernel, tiles (G, D) = "
                        f"{full[key]['tiles']}")
+        if key in ("bfloat16", "float32"):
+            full[key]["tiles"] = _float_tiles(op.nb, op.hb, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            if full[key]["tiles"] != (DIAG_RUN_ROWS, op.hb + 1):
+                fail(f"the float diag wrapper leaves the bench shape's runs of "
+                     f"{DIAG_RUN_ROWS} block rows: tiles {full[key]['tiles']}")
+            counted = f", tiles (G, D) = {full[key]['tiles']}"
         print(f"[2 {key}] {kernel.__name__}, full shape upper {tuple(op.upper.shape)} "
               f"{str(op.upper.dtype).split('.')[-1]} ({label}), "
               f"{op.bytes_per_pass()} bytes per pass, {nbytes} with x and y, {read} block "
@@ -2812,6 +2896,13 @@ def main() -> None:
                            "second launch"}
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
+    def float_once(G, D):
+        return {"design": f"read once over tiles of G={G} block rows and D={D} diagonals, a "
+                          "warp a block row walks each block of the tile once (16-byte loads), "
+                          "the run's own mirror sums in shared memory, the mirror sums that "
+                          "leave the run, and with several diagonal ranges the tiles' row "
+                          "sums, through a scratch of partial sums and a second launch"}
+
     def int8_once(G, D):
         return {"design": f"read once over tiles of G={G} block rows and D={D} diagonals, a "
                           "warp a block row walks each int8 block of the tile once (cp.async "
@@ -2833,8 +2924,10 @@ def main() -> None:
                    bed_launches=geno["launches"], bench_launches=bench_int8,
                    ab_matrix_launches=ab["launches"]["sym_band_matvec_int8"]),
         float_entry("sym_band_matvec", "", csrc + "sym_band_float.cu", 179,
-                    bench_launches["streamed"], **read_once,
-                    full_band=mult["bf16_full_band"],
+                    bench_launches["streamed"], **float_once(*full["bfloat16"]["tiles"]),
+                    full_band=dict(mult["bf16_full_band"],
+                                   launches=mult["runs"]["sym bfloat16"]["launches"],
+                                   **float_once(*mult["bf16_full_band"]["tiles"])),
                     ab_matrix_launches=ab["launches"]["sym_band_matvec"]),
         band_entry("sym_band_matvec_int4", "int4", csrc + "sym_band_int4.cu", 179,
                    cli["int4"]["launches"], **packed,
@@ -2846,7 +2939,8 @@ def main() -> None:
                    traced_events={k: v["kernel_events"] for k, v in traced.items()}),
         float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
                     333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"],
-                    **read_once, ab_matrix_launches=ab["launches"]["sym_slab_matvec_streamed"]),
+                    **read_once, full_band=mult["slab_full_band"],
+                    ab_matrix_launches=ab["launches"]["sym_slab_matvec_streamed"]),
         float_entry("sym_band_matvec_resident", "resident", csrc + "sym_band_resident.cu", 46,
                     flavor_runs["resident"]["launches"]["sym_band_matvec_resident"]),
         float_entry("sym_band_matvec_window", "window", csrc + "sym_band_resident.cu", 83,

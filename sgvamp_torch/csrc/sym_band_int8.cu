@@ -70,7 +70,9 @@
 //    sums + mirror sums, once. With J > 1 no tile holds a whole row sum:
 //    the CTA stores its run's row + mirror sums to row j nb + t of a second
 //    part of the scratch (after the F hb partial slots of each cohort and
-//    lane; Scratch below), every row t < nb of the run, zeros included.
+//    lane), every row t < nb of the run, zeros included. Tiles, their
+//    search, the Scratch layout, fold_tiles and the launches are
+//    sym_band_tile.cuh's, shared with sym_band_float.cu.
 //  * The second launch adds what went through the scratch in a fixed
 //    order: with J = 1 fold_partials (sym_band_tile.cuh) adds the partial
 //    slots into y in order of d, or writes them to the spill form's carry;
@@ -116,47 +118,9 @@ constexpr int kMaxRunRows = 8;
 // in flight while it computes one, in no registers.
 constexpr int kChunk = 4;
 constexpr int kStages = 3;
-// the most diagonal ranges a pass may cut the band into: the wrapper's
-// INT8_MAX_RANGES
-constexpr int kMaxRanges = 128;
-
 #ifdef SGV_COUNT_BLOCK_BYTES
 __device__ unsigned long long g_block_bytes;   // block bytes the warps copied
 #endif
-
-// The tiles of a pass, in the kernel's parameters: D diagonals a range, J
-// ranges, and start[j] the first tile of range j (start[J] = all of them).
-// Range j holds the runs c whose first block row has data at diagonal j D:
-// c G + j D <= nx - 1, the x block rows less one (nb, or nb + hb with the
-// spill form's halo), and c G < nb.
-struct Tiles {
-  int D, J;
-  int start[kMaxRanges + 1];
-};
-
-Tiles tiles_of(int nb, int nx, int hb, int G, int D) {
-  Tiles tl{};
-  tl.D = D;
-  tl.J = (hb + D) / D;
-  const int runs = (nb + G - 1) / G;
-  for (int j = 0; j < tl.J && j < kMaxRanges; ++j) {
-    const int last = nx - 1 - j * D;   // the highest first row a run may have
-    const int n = last < 0 ? 0 : last / G + 1;
-    tl.start[j + 1] = tl.start[j] + (n < runs ? n : runs);
-  }
-  return tl;
-}
-
-// The scratch of a pass (K, S, rows, B) floats: Partials' F hb slots of
-// mirror sums, then with J > 1 the tiles' J nb rows of row sums (range j's
-// part of block row t in row F hb + j nb + t).
-struct Scratch {
-  Partials pp;
-  size_t rows;   // of B floats, a cohort and lane
-  __host__ __device__ Scratch(int nb, int hb, int G, bool spill, int J)
-      : pp(nb, hb, G, spill),
-        rows(static_cast<size_t>(pp.F) * hb + (J > 1 ? static_cast<size_t>(J) * nb : 0)) {}
-};
 
 // The stream of one warp over n / NCH consecutive blocks of block row i,
 // from block (i, d0): chunk c is row groups (c % NCH) CH .. + CH - 1 of
@@ -305,18 +269,7 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
 
   // the tile: range j (the last whose first tile is at most blockIdx.x),
   // run c of it
-  int j = 0;
-  if (TILED) {
-    // fold_tiles, launched as this grid's programmatic dependent, may take
-    // the SMs that this grid's CTAs leave; it waits for all of them to
-    // finish before it reads the scratch
-    asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
-    for (int hi = tl.J - 1; j < hi;) {
-      const int mid = (j + hi + 1) / 2;
-      if (tl.start[mid] <= static_cast<int>(blockIdx.x)) j = mid;
-      else hi = mid - 1;
-    }
-  }
+  const int j = TILED ? tile_range(tl) : 0;
   const int r0 = TILED ? (blockIdx.x - tl.start[j]) * G : blockIdx.x * G;
   const int d0 = TILED ? j * tl.D : 0;
   const int d1 = !TILED ? hb : d0 + tl.D - 1 < hb ? d0 + tl.D - 1 : hb;
@@ -402,118 +355,34 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
   }
 }
 
-// The second launch of a pass over J > 1 ranges (the matvec form): CTA
-// (t, k) writes y_t of cohort k, the sum of the tile parts of t's run for
-// ranges 0 .. J_t - 1 (J_t: the ranges whose tile of that run exists) and
-// then of the partial slots d = t mod G + 1 .. min(hb, t) where t has
-// them (t mod G < H), in that order. The n sources are dealt round robin to
-// P groups of threads, a float4 of the S B values a thread; each group adds
-// its own in order, four loads at a time, and the groups' sums are added in
-// order of the group: one fixed order, the same bits on every run. It is
-// launched as the kernel's programmatic dependent (the launch attribute
-// cudaLaunchAttributeProgrammaticStreamSerialization): its CTAs may start
-// on the SMs the kernel's last CTAs leave, and wait (griddepcontrol.wait)
-// until the kernel's grid has finished and its writes are visible.
 template <int B, int S>
-__global__ void __launch_bounds__(256)
-fold_tiles_kernel(const float* __restrict__ part, float* __restrict__ y, int nb, int hb, int G,
-                  int D, int J) {
-  constexpr int V4 = S * B / 4;          // float4 of one source
-  constexpr int P = 256 / V4;            // groups of threads
-  __shared__ float4 sums[P][V4];
-  asm volatile("griddepcontrol.wait;" ::: "memory");   // the kernel's grid has finished
-  const Scratch scr(nb, hb, G, false, J);
-  const Partials& pp = scr.pp;
-  const int t = blockIdx.x;
-  const int k = blockIdx.y;
-  const int r0 = t - t % G;
-  const int nj = (nb - 1 - r0) / D + 1 < J ? (nb - 1 - r0) / D + 1 : J;
-  const int o = t % G;
-  const int np = o < pp.H ? (hb < t ? hb : t) - o : 0;   // slots d = o + 1 .. min(hb, t)
-  const int n = nj + np;
-  const int g = threadIdx.x / V4;
-  const int v = threadIdx.x % V4;
-  const int s = v / (B / 4);
-  const size_t pstride = scr.rows * B;
-  const float* base = part + (static_cast<size_t>(k) * S + s) * pstride + (v % (B / 4)) * 4;
-  const float* tiles = base + (static_cast<size_t>(pp.F) * hb + t) * B;          // + j nb B
-  const float* slots = base + (static_cast<size_t>(pp.row(t)) * hb + o) * B;     // + (q - nj) B
-  auto src = [&](int q) {
-    return *reinterpret_cast<const float4*>(
-        q < nj ? tiles + static_cast<size_t>(q) * nb * B : slots + static_cast<size_t>(q - nj) * B);
-  };
-  auto add = [](float4& a, const float4& b) {
-    a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
-  };
-  if (g < P) {
-    float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    int q = g;
-    for (; q + 3 * P < n; q += 4 * P) {
-      const float4 a0 = src(q), a1 = src(q + P), a2 = src(q + 2 * P), a3 = src(q + 3 * P);
-      add(acc, a0); add(acc, a1); add(acc, a2); add(acc, a3);
-    }
-    for (; q < n; q += P) add(acc, src(q));
-    sums[g][v] = acc;
-  }
-  __syncthreads();
-  if (g == 0) {
-    float4 tot = sums[0][v];
-    for (int h = 1; h < P; ++h) add(tot, sums[h][v]);
-    *reinterpret_cast<float4*>(y + (static_cast<size_t>(k) * S + s) * nb * B +
-                               static_cast<size_t>(t) * B + (v % (B / 4)) * 4) = tot;
-  }
-}
-
-template <int B, int S>
-int launch(const Args& a, const float* scales, int D) {
-  const bool spill = a.carry != nullptr;
-  if (a.G < 1 || a.G > kMaxRunRows || D < 1 || D > a.hb + 1 ||
-      (a.hb + D) / D > kMaxRanges || (spill && D != a.hb + 1))
-    return -1;
-  if (reinterpret_cast<uintptr_t>(a.upper) & 15)
-    return static_cast<int>(cudaErrorMisalignedAddress);
-  const Tiles tl = tiles_of(a.nb, spill ? a.nb + a.hb : a.nb, a.hb, a.G, D);
-  auto kernel = tl.J > 1 ? sym_band_int8_kernel<B, S, true> : sym_band_int8_kernel<B, S, false>;
+int launch(const Args& a, const float* scales) {
+  if (a.G < 1 || a.G > kMaxRunRows) return -1;
   const size_t smem = static_cast<size_t>(a.G) * Stream<B>::BYTES +
                       static_cast<size_t>(3) * S * B * a.G * sizeof(float);
-  if (const int err = reserve_shared(kernel, smem)) return err;
-  kernel<<<dim3(tl.start[tl.J], a.K), 32 * a.G, smem, a.stream>>>(
-      static_cast<const int8_t*>(a.upper), scales, static_cast<const bf16_t*>(a.x),
-      static_cast<float*>(a.y), static_cast<float*>(a.partials), a.nb, a.hb, a.G, spill, tl);
-  if (tl.J == 1) return launch_fold<float>(a, B, S);
-  if (const int err = static_cast<int>(cudaGetLastError())) return err;
-  cudaLaunchAttribute pdl[1];
-  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  pdl[0].val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg{};
-  cfg.gridDim = dim3(a.nb, a.K);
-  cfg.blockDim = dim3(256);
-  cfg.stream = a.stream;
-  cfg.attrs = pdl;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, fold_tiles_kernel<B, S>,
-                                             static_cast<const float*>(a.partials),
-                                             static_cast<float*>(a.y), a.nb, a.hb, a.G, D,
-                                             tl.J));
+  return launch_tiles<float, B, S>(sym_band_int8_kernel<B, S, false>,
+                                   sym_band_int8_kernel<B, S, true>, a, a.D, smem,
+                                   static_cast<const int8_t*>(a.upper), scales,
+                                   static_cast<const bf16_t*>(a.x));
 }
 
 template <int B>
-int launch_s(const Args& a, const float* scales, int S, int D) {
+int launch_s(const Args& a, const float* scales, int S) {
   switch (S) {
-    case 1: return launch<B, 1>(a, scales, D);
-    case 2: return launch<B, 2>(a, scales, D);
-    case 3: return launch<B, 3>(a, scales, D);
-    case 4: return launch<B, 4>(a, scales, D);
+    case 1: return launch<B, 1>(a, scales);
+    case 2: return launch<B, 2>(a, scales);
+    case 3: return launch<B, 3>(a, scales);
+    case 4: return launch<B, 4>(a, scales);
     default: return -1;
   }
 }
 
-int matvec(const Args& a, const void* scales, int B, int S, int D) {
+int matvec(const Args& a, const void* scales, int B, int S) {
   const auto* sc = static_cast<const float*>(scales);
   switch (B) {
-    case 64: return launch_s<64>(a, sc, S, D);
-    case 128: return launch_s<128>(a, sc, S, D);
-    case 256: return launch_s<256>(a, sc, S, D);
+    case 64: return launch_s<64>(a, sc, S);
+    case 128: return launch_s<128>(a, sc, S);
+    case 256: return launch_s<256>(a, sc, S);
     default: return -1;
   }
 }
@@ -535,8 +404,8 @@ extern "C" int sgv_sym_band_int8_matvec(const void* upper, const void* scales,
                                         int nb, int hb, int B, int S, int G, int D,
                                         void* stream) {
   const sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), nullptr,
-                    partials};
-  return matvec(a, scales, B, S, D);
+                    partials, D};
+  return matvec(a, scales, B, S);
 }
 
 // The spill form: upper and scales of one shard's nb block rows, x
@@ -550,8 +419,8 @@ extern "C" int sgv_sym_band_int8_spill(const void* upper, const void* scales,
                                        void* stream) {
   if (carry == nullptr) return -1;
   const sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), carry,
-                    partials};
-  return matvec(a, scales, B, S, D);
+                    partials, D};
+  return matvec(a, scales, B, S);
 }
 
 #ifdef SGV_COUNT_BLOCK_BYTES

@@ -27,7 +27,9 @@
 // sym_band_int8.cu) also share the second launch of their pass: mirror sums
 // that land outside the CTA's run of block rows are written to a scratch of
 // partial sums (`Partials`), and fold_partials adds them into y (or writes
-// them to the spill form's carry) in a fixed order of d.
+// them to the spill form's carry) in a fixed order of d. The streamed diag
+// kernels (sym_band_float.cu, sym_band_int8.cu) share their matvec form's
+// tiles of the band too (`Tiles`, `Scratch`, fold_tiles, launch_tiles).
 
 #pragma once
 
@@ -421,6 +423,7 @@ struct Args {
   cudaStream_t stream;
   void* carry = nullptr;     // the spill form's second output (the streamed kernels)
   void* partials = nullptr;  // the streamed kernels' scratch (Partials)
+  int D = 0;                 // diagonals a tile (the streamed diag kernels' launch_tiles)
 };
 
 template <template <typename, int, int> class Launch, typename T, int B>
@@ -502,6 +505,202 @@ int launch_streamed(Kernel kernel, const Args& a, int B, int S, size_t smem) {
       static_cast<const T*>(a.upper), static_cast<const T*>(a.x), static_cast<A*>(a.y),
       static_cast<A*>(a.partials), a.nb, a.hb, a.G, spill);
   return launch_fold<A>(a, B, S);
+}
+
+// ---------------------------------------------------------------------------
+// Tiles of the band: the matvec form of the streamed diag kernels
+// (sym_band_int8.cu, sym_band_float.cu). A CTA takes the tile of run c (G
+// consecutive block rows r0 = c G .. r0 + G - 1, one warp a block row) and
+// diagonal range j (diagonals d0 = j D .. d0 + D - 1, at most hb): the band's
+// J = ceil((hb + 1) / D) ranges. The grid holds only the tiles that hold
+// data (Tiles, in the kernel's parameters), and a CTA finds its (j, c) by a
+// binary search of it (tile_range). Which mirror sums leave a CTA depends on
+// its run only, so they take Partials' slots whatever D is. With J > 1 no
+// tile holds a whole row sum: each stores its run's row sums and in-run
+// mirror sums to a second part of the scratch (Scratch), and fold_tiles
+// writes y. With J = 1 the kernel writes y itself and fold_partials adds
+// the partial slots, as without tiles.
+// ---------------------------------------------------------------------------
+
+// the most diagonal ranges a pass may cut the band into: the wrapper's
+// MAX_RANGES (ops/band_kernel.py)
+constexpr int kMaxRanges = 128;
+
+// The tiles of a pass, in the kernel's parameters: D diagonals a range, J
+// ranges, and start[j] the first tile of range j (start[J] = all of them).
+// Range j holds the runs c whose first block row has data at diagonal j D:
+// c G + j D <= nx - 1, the x block rows less one (nb, or nb + hb with the
+// spill form's halo), and c G < nb.
+struct Tiles {
+  int D, J;
+  int start[kMaxRanges + 1];
+};
+
+inline Tiles tiles_of(int nb, int nx, int hb, int G, int D) {
+  Tiles tl{};
+  tl.D = D;
+  tl.J = (hb + D) / D;
+  const int runs = (nb + G - 1) / G;
+  for (int j = 0; j < tl.J && j < kMaxRanges; ++j) {
+    const int last = nx - 1 - j * D;   // the highest first row a run may have
+    const int n = last < 0 ? 0 : last / G + 1;
+    tl.start[j + 1] = tl.start[j] + (n < runs ? n : runs);
+  }
+  return tl;
+}
+
+// The scratch of a pass (K, S, rows, B) in the accumulation type: Partials'
+// F hb slots of mirror sums, then with J > 1 the tiles' J nb rows of row
+// sums (range j's part of block row t in row F hb + j nb + t).
+struct Scratch {
+  Partials pp;
+  size_t rows;   // of B values, a cohort and lane
+  __host__ __device__ Scratch(int nb, int hb, int G, bool spill, int J)
+      : pp(nb, hb, G, spill),
+        rows(static_cast<size_t>(pp.F) * hb + (J > 1 ? static_cast<size_t>(J) * nb : 0)) {}
+};
+
+// The range j of this CTA's tile: the last whose first tile is at most
+// blockIdx.x. First lets the grid's programmatic dependent, fold_tiles,
+// launch: it may take the SMs that this grid's CTAs leave, and waits for all
+// of them to finish before it reads the scratch.
+__device__ __forceinline__ int tile_range(const Tiles& tl) {
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  int j = 0;
+  for (int hi = tl.J - 1; j < hi;) {
+    const int mid = (j + hi + 1) / 2;
+    if (tl.start[mid] <= static_cast<int>(blockIdx.x)) j = mid;
+    else hi = mid - 1;
+  }
+  return j;
+}
+
+// 16 bytes of the accumulation type: fold_tiles' unit of a source
+template <typename A> struct Vec16;
+template <> struct Vec16<float> {
+  using type = float4;
+  static constexpr int N = 4;
+  __device__ static float4 zero() { return make_float4(0.0f, 0.0f, 0.0f, 0.0f); }
+  __device__ static void add(float4& a, const float4& b) {
+    a.x += b.x; a.y += b.y; a.z += b.z; a.w += b.w;
+  }
+};
+template <> struct Vec16<double> {
+  using type = double2;
+  static constexpr int N = 2;
+  __device__ static double2 zero() { return make_double2(0.0, 0.0); }
+  __device__ static void add(double2& a, const double2& b) { a.x += b.x; a.y += b.y; }
+};
+
+// fold_tiles' shape: NV vectors of 16 bytes hold one source's S B values, a
+// vector a thread, in P groups of threads (256 threads, or one group of NV
+// where a source is larger: f64 at S B > 512)
+template <typename A, int B, int S>
+struct FoldShape {
+  static constexpr int NV = S * B / Vec16<A>::N;
+  static constexpr int THREADS = NV > 256 ? NV : 256;
+  static constexpr int P = THREADS / NV;
+};
+
+// The second launch of a pass over J > 1 ranges (the matvec form): CTA
+// (t, k) writes y_t of cohort k, the sum of the tile parts of t's run for
+// ranges 0 .. J_t - 1 (J_t: the ranges whose tile of that run exists) and
+// then of the partial slots d = t mod G + 1 .. min(hb, t) where t has
+// them (t mod G < H), in that order. The n sources are dealt round robin to
+// the P groups of threads, 16 bytes of the S B values a thread; each group
+// adds its own in order, four loads at a time, and the groups' sums are
+// added in order of the group: one fixed order, the same bits on every run.
+// It is launched as the kernel's programmatic dependent (the launch
+// attribute cudaLaunchAttributeProgrammaticStreamSerialization): its CTAs
+// may start on the SMs the kernel's last CTAs leave, and wait
+// (griddepcontrol.wait) until the kernel's grid has finished and its writes
+// are visible.
+template <typename A, int B, int S>
+__global__ void __launch_bounds__(FoldShape<A, B, S>::THREADS)
+fold_tiles_kernel(const A* __restrict__ part, A* __restrict__ y, int nb, int hb, int G, int D,
+                  int J) {
+  using W = Vec16<A>;
+  using V = typename W::type;
+  constexpr int NV = FoldShape<A, B, S>::NV;
+  constexpr int P = FoldShape<A, B, S>::P;
+  constexpr int BV = B / W::N;           // vectors of one lane's block row
+  __shared__ V sums[P][NV];
+  asm volatile("griddepcontrol.wait;" ::: "memory");   // the kernel's grid has finished
+  const Scratch scr(nb, hb, G, false, J);
+  const Partials& pp = scr.pp;
+  const int t = blockIdx.x;
+  const int k = blockIdx.y;
+  const int r0 = t - t % G;
+  const int nj = (nb - 1 - r0) / D + 1 < J ? (nb - 1 - r0) / D + 1 : J;
+  const int o = t % G;
+  const int np = o < pp.H ? (hb < t ? hb : t) - o : 0;   // slots d = o + 1 .. min(hb, t)
+  const int n = nj + np;
+  const int g = threadIdx.x / NV;
+  const int v = threadIdx.x % NV;
+  const int s = v / BV;
+  const size_t pstride = scr.rows * B;
+  const A* base = part + (static_cast<size_t>(k) * S + s) * pstride + (v % BV) * W::N;
+  const A* tiles = base + (static_cast<size_t>(pp.F) * hb + t) * B;          // + j nb B
+  const A* slots = base + (static_cast<size_t>(pp.row(t)) * hb + o) * B;     // + (q - nj) B
+  auto src = [&](int q) {
+    return *reinterpret_cast<const V*>(
+        q < nj ? tiles + static_cast<size_t>(q) * nb * B : slots + static_cast<size_t>(q - nj) * B);
+  };
+  if (g < P) {
+    V acc = W::zero();
+    int q = g;
+    for (; q + 3 * P < n; q += 4 * P) {
+      const V a0 = src(q), a1 = src(q + P), a2 = src(q + 2 * P), a3 = src(q + 3 * P);
+      W::add(acc, a0); W::add(acc, a1); W::add(acc, a2); W::add(acc, a3);
+    }
+    for (; q < n; q += P) W::add(acc, src(q));
+    sums[g][v] = acc;
+  }
+  __syncthreads();
+  if (g == 0) {
+    V tot = sums[0][v];
+    for (int h = 1; h < P; ++h) W::add(tot, sums[h][v]);
+    *reinterpret_cast<V*>(y + (static_cast<size_t>(k) * S + s) * nb * B +
+                          static_cast<size_t>(t) * B + (v % BV) * W::N) = tot;
+  }
+}
+
+// A pass of a streamed diag kernel over tiles of a.G block rows and D
+// diagonals: `untiled` where one range holds every diagonal (J = 1), else
+// `tiled`, over the tiles that hold data x K CTAs of a.G warps with `smem`
+// bytes of dynamic shared memory, given the kernel's inputs `in...`, then
+// y, the scratch, nb, hb, G, spill and the Tiles; then the second launch on
+// the same stream: fold_partials with one range, else fold_tiles as the
+// kernel's programmatic dependent. The spill form takes one range. 0 or the
+// first error (cudaGetLastError() after each launch); -1 for a D the pass
+// cannot take; cudaErrorMisalignedAddress (716) with nothing launched when
+// upper does not start on a 16-byte boundary (the walkers read 16 bytes).
+template <typename A, int B, int S, typename Kernel, typename... In>
+int launch_tiles(Kernel untiled, Kernel tiled, const Args& a, int D, size_t smem, In... in) {
+  const bool spill = a.carry != nullptr;
+  if (D < 1 || D > a.hb + 1 || (a.hb + D) / D > kMaxRanges || (spill && D != a.hb + 1))
+    return -1;
+  if (reinterpret_cast<uintptr_t>(a.upper) & 15)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Tiles tl = tiles_of(a.nb, spill ? a.nb + a.hb : a.nb, a.hb, a.G, D);
+  Kernel kernel = tl.J > 1 ? tiled : untiled;
+  if (const int err = reserve_shared(kernel, smem)) return err;
+  kernel<<<dim3(tl.start[tl.J], a.K), 32 * a.G, smem, a.stream>>>(
+      in..., static_cast<A*>(a.y), static_cast<A*>(a.partials), a.nb, a.hb, a.G, spill, tl);
+  if (tl.J == 1) return launch_fold<A>(a, B, S);
+  if (const int err = static_cast<int>(cudaGetLastError())) return err;
+  cudaLaunchAttribute pdl[1];
+  pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  pdl[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg{};
+  cfg.gridDim = dim3(a.nb, a.K);
+  cfg.blockDim = dim3(FoldShape<A, B, S>::THREADS);
+  cfg.stream = a.stream;
+  cfg.attrs = pdl;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, fold_tiles_kernel<A, B, S>,
+                                             static_cast<const A*>(a.partials),
+                                             static_cast<A*>(a.y), a.nb, a.hb, a.G, D, tl.J));
 }
 
 // Launches `kernel` with G warps a CTA over (ceil(nb / G), K) CTAs and

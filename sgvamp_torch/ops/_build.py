@@ -32,6 +32,7 @@ _QUANT = [_P] * 4 + [_I] * 5 + [_P]
 _QUANT_TILES = [_P] * 5 + [_I] * 7 + [_P]
 _ROWS = [_P] * 3 + [_I] * 7 + [_P]
 _STREAMED = [_P] * 4 + [_I] * 7 + [_P]
+_STREAMED_TILES = [_P] * 4 + [_I] * 8 + [_P]
 
 
 def _spill(argtypes: list, n_in: int) -> list:
@@ -55,10 +56,11 @@ ENTRY_POINTS = {
                       "sgv_sym_band_int4_spill": _spill(_QUANT, 3)},
     "sym_band_hybrid": {"sgv_sym_band_hybrid_matvec": _QUANT,
                         "sgv_sym_band_hybrid_spill": _spill(_QUANT, 3)},
-    # upper, x, y, [carry,] partials, K, nb, hb, B, S, block rows a CTA,
-    # dtype code, stream
-    "sym_band_float": {"sgv_sym_band_float_matvec": _STREAMED,
-                       "sgv_sym_band_float_spill": _spill(_STREAMED, 2)},
+    # upper, x, y, [carry,] partials, K, nb, hb, B, S, block rows and
+    # diagonals a CTA, dtype code, stream
+    "sym_band_float": {"sgv_sym_band_float_matvec": _STREAMED_TILES,
+                       "sgv_sym_band_float_spill": _spill(_STREAMED_TILES, 2)},
+    # the same without the diagonals a CTA
     "sym_slab_streamed": {"sgv_sym_slab_streamed_matvec": _STREAMED,
                           "sgv_sym_slab_streamed_spill": _spill(_STREAMED, 2)},
     # upper, x, y, K, nb, hb, B, S, block rows a CTA, dtype code, stream

@@ -27,7 +27,10 @@ terms. "streamed" keeps only a run's own mirror sums on chip and hands the
 mirror sums that cross into the next run to a second, short launch through
 a scratch of partial sums, so it takes any band; the int8 kernel does the
 same (int4 and hybrid gather: one CTA an output block row, which reads
-every off-diagonal slot twice). "resident" keeps the x
+every off-diagonal slot twice). Where the runs alone would put few warps
+on the card (a band of few block rows and many diagonals), the float and
+int8 diag kernels cut it into tiles of G block rows and D diagonals
+(_float_tiles, _int8_tiles). "resident" keeps the x
 and y of a run of block rows in a CTA's shared memory, reads the
 neighbour's last blocks again for the mirror terms that cross into its
 run, and is limited by that shared memory
@@ -529,11 +532,18 @@ def sym_band_matvec_int8_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tupl
 
 
 def _float(wrapper, plain, upper: Tensor, x: Tensor, spill: bool):
-    """As _int8, for the float-block wrappers of the diag layout."""
+    """As _int8, for the float-block wrappers of the diag layout, over the
+    tiles of _float_tiles."""
     x = _check_float(upper, x, slab=False, spill=spill)
     if x.device.type == "cpu":
         return plain(upper, x)
-    return _launch_streamed(wrapper, "sym_band_float", upper, x, DIAG_RUN_ROWS, spill)
+    K, nb, hb, B = _geometry(upper)
+    S = x.shape[1]
+    G, D = _float_tiles(nb, hb, _sm_count(x.device), spill)
+    return _launch(wrapper, "sym_band_float", x, (upper, x),
+                   (K, nb, hb, B, S, G, D, _FLOAT_CODES[upper.dtype]), B,
+                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None,
+                   partials=_partials_shape(K, S, nb, hb, G, B, spill, D))
 
 
 def sym_band_matvec(upper: Tensor, x: Tensor) -> Tensor:
@@ -609,7 +619,8 @@ def sym_band_matvec_hybrid_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tu
 # names them: a kernel event's name is its demangled __global__ instantiation.
 # int4 and hybrid are one template told apart by its last argument; an int8
 # or float streamed pass is two launches, the kernel and fold_partials_kernel
-# (an int8 pass whose tiles cut the band's diagonals: fold_tiles_kernel).
+# (an int8 or float diag pass whose tiles cut the band's diagonals:
+# fold_tiles_kernel).
 TRACED_KERNELS = {
     "int4": r"sym_band_packed_kernel<\d+, \d+, false>",
     "hybrid": r"sym_band_packed_kernel<\d+, \d+, true>",
@@ -639,16 +650,27 @@ def traced_kernel_counts(names) -> dict:
 # of G block rows may ask for on an H100 (csrc/sym_band_tile.cuh)
 SHARED_MEMORY_BYTES = 232448
 MAX_ROWS_PER_CTA = 16
-# block rows a CTA of the streamed diag kernel takes: its shared memory, 3 G
-# S B accumulator words, fits for every B, S and type, and whatever hb is
+# the longest run of block rows a CTA of the streamed float diag kernel
+# takes (csrc/sym_band_float.cu kMaxRunRows): its shared memory, 3 G S B
+# accumulator words, fits for every B, S and type, and whatever hb is; the
+# spill form always takes it
 DIAG_RUN_ROWS = 8
+# warps an SM that the float diag kernel's grid should hold before it cuts
+# the band's diagonals into ranges: as the int8 kernel's, a warp streams its
+# blocks with about 4 KB in flight (kStreamAhead row groups of 512 bytes),
+# so the card needs several warps an SM to reach its rate. The bench shape
+# (nb=4096, hb=2) holds 31 an SM; a dense panel's whole triangle (nb=64,
+# hb=64, K=2) in runs of 8 is 16 CTAs on 132 SMs, and the warp of block
+# row 0 streams 65 blocks.
+FLOAT_MIN_WARPS_PER_SM = 6
 
 
 # the int8 kernel's longest run of block rows, one warp each
-# (csrc/sym_band_int8.cu kMaxRunRows), and the most ranges it may cut the
-# band's diagonals into (kMaxRanges)
+# (csrc/sym_band_int8.cu kMaxRunRows)
 INT8_MAX_RUN_ROWS = 8
-INT8_MAX_RANGES = 128
+# the most ranges the streamed diag kernels may cut the band's diagonals
+# into (csrc/sym_band_tile.cuh kMaxRanges)
+MAX_RANGES = 128
 # warps an SM that the int8 kernel's grid should hold before it cuts the
 # band's diagonals into ranges: a warp streams its blocks at a few GB/s, with
 # two 2 KB chunks in flight, so the card needs several warps an SM to reach
@@ -658,26 +680,31 @@ INT8_MAX_RANGES = 128
 INT8_MIN_WARPS_PER_SM = 6
 
 
-def _int8_runs(nb: int, sms: int) -> int:
-    """G, the block rows a CTA of the int8 kernel takes over nb block rows
-    on a card of `sms` SMs: the longest run of INT8_MAX_RUN_ROWS halved
-    until it still gives every SM a CTA (or 1). Longer runs send fewer
-    mirror sums through the scratch of partial sums; a 1024-row shard at
-    G = 8 would leave 4 of an H100's 132 SMs idle. A CTA's shared memory
-    (each warp's ring of 3 chunks of 2 KB, and 3 G S B floats) is at most
-    147,456 bytes (B = 256, S = 4), so it fits at every B and S, and hb
-    and the tile's diagonals do not enter."""
-    G = INT8_MAX_RUN_ROWS
+def _runs(nb: int, sms: int, longest: int) -> int:
+    """G, the block rows a CTA of a streamed diag kernel takes over nb block
+    rows on a card of `sms` SMs: the longest run halved until it still
+    gives every SM a CTA (or 1). Longer runs send fewer mirror sums through
+    the scratch of partial sums; a 1024-row shard at G = 8 would leave 4 of
+    an H100's 132 SMs idle."""
+    G = longest
     while G > 1 and -(-nb // G) < sms:
         G //= 2
     return G
 
 
-def _int8_tile_count(nb: int, hb: int, G: int, D: int) -> int:
-    """The tiles of the int8 kernel's matvec grid: for each run c of G block
-    rows (of ceil(nb / G)), one a range of D diagonals up to the last that
-    holds data in the run's first block row, min(hb, nb - 1 - c G)
-    (csrc/sym_band_int8.cu::tiles_of, which counts them by range)."""
+def _int8_runs(nb: int, sms: int) -> int:
+    """G of the int8 kernel: _runs up to INT8_MAX_RUN_ROWS. A CTA's shared
+    memory (each warp's ring of 3 chunks of 2 KB, and 3 G S B floats) is at
+    most 147,456 bytes (B = 256, S = 4), so it fits at every B and S, and hb
+    and the tile's diagonals do not enter."""
+    return _runs(nb, sms, INT8_MAX_RUN_ROWS)
+
+
+def _tile_count(nb: int, hb: int, G: int, D: int) -> int:
+    """The tiles of a streamed diag kernel's matvec grid: for each run c of
+    G block rows (of ceil(nb / G)), one a range of D diagonals up to the
+    last that holds data in the run's first block row, min(hb, nb - 1 - c G)
+    (csrc/sym_band_tile.cuh::tiles_of, which counts them by range)."""
     return sum(-(-(min(hb, nb - 1 - r0) + 1) // D) for r0 in range(0, nb, G))
 
 
@@ -686,22 +713,35 @@ def _int8_tiles(nb: int, hb: int, sms: int) -> tuple:
     past the first on a card of `sms` SMs, for the matvec form. G from
     _int8_runs; D = hb + 1, every diagonal in one range, where the runs put
     INT8_MIN_WARPS_PER_SM warps an SM on the card, else the fewest ranges J
-    (D = ceil((hb + 1) / J), at most INT8_MAX_RANGES) whose tiles do, or the
+    (D = ceil((hb + 1) / J), at most MAX_RANGES) whose tiles do, or the
     most there may be. A warp of a tile streams at most D blocks, so a band
     of few block rows and many diagonals no longer waits on the warp of its
     longest row."""
     G = _int8_runs(nb, sms)
-    return G, _int8_diagonals(nb, hb, G, INT8_MIN_WARPS_PER_SM * sms)
+    return G, _diagonals(nb, hb, G, INT8_MIN_WARPS_PER_SM * sms)
+
+
+def _float_tiles(nb: int, hb: int, sms: int, spill: bool = False) -> tuple:
+    """(G, D): the float diag kernel's tiles. The matvec form by
+    _int8_tiles' rule: G from _runs up to DIAG_RUN_ROWS, D = hb + 1 where
+    those runs put FLOAT_MIN_WARPS_PER_SM warps an SM on the card, else the
+    fewest even ranges whose tiles do; (1, 2) on a dense M=8192 panel's
+    whole triangle (nb=64, hb=64), 2112 one-warp tiles over two cohorts.
+    The spill form: runs of DIAG_RUN_ROWS, every diagonal in one range."""
+    if spill:
+        return DIAG_RUN_ROWS, hb + 1
+    G = _runs(nb, sms, DIAG_RUN_ROWS)
+    return G, _diagonals(nb, hb, G, FLOAT_MIN_WARPS_PER_SM * sms)
 
 
 @functools.lru_cache(maxsize=None)
-def _int8_diagonals(nb: int, hb: int, G: int, warps: int) -> int:
-    """D of _int8_tiles for runs of G: the fewest ranges whose tiles hold
-    `warps` warps (the count grows with the ranges: a binary search)."""
+def _diagonals(nb: int, hb: int, G: int, warps: int) -> int:
+    """D for runs of G: the fewest ranges whose tiles hold `warps` warps
+    (the count grows with the ranges: a binary search)."""
     def enough(J):
-        return G * _int8_tile_count(nb, hb, G, -(-(hb + 1) // J)) >= warps
+        return G * _tile_count(nb, hb, G, -(-(hb + 1) // J)) >= warps
 
-    lo, hi = 1, min(hb + 1, INT8_MAX_RANGES)
+    lo, hi = 1, min(hb + 1, MAX_RANGES)
     while lo < hi:
         mid = (lo + hi) // 2
         lo, hi = (lo, mid) if enough(mid) else (mid + 1, hi)
@@ -722,12 +762,12 @@ def _partials_shape(K: int, S: int, nb: int, hb: int, G: int, B: int, spill: boo
     rows, B). The mirror sums that leave a CTA's run of G block rows
     (csrc/sym_band_tile.cuh::Partials) take F hb rows: hb slots for each of
     the first min(hb, G) block rows of each run, and in the spill form for
-    each of the carry's hb block rows. The int8 kernel's tiles (D diagonals
-    of a run, csrc/sym_band_int8.cu::Scratch) leave the mirror sums as they
-    are (which leave depends on the run only); when D cuts the diagonals
-    into J = ceil((hb + 1) / D) > 1 ranges, no tile holds a whole row sum,
-    and each stores its run's rows after the slots of its cohort and lane:
-    J nb rows more."""
+    each of the carry's hb block rows. The streamed diag kernels' tiles (D
+    diagonals of a run, csrc/sym_band_tile.cuh::Scratch) leave the mirror
+    sums as they are (which leave depends on the run only); when D cuts the
+    diagonals into J = ceil((hb + 1) / D) > 1 ranges, no tile holds a whole
+    row sum, and each stores its run's rows after the slots of its cohort
+    and lane: J nb rows more."""
     F = -(-nb // G) * min(hb, G) + (hb if spill else 0)
     J = 1 if D is None else -(-(hb + 1) // D)
     return K, S, F * hb + (J * nb if J > 1 else 0), B
@@ -816,24 +856,18 @@ def _launch_rows(wrapper, library: str, upper: Tensor, x: Tensor, G: int):
                    torch.promote_types(upper.dtype, torch.float32))
 
 
-def _launch_streamed(wrapper, library: str, upper: Tensor, x: Tensor, G: int, spill: bool):
-    """A pass of a streamed float kernel (the kernel and its fold of the
-    partial sums, counted once) with runs of G block rows."""
-    K, nb, hb, B = _geometry(upper)
-    S = x.shape[1]
-    return _launch(wrapper, library, x, (upper, x),
-                   (K, nb, hb, B, S, G, _FLOAT_CODES[upper.dtype]), B,
-                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None,
-                   partials=_partials_shape(K, S, nb, hb, G, B, spill))
-
-
 def _slab_streamed(wrapper, plain, upper: Tensor, rows_per_step: int, x: Tensor, spill: bool):
     """As _int8, for the streamed slab wrappers."""
     x = _check_float(upper, x, slab=True, spill=spill)
     G = _gather_rows(upper, x.shape[1], rows_per_step)
     if x.device.type == "cpu":
         return plain(upper, rows_per_step, x)
-    return _launch_streamed(wrapper, "sym_slab_streamed", upper, x, G, spill)
+    K, nb, hb, B = _geometry(upper)
+    S = x.shape[1]
+    return _launch(wrapper, "sym_slab_streamed", x, (upper, x),
+                   (K, nb, hb, B, S, G, _FLOAT_CODES[upper.dtype]), B,
+                   torch.promote_types(upper.dtype, torch.float32), hb if spill else None,
+                   partials=_partials_shape(K, S, nb, hb, G, B, spill))
 
 
 def sym_slab_matvec_streamed(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:

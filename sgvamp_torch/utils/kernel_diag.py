@@ -2,8 +2,8 @@
 
     python -m sgvamp_torch.utils.kernel_diag [--bytes 201326592] [--out FILE]
         [--storages int8,int4,hybrid,bfloat16,float32] [--hb 0,1,2]
-        [--bench-hb 2] [--tile-shapes 64:64:2,4096:2:1]
-        [--int8-tiles 1:2,1:all,8:3]
+        [--bench-hb 2] [--tile-shapes 64:64:2,4096:2:1,64:1:1:2:256]
+        [--int8-tiles 1:2,1:all,8:3] [--float-tiles 1:2,8:all]
 
 For each storage of SymBandedLD (int8, int4, hybrid, bfloat16, float32) the
 streamed diag kernel, and for the two float storages also the streamed
@@ -32,13 +32,15 @@ by decoding keeps its elements per second from hb=0 to hb=2. The int4 and
 hybrid kernels read every off-diagonal slot twice, the int8 and float
 streamed kernels every block once (plus their partial sums), the resident
 ones once plus hb/(2G) of them at the run boundaries. `--tile-shapes`
-(nb:hb:K or nb:hb:K:S, S=2 by default; 64:64:2 is a dense M=8192 panel's
-whole triangle over two cohorts, 4096:2:1 the bench shape) also times the
-int8 kernel over random bands of those shapes, with the wrapper's own tiles
-and with each tile G:D of `--int8-tiles` (G block rows and D diagonals; all:
-every diagonal, the runs before tiles) in place of its choice
-(ops/band_kernel.py::_int8_tiles); where the tile takes every diagonal, the
-spill form on one shard of four too, with runs of G
+(nb:hb:K, nb:hb:K:S or nb:hb:K:S:B, S=2 and B=128 by default; 64:64:2 is a
+dense M=8192 panel's whole triangle over two cohorts, 4096:2:1 the bench
+shape) also times the int8 kernel and the float diag kernel (those of
+`--storages` among int8, bfloat16 and float32) over random bands of those
+shapes, with the wrapper's own tiles and with each tile G:D of
+`--int8-tiles` / `--float-tiles` (G block rows and D diagonals; all: every
+diagonal) in place of its choice (ops/band_kernel.py::_int8_tiles,
+_float_tiles); for int8, where the tile takes every diagonal, the spill
+form on one shard of four too, with runs of G
 (ops/band_kernel.py::_int8_runs). `--storages` times only
 the storages that a change touches (the whole run takes minutes). Run from
 another checkout's root with this file's path, the script times that
@@ -133,16 +135,33 @@ def forced_int8_tiles(G: int, D: Optional[int] = None):
         bk._int8_tiles, bk._int8_runs = rules
 
 
+@contextlib.contextmanager
+def forced_float_tiles(G: int, D: Optional[int] = None):
+    """Within the block the float diag wrappers take runs of G block rows
+    in place of ops/band_kernel.py::_float_tiles' choice: the matvec form in
+    tiles of D diagonals (None: every diagonal; at most hb + 1), the spill
+    form, which takes every diagonal, in runs of G."""
+    rule = bk._float_tiles
+    bk._float_tiles = lambda nb, hb, sms, spill=False: (
+        G, hb + 1 if D is None or spill else min(D, hb + 1))
+    try:
+        yield
+    finally:
+        bk._float_tiles = rule
+
+
 def _flat(out) -> torch.Tensor:
     return torch.cat([t.flatten() for t in (out if isinstance(out, tuple) else (out,))])
 
 
-def _int8_tile_lines(smi: str, device, nb: int, hb: int, K: int, S: int, tiles: list) -> list:
-    """The int8 kernel over random blocks (zero past the matrix's end) of nb
-    block rows, hb diagonals past the first, K cohorts and S lanes: the
+def _tile_lines(smi: str, device, storage: str, nb: int, hb: int, K: int, S: int, Bs: int,
+                tiles: list) -> list:
+    """A streamed diag kernel (int8, or float blocks in bfloat16 / float32)
+    over random blocks (zero past the matrix's end) of nb block rows, hb
+    diagonals past the first, K cohorts, S lanes and block size Bs: the
     matvec form with the wrapper's own tiles and with each of `tiles` ((G,
-    D), D None for every diagonal); where D is every diagonal (and for the
-    wrapper's own), the spill form too over an interior shard of
+    D), D None for every diagonal); for int8, where D is every diagonal (and
+    for the wrapper's own), the spill form too over an interior shard of
     BENCH_SHARDS when one holds more than hb block rows. Each form's cases
     run in the order own, tiles, then back (A B C C B A), so that each is
     timed twice and a drift of the card falls on both sides. Each line its
@@ -151,38 +170,56 @@ def _int8_tile_lines(smi: str, device, nb: int, hb: int, K: int, S: int, tiles: 
     (torch.profiler over PROFILED_PASSES passes: each launch's own span,
     without the gaps; a fold_tiles launched as the kernel's programmatic
     dependent starts while the kernel's last CTAs run, and its span holds
-    that wait)."""
+    that wait). A checkout from before the float kernel's tiles times its
+    own schedule only (runs of DIAG_RUN_ROWS, every diagonal)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     g = torch.Generator(device).manual_seed(nb + hb)
-    up = torch.randint(-128, 128, (K, nb, hb + 1, B, B), generator=g, device=device,
-                       dtype=torch.int8)
+    quantized = storage == "int8"
+    if quantized:
+        up = torch.randint(-128, 128, (K, nb, hb + 1, Bs, Bs), generator=g, device=device,
+                           dtype=torch.int8)
+        sc = torch.rand((K, nb, hb + 1), generator=g, device=device) / 100
+        xdt = torch.bfloat16
+    else:
+        up = torch.randn((K, nb, hb + 1, Bs, Bs), generator=g, device=device).to(
+            getattr(torch, storage))
+        xdt = up.dtype
     for d in range(1, hb + 1):
         up[:, max(nb - d, 0):, d] = 0
-    sc = torch.rand((K, nb, hb + 1), generator=g, device=device) / 100
-    x = torch.randn((K, S, nb * B), generator=g, device=device).to(torch.bfloat16)
+    x = torch.randn((K, S, nb * Bs), generator=g, device=device).to(xdt)
     sms = bk._sm_count(device)
-    # a checkout from before the tiles takes runs of _int8_runs, every diagonal
-    own = (bk._int8_tiles(nb, hb, sms) if hasattr(bk, "_int8_tiles")
-           else (bk._int8_runs(nb, sms), hb + 1))
-    forms = [("whole", bk.sym_band_matvec_int8, bk.sym_band_matvec_int8_ref, (up, sc, x),
-              K * sum(min(hb, nb - 1 - i) + 1 for i in range(nb)), own)]
+    held = K * sum(min(hb, nb - 1 - i) + 1 for i in range(nb))
+    if quantized:
+        # a checkout from before the tiles takes runs of _int8_runs, every diagonal
+        own = (bk._int8_tiles(nb, hb, sms) if hasattr(bk, "_int8_tiles")
+               else (bk._int8_runs(nb, sms), hb + 1))
+        forms = [("whole", bk.sym_band_matvec_int8, bk.sym_band_matvec_int8_ref, (up, sc, x),
+                  held, own)]
+        force, names = forced_int8_tiles, ("sym_band_int8_kernel", "fold_")
+    else:
+        tiled = hasattr(bk, "_float_tiles")
+        own = bk._float_tiles(nb, hb, sms) if tiled else (bk.DIAG_RUN_ROWS, hb + 1)
+        forms = [("whole", bk.sym_band_matvec, bk.sym_band_matvec_ref, (up, x), held, own)]
+        force, names = forced_float_tiles, ("sym_band_float_kernel", "fold_")
+        tiles = tiles if tiled else []
     nb_l = nb // BENCH_SHARDS
-    if nb_l > hb:
-        x_l = torch.randn((K, S, (nb_l + hb) * B), generator=g, device=device)
+    if quantized and nb_l > hb:
+        x_l = torch.randn((K, S, (nb_l + hb) * Bs), generator=g, device=device)
         forms.append(("one shard of 4", bk.sym_band_matvec_int8_spill,
                       bk.sym_band_matvec_int8_spill_ref,
                       (up[:, nb_l:2 * nb_l].contiguous(), sc[:, nb_l:2 * nb_l].contiguous(),
                        x_l.to(torch.bfloat16)),
                       K * nb_l * (hb + 1), (bk._int8_runs(nb_l, sms), hb + 1)))
+    elem = up.element_size()
     lines = []
-    for form, kernel, plain, args, held, own_tiles in forms:
+    for form, kernel, plain, args, n_held, own_tiles in forms:
         want = _flat(plain(*args))
         cases = [None] + [t for t in dict.fromkeys(tiles) if form == "whole" or t[1] is None]
         for tile in cases + cases[::-1]:
             G, D = own_tiles if tile is None else (tile[0], min(tile[1] or hb + 1, hb + 1))
-            with contextlib.nullcontext() if tile is None else forced_int8_tiles(*tile):
+            with contextlib.nullcontext() if tile is None else force(*tile):
                 err = float((_flat(kernel(*args)) - want).abs().max() / want.abs().max())
                 ms = _ms(lambda: kernel(*args))
                 with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -191,12 +228,12 @@ def _int8_tile_lines(smi: str, device, nb: int, hb: int, K: int, S: int, tiles: 
                     torch.cuda.synchronize()
             ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             us = {name: sum(e.device_time_total for e in ev if pat in e.key) / PROFILED_PASSES
-                  for name, pat in (("kernel_us", "sym_band_int8_kernel"), ("fold_us", "fold_"))}
-            lines.append({"card": smi, "storage": "int8", "shape": "tiles", "form": form,
+                  for name, pat in zip(("kernel_us", "fold_us"), names)}
+            lines.append({"card": smi, "storage": storage, "shape": "tiles", "form": form,
                           "nb": nb if form == "whole" else nb_l, "hb": hb, "K": K, "S": S,
-                          "G": G, "D": D, "chosen": tile is None, "ms": ms, "scaled_err": err,
-                          "held_block_bytes": held * B * B,
-                          "gbps_over_held_blocks": held * B * B / ms / 1e6, **us})
+                          "B": Bs, "G": G, "D": D, "chosen": tile is None, "ms": ms,
+                          "scaled_err": err, "held_block_bytes": n_held * Bs * Bs * elem,
+                          "gbps_over_held_blocks": n_held * Bs * Bs * elem / ms / 1e6, **us})
             print(json.dumps(lines[-1]), flush=True)
     return lines
 
@@ -214,11 +251,14 @@ def main(argv=None) -> int:
                     help="comma-separated block diagonals of the bench-shape cases "
                          "(2 is the bench's bandwidth 256)")
     ap.add_argument("--tile-shapes", default="",
-                    help="comma-separated nb:hb:K[:S] of random bands over which to time "
-                         "the int8 kernel with its own tiles and the --int8-tiles ones")
+                    help="comma-separated nb:hb:K[:S[:B]] of random bands over which to time "
+                         "the int8 and float diag kernels (those of --storages) with their "
+                         "own tiles and the --int8-tiles / --float-tiles ones")
     ap.add_argument("--int8-tiles", default="",
-                    help="comma-separated tiles G:D (D 'all': every diagonal) to force over "
-                         "the --tile-shapes bands")
+                    help="comma-separated tiles G:D (D 'all': every diagonal) to force on "
+                         "the int8 kernel over the --tile-shapes bands")
+    ap.add_argument("--float-tiles", default="",
+                    help="the same for the float diag kernel (bfloat16, float32)")
     args = ap.parse_args(argv)
     storages = [v for v in args.storages.split(",") if v]
     hbs = [int(v) for v in args.hb.split(",") if v]
@@ -267,11 +307,17 @@ def main(argv=None) -> int:
                     "probe_ms_for_the_blocks": probe_s * 1e3, "probe_gbps": gbps})
                 print(json.dumps(lines[-1]), flush=True)
             del op, k_args, x
-    tiles = [(int(G), None if D == "all" else int(D))
-             for G, D in (v.split(":") for v in args.int8_tiles.split(",") if v)]
+    def forced(spec):
+        return [(int(G), None if D == "all" else int(D))
+                for G, D in (v.split(":") for v in spec.split(",") if v)]
+
+    tiles = {"int8": forced(args.int8_tiles), "bfloat16": forced(args.float_tiles),
+             "float32": forced(args.float_tiles)}
     for shape in [v for v in args.tile_shapes.split(",") if v]:
-        nb, hb, K, S = (list(map(int, shape.split(":"))) + [BENCH_S])[:4]
-        lines += _int8_tile_lines(smi, device, nb, hb, K, S, tiles)
+        dims = [int(v) for v in shape.split(":")]
+        nb, hb, K, S, Bs = dims + [BENCH_S, B][len(dims) - 3:]
+        for storage in [st for st in storages if st in tiles]:
+            lines += _tile_lines(smi, device, storage, nb, hb, K, S, Bs, tiles[storage])
     bench = [(st, "streamed", hb) for hb in bench_hbs for st in storages]
     bench += [(st, "slab-streamed", hb) for hb in bench_hbs for st in ("bfloat16", "float32")
               if st in storages]

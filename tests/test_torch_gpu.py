@@ -887,6 +887,113 @@ def test_int8_whole_triangle_reads_every_block_once(cuda, force_int8_tiles, tile
     assert torch.equal(got[0], sym_band_matvec_int8(upper, scales, x))
 
 
+# The float diag kernel over tiles of the band (csrc/sym_band_float.cu's
+# matvec form, whose (G, D) ops/band_kernel.py::_float_tiles picks): whole
+# triangles and a ragged band, at the rule's own tiles and at forced ones, in
+# bfloat16, float32 and float64 blocks, against the plain version (f64:
+# 1e-12), the same bits on a repeat.
+FLOAT_TOL = {"bfloat16": SCALED_TOL, "float32": SCALED_TOL, "float64": 1e-12}
+
+
+@pytest.fixture
+def force_float_tiles():
+    """force(tiles): until the test ends the float diag wrappers take tiles
+    (G, D) (D None: every diagonal; utils/kernel_diag.py::forced_float_tiles),
+    or their own choice for None."""
+    from sgvamp_torch.utils.kernel_diag import forced_float_tiles
+
+    with contextlib.ExitStack() as stack:
+        yield lambda tiles: tiles is None or stack.enter_context(forced_float_tiles(*tiles))
+
+
+def _float_pass(upper, x):
+    """One counted pass of the float diag matvec kernel, its scaled error
+    against the plain version, and a second pass that must give its bits."""
+    before = [w.launches for w in BAND_KERNELS]
+    y = sym_band_matvec(upper, x)
+    torch.cuda.synchronize()
+    after = [w.launches for w in BAND_KERNELS]
+    assert sum(after) == sum(before) + 1   # the kernel and its fold, counted once
+    assert sym_band_matvec.launches == before[BAND_KERNELS.index(sym_band_matvec)] + 1
+    want = sym_band_matvec_ref(upper, x)
+    assert y.dtype == want.dtype and y.shape == want.shape
+    assert torch.equal(y, sym_band_matvec(upper, x))  # no atomics
+    return float((y - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("S", range(1, 5))
+@pytest.mark.parametrize("wider", [0, 1], ids=["hb=nb-1", "hb=nb"])
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_float_kernel_on_whole_triangle_matches_plain(cuda, force_float_tiles, dtype, B, wider,
+                                                      S):
+    """A whole triangle (nb=16), K 1 or 2, with tiles that vary with the
+    case: the rule's own, one diagonal a tile, every diagonal."""
+    force_float_tiles([None, (1, 1), (2, 3), (8, 2), (3, None)][(B // 64 + S + wider) % 5])
+    nb = 16
+    hb, K = nb - 1 + wider, 1 + S % 2
+    upper = _random_blocks("diag", dtype, K, nb, hb, B, B + nb + hb + S, cuda)
+    x = torch.from_numpy(np.random.default_rng(nb + S).normal(size=(K, S, nb * B))).to(
+        cuda, upper.dtype)
+    err = _float_pass(upper, x)
+    assert err <= FLOAT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("tiles", [None, (1, 1), (1, None), (8, 1), (8, 3), (3, 2), (5, 7),
+                                   (2, None), (4, 2)], ids=_tiles_id)
+@pytest.mark.parametrize("B,hb,nb,K,S", [
+    (64, 15, 16, 2, 1),     # whole triangles
+    (128, 13, 13, 1, 2),
+    (256, 9, 9, 2, 3),
+    (128, 16, 37, 2, 4),    # a band, ragged: the last run is short
+    (64, 2, 11, 3, 2),      # K=3
+    (128, 0, 9, 2, 2),      # hb=0: one range whatever is forced
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_float_kernel_forced_tiles_match_plain(cuda, force_float_tiles, dtype, tiles, B, hb, nb,
+                                               K, S):
+    force_float_tiles(tiles)
+    upper = _random_blocks("diag", dtype, K, nb, hb, B, B + 3 * hb + nb, cuda)
+    x = torch.from_numpy(np.random.default_rng(hb + S).normal(size=(K, S, nb * B))).to(
+        cuda, upper.dtype)
+    err = _float_pass(upper, x)
+    assert err <= FLOAT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_float_kernel_on_a_dense_panel_triangle_matches_plain(cuda, dtype):
+    """Row 1g's shape, a dense M=8192 panel's whole triangle at B=128 (nb=64,
+    hb=64, K=2, S=2), with the rule's own tiles, (1, 2) on an H100."""
+    from sgvamp_torch.ops.band_kernel import _float_tiles, _sm_count
+
+    nb = hb = 64
+    if _sm_count(cuda) == 132:
+        assert _float_tiles(nb, hb, 132) == (1, 2)
+    upper = _random_blocks("diag", dtype, 2, nb, hb, 128, 64, cuda)
+    x = torch.from_numpy(np.random.default_rng(64).normal(size=(2, 2, nb * 128))).to(
+        cuda, upper.dtype)
+    err = _float_pass(upper, x)
+    assert err <= FLOAT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("tiles", [(1, 1), (1, None)], ids=_tiles_id)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_float_tiled_kernel_refuses_unaligned_upper(cuda, force_float_tiles, dtype, tiles):
+    """Blocks that start off a 16-byte boundary are refused with
+    cudaErrorMisalignedAddress (716), nothing launched, whether the tiles cut
+    the diagonals (J = 2) or not."""
+    force_float_tiles(tiles)
+    upper = _random_blocks("diag", dtype, 1, 4, 1, 64, 0, cuda)
+    off = torch.empty(upper.numel() + 1, dtype=upper.dtype, device=cuda)[1:].view(upper.shape)
+    off.copy_(upper)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    x = torch.zeros((1, 2, 4 * 64), dtype=upper.dtype, device=cuda)
+    before = sym_band_matvec.launches
+    with pytest.raises(RuntimeError, match=r"\(error 716\)"):
+        sym_band_matvec(off, x)
+    assert sym_band_matvec.launches == before
+
+
 @pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])
 def test_int8_kernel_refuses_unaligned_upper(cuda, spill):
     """The walker reads the blocks 16 bytes at a time: blocks that start off

@@ -1,7 +1,10 @@
 """The int8 kernel's read-once design, on the CPU: its plain versions against
 the JAX package's Pallas kernel at a band wider than the kernel's runs, the
 wrapper's choice of tiles as a plain function, and the kernel's schedule
-over tiles emulated in plain torch on a dense panel's whole triangle.
+over tiles emulated in plain torch on a dense panel's whole triangle. The
+float diag kernel (csrc/sym_band_float.cu) takes the same tiles over
+bfloat16, float32 and float64 blocks: its rule and the same emulation over
+its blocks are held here too.
 
 The kernel (csrc/sym_band_int8.cu) gives a CTA a tile of the band: a run of
 G block rows, one warp a block row, and a range of D diagonals. It sends the
@@ -150,7 +153,7 @@ def test_int8_partials_are_written_once_and_all_folded(hb, spill):
 # ---------------------------------------------------------------------------
 
 def _tile_table(nb, hb, G, D):
-    """The tiles of the matvec grid as csrc/sym_band_int8.cu::tiles_of lists
+    """The tiles of the matvec grid as csrc/sym_band_tile.cuh::tiles_of lists
     them: range by range, the runs whose first block row has data at the
     range's first diagonal, in order; [(j, r0), ...]."""
     J, runs = -(-(hb + 1) // D), -(-nb // G)
@@ -175,13 +178,13 @@ def test_int8_tiles_put_enough_warps_on_the_card(nb, hb, sms):
     G, D = tbk._int8_tiles(nb, hb, sms)
     assert G == tbk._int8_runs(nb, sms) and 1 <= D <= hb + 1
     J = -(-(hb + 1) // D)
-    assert D == -(-(hb + 1) // J) and J <= tbk.INT8_MAX_RANGES
+    assert D == -(-(hb + 1) // J) and J <= tbk.MAX_RANGES
     want = tbk.INT8_MIN_WARPS_PER_SM * sms
 
     def warps(j):
-        return G * tbk._int8_tile_count(nb, hb, G, -(-(hb + 1) // j))
+        return G * tbk._tile_count(nb, hb, G, -(-(hb + 1) // j))
 
-    assert warps(J) >= want or J == min(hb + 1, tbk.INT8_MAX_RANGES)
+    assert warps(J) >= want or J == min(hb + 1, tbk.MAX_RANGES)
     assert J == 1 or warps(J - 1) < want
     assert warps(J) == G * len(_tile_table(nb, hb, G, D))
     for B in (64, 128, 256):
@@ -211,14 +214,14 @@ def test_int8_tiles_cover_every_held_block_once(nb, hb, G, D):
             assert b not in seen
             seen[b] = tile
     assert sorted(seen) == [(i, d) for i in range(nb) for d in range(hb + 1) if i + d < nb]
-    assert len(_tile_table(nb, hb, G, D)) == tbk._int8_tile_count(nb, hb, G, D)
+    assert len(_tile_table(nb, hb, G, D)) == tbk._tile_count(nb, hb, G, D)
 
 
 @pytest.mark.parametrize("hb", [1, 2, 16, 64])
 def test_int8_tile_scratch_has_the_kernels_rows(hb):
     """_partials_shape with D: Partials' F rows of hb slots (C runs of G,
     H = min(hb, G) of their rows), then with J > 1 ranges J nb rows of the
-    tiles' row sums, as csrc/sym_band_int8.cu::Scratch counts them; one
+    tiles' row sums, as csrc/sym_band_tile.cuh::Scratch counts them; one
     range leaves the float kernels' F hb rows."""
     for nb in sorted({hb, hb + 1, 7, 64, 1024}):
         for G in (1, 3, 8):
@@ -232,14 +235,16 @@ def test_int8_tile_scratch_has_the_kernels_rows(hb):
 
 
 def _emulate_tiles(upper, scales, x, G, D):
-    """The kernel's matvec schedule over tiles of G block rows and D
-    diagonals, in plain torch (f32): each tile's row sums and the mirror
-    sums that stay in its run in its own buffers, the mirror sums that leave
-    it in Partials' slots, with J > 1 ranges the tiles' rows in the second
-    part of the scratch, then the fold in its fixed order (fold_partials
-    with one range; fold_tiles' groups of sources with more). The scratch,
-    shaped by _partials_shape, starts as NaN: a slot read but never written
-    poisons y, and each is written once."""
+    """The kernels' matvec schedule over tiles of G block rows and D
+    diagonals, in plain torch (f32): int8 blocks with their scales, or
+    bfloat16 / float32 blocks with scales None. Each tile's row sums and the
+    mirror sums that stay in its run in its own buffers, the mirror sums
+    that leave it in Partials' slots, with J > 1 ranges the tiles' rows in
+    the second part of the scratch, then the fold in its fixed order
+    (fold_partials with one range; fold_tiles' groups of sources with
+    more). The scratch, shaped by _partials_shape, starts as NaN: a slot
+    read but never written poisons y, and each is written once. Returns y
+    and the scratch."""
     K, nb, nslot, B, _ = upper.shape
     hb, S = nslot - 1, x.shape[1]
     J, H, P = -(-(hb + 1) // D), min(hb, G), 256 // (S * B // 4)
@@ -255,7 +260,8 @@ def _emulate_tiles(upper, scales, x, G, D):
         own = torch.zeros(K, S, G, B)   # row sums + the mirror sums that stay in the run
         for d in range(j * D, min(j * D + D - 1, hb) + 1):
             for i in range(r0, min(r0 + G, nb - d)):
-                u, sc = upper[:, i, d].float(), scales[:, i, d, None, None]
+                u = upper[:, i, d].float()
+                sc = 1.0 if scales is None else scales[:, i, d, None, None]
                 own[:, :, i - r0] += sc * torch.einsum("kpq,ksq->ksp", u, xb[:, :, i + d])
                 if d:
                     m = sc * torch.einsum("kpq,ksp->ksq", u, xb[:, :, i])
@@ -289,7 +295,7 @@ def _emulate_tiles(upper, scales, x, G, D):
         for acc in groups[1:]:
             tot = tot + acc
         y[:, :, t] = tot
-    return y.reshape(K, S, nb * B)
+    return y.reshape(K, S, nb * B), scratch
 
 
 @pytest.fixture(scope="module")
@@ -330,13 +336,121 @@ def test_tiled_schedule_matches_plain_pallas_and_dense(triangle, hb, G, D):
     if G is None:
         G, D = tbk._int8_tiles(op.nb, op.hb, H100_SMS)
     D = min(D, hb + 1)
-    got = _emulate_tiles(op.upper, op.scales, x, G, D)
+    got, _ = _emulate_tiles(op.upper, op.scales, x, G, D)
     assert not torch.isnan(got).any()
     want = tbk.sym_band_matvec_int8_ref(op.upper, op.scales, x)
     scale = float(want.abs().max())
     assert _scaled(got, want, scale) <= SCALED_TOL
     assert _scaled(got[:1], jy, scale) <= SCALED_TOL
     dense = op.to_dense().numpy().astype(np.float64)
+    M = dense.shape[-1]
+    for k in range(2):
+        assert _scaled(got[k, :, :M], x[k, :, :M].double().numpy() @ dense[k].T,
+                       scale) <= SCALED_TOL
+
+
+# ---------------------------------------------------------------------------
+# the float diag kernel's tiles: the rule and the schedule over float blocks
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("nb,hb,spill", [(4096, 2, False), (1024, 2, True), (1024, 16, True),
+                                         (8, 7, True)])
+def test_float_tiles_keep_the_runs_where_they_fill_the_card(nb, hb, spill):
+    """At the bench shape the matvec form, and on one shard of its four (or
+    any shard) the spill form, keep the schedule before tiles: runs of
+    DIAG_RUN_ROWS block rows, every diagonal in one range."""
+    assert tbk._float_tiles(nb, hb, H100_SMS, spill) == (tbk.DIAG_RUN_ROWS, hb + 1)
+
+
+@pytest.mark.parametrize("nb,hb", [(64, 64), (64, 63), (16, 15), (16, 16), (512, 2), (37, 16),
+                                   (300, 40), (5, 0), (1, 0)])
+@pytest.mark.parametrize("sms", [16, 132])
+def test_float_tiles_put_enough_warps_on_the_card(nb, hb, sms):
+    """The runs of DIAG_RUN_ROWS halved until every SM has a CTA; the fewest
+    even ranges whose tiles hold FLOAT_MIN_WARPS_PER_SM warps an SM, or the
+    most there may be; every B, S and block type within the shared memory
+    (3 G S B accumulator words, f64 for f64 blocks)."""
+    G, D = tbk._float_tiles(nb, hb, sms)
+    assert G in (1, 2, 4, 8) and G <= tbk.DIAG_RUN_ROWS
+    assert G == 1 or math.ceil(nb / G) >= sms
+    assert G == tbk.DIAG_RUN_ROWS or math.ceil(nb / (2 * G)) < sms
+    J = -(-(hb + 1) // D)
+    assert 1 <= D <= hb + 1 and D == -(-(hb + 1) // J) and J <= tbk.MAX_RANGES
+    want = tbk.FLOAT_MIN_WARPS_PER_SM * sms
+
+    def warps(j):
+        return G * tbk._tile_count(nb, hb, G, -(-(hb + 1) // j))
+
+    assert warps(J) >= want or J == min(hb + 1, tbk.MAX_RANGES)
+    assert J == 1 or warps(J - 1) < want
+    assert warps(J) == G * len(_tile_table(nb, hb, G, D))
+    assert 3 * G * 4 * 256 * 8 <= tbk.SHARED_MEMORY_BYTES
+    if (nb, hb, sms) == (64, 64, 132):   # row 1g: chip_smoke.py phase 10b's panel
+        assert (G, D) == (1, 2) and warps(J) == 1056
+    if (nb, hb, sms) == (16, 15, 132):
+        assert (G, D) == (1, 1)
+
+
+@pytest.mark.parametrize("nb,hb", [(64, 64), (16, 15), (4096, 2), (512, 2), (128, 1), (64, 1)])
+def test_float_tile_scratch_has_the_kernels_rows(nb, hb):
+    """At the rule's tiles the wrapper's scratch has the rows the float
+    kernel indexes (csrc/sym_band_tile.cuh::Scratch): Partials' F hb slots,
+    then J nb rows of the tiles' row sums where J > 1."""
+    G, D = tbk._float_tiles(nb, hb, H100_SMS)
+    J = -(-(hb + 1) // D)
+    F = -(-nb // G) * min(hb, G)
+    assert tbk._partials_shape(2, 2, nb, hb, G, 128, False, D) == (
+        2, 2, F * hb + (J * nb if J > 1 else 0), 128)
+
+
+@pytest.fixture(scope="module")
+def float_triangle():
+    """The triangle fixture's panel (B=8, M=60, nb=8; hb = 8 and 7) packed
+    as bfloat16 and float32 blocks by the JAX package and the port, equal;
+    x in each block type, and Pallas in interpret mode over each."""
+    M, nb = 60, 8
+    band = simulate_ld_band(10000, M, M - 1, rng=np.random.default_rng(99))[0]
+    x = np.random.default_rng(5).normal(size=(2, 2, nb * WIDE_B))
+    x[:, :, M:] = 0
+    out, xs = {}, {}
+    for storage in ("bfloat16", "float32"):
+        xs[storage] = torch.from_numpy(x).to(getattr(torch, storage))
+        for hb, b in ((nb, band), (nb - 1, band[:, WIDE_B:-WIDE_B])):
+            jop = JSym.from_band(b, block_size=WIDE_B, dtype=storage)
+            op = SymBandedLD.from_band(b, block_size=WIDE_B, K=2, dtype=storage, device="cpu")
+            np.testing.assert_array_equal(op.upper[0].float().numpy(),
+                                          np.asarray(jop.upper, np.float32)[0])
+            assert (op.nb, op.hb) == (nb, hb)
+            jx = jnp.asarray(xs[storage][:1].float().numpy(), jop.upper.dtype)
+            jy, _ = _sym_band_matvec_streamed(jop.upper, jx, nb, interpret=True,
+                                              rows_per_step=nb)
+            out[storage, hb] = op, np.asarray(jy, np.float64)
+    return out, xs
+
+
+@pytest.mark.parametrize("storage", ["bfloat16", "float32"])
+@pytest.mark.parametrize("hb", [8, 7])
+@pytest.mark.parametrize("G,D", [(None, None), (1, 1), (1, 9), (8, 1), (8, 3), (3, 2), (4, 5),
+                                 (5, 9), (2, 4)], ids=lambda v: str(v))
+def test_float_tiled_schedule_matches_plain_pallas_and_dense(float_triangle, storage, hb, G, D):
+    """The emulated schedule over float blocks, at the float rule's (G, D)
+    on an H100 (None) and at forced ones from one diagonal a tile to every
+    one, on the whole triangle: against sym_band_matvec_ref, Pallas in
+    interpret mode and to_dense(), scaled 1e-5 (f32 sums of the same
+    products in other orders)."""
+    ops, xs = float_triangle
+    op, jy = ops[storage, hb]
+    x = xs[storage]
+    if G is None:
+        G, D = tbk._float_tiles(op.nb, op.hb, H100_SMS)
+    D = min(D, hb + 1)
+    got, _ = _emulate_tiles(op.upper, None, x, G, D)
+    assert not torch.isnan(got).any()
+    want = tbk.sym_band_matvec_ref(op.upper, x)
+    scale = float(want.abs().max())
+    assert _scaled(got, want, scale) <= SCALED_TOL
+    assert _scaled(got[:1], jy, scale) <= SCALED_TOL
+    dense = op.to_dense().double().numpy()
     M = dense.shape[-1]
     for k in range(2):
         assert _scaled(got[k, :, :M], x[k, :, :M].double().numpy() @ dense[k].T,
