@@ -191,8 +191,15 @@ Phases, a few lines of output each (and fail on the first that fails):
           tiles (_float_tiles, which must cut the diagonals there) and the
           runs alone (8 block rows, every diagonal), beside torch.matmul
           over the dense panel in the block type; the streamed slab kernel
-          over the bfloat16 blocks against its plain version, timed beside
-          its bound (measured, not changed).
+          over the same blocks in bfloat16 and float32 the same way, with
+          its wrapper's tiles (_slab_tiles, which must cut the diagonals
+          there) and the runs of 8 it took before them (8 block rows,
+          every diagonal); then the engine (EM, CG_MAXIT forced, 5
+          iterations) over the panel in bfloat16, each cohort's own
+          blocks and r, in diag and in slab layout with the same probes:
+          sym_band_matvec, then sym_slab_matvec_streamed, once per LD pass
+          and no other band kernel, best-iterate alignment >= 0.9 in each
+          and the slab run's within 0.005 of the diag run's.
      10c. write_bed an N=16384 x M=8192 panel (binomial(2, 0.4), seed 1),
           read_bed it back (equal; MB/s), simulate phen over it, R from
           the same standardized genotypes on the card in float64, then
@@ -275,6 +282,7 @@ BENCH_TOL = 0.15
 # phase 10: the dense genotype generators (numpy on the host, as in the JAX
 # package): gen-phen-mult's cohorts and the .bed panel, and their signal
 MULT_N, MULT_M = 16384, 8192
+MULT_ITERATIONS = 5   # 10b's engine runs over its panel, diag and slab bfloat16
 BED_N, BED_M = 16384, 8192
 SIM_LAM, SIM_H2 = 0.1, 0.8
 STORAGES = ("int8", "bfloat16", "float32", "int4", "hybrid")
@@ -608,28 +616,74 @@ def load_panel(prefix: str, M: int) -> tuple:
     return band, r, x0
 
 
-def engine_over(op, r, M, device, cg_maxit=CG_MAXIT, mesh=None, prior_update="em"):
+def engine_over(op, r, M, device, cg_maxit=CG_MAXIT, mesh=None, prior_update="em",
+                prior=(LAM, H2), n=N_SAMPLES):
     """The bench's engine over a packed operator: float32, the prior learned
     by `prior_update` (EM by default), a fixed CG budget; under `mesh`
-    where one is given."""
+    where one is given. r (M,) for one cohort or (K, M), each of n samples;
+    prior the (lam, h2) of the signal, its variance scaled as the command
+    line scales it (by the samples of all cohorts)."""
     import torch
 
     from sgvamp_torch import PriorState, VampConfig, VampEngine, VampInputs
 
+    r = np.atleast_2d(np.asarray(r, np.float32))
+    K = r.shape[0]
     mask = torch.zeros(op.M, dtype=torch.float32, device=device)
     mask[:M] = 1.0
-    rp = torch.zeros((1, op.M), dtype=torch.float32, device=device)
-    rp[0, :M] = torch.from_numpy(np.asarray(r, np.float32))
+    rp = torch.zeros((K, op.M), dtype=torch.float32, device=device)
+    rp[:, :M] = torch.from_numpy(r)
     cfg = VampConfig(prior_update=prior_update, dtype="float32", cg_maxit=cg_maxit,
                      cg_force_maxiter=True, em_prior_maxit=5, rho=0.5,
                      lmmse_damp=True)
-    cm = max(int(M * LAM), 1)
-    prior = PriorState.create(LAM, [1.0], [H2 / cm * N_SAMPLES], device=device)
+    lam, h2 = prior
+    cm = max(int(M * lam), 1)
+    state = PriorState.create(lam, [1.0], [h2 / cm * n * K], device=device)
     inputs = VampInputs(op=op, r=rp,
-                        a=torch.ones(1, dtype=torch.float32, device=device),
-                        N=torch.full((1,), float(N_SAMPLES), device=device),
+                        a=torch.full((K,), 1.0 / K, dtype=torch.float32, device=device),
+                        N=torch.full((K,), float(n), device=device),
                         mask=mask)
-    return VampEngine(inputs, cfg, prior, gamw=5.0, gam1=1e-6, mesh=mesh)
+    return VampEngine(inputs, cfg, state, gamw=5.0, gam1=1e-6, mesh=mesh)
+
+
+def mult_engine_run(op, rs, x0, own: str, u) -> dict:
+    """Phase 10b's engine run over the dense panel's K=2 operator `op`: the
+    bench's engine (engine_over: EM, a fixed CG budget) with gen-phen-mult's
+    prior, both cohorts' r (K, M) and the probes u (MULT_ITERATIONS, K,
+    op.M) injected, started with the launch counts at zero, and its checks:
+    `own` once per LD pass (CG_MAXIT + 2 a step) and no other band kernel,
+    a finite best iterate aligned with x0 at MIN_ALIGNMENT or better."""
+    import torch
+
+    from sgvamp_torch.core.vamp import alignment_l2
+
+    M = rs.shape[1]
+    engine = engine_over(op, rs, M, op.upper.device, prior=(SIM_LAM, SIM_H2), n=MULT_N)
+    reset_launches()
+    t0 = time.perf_counter()
+    hist = engine.run(MULT_ITERATIONS, fixed_u=u, x0=x0, stop_tol=STOP_TOL,
+                      stop_gam1_drop=STOP_DROP)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = band_launches()
+    executed = hist.get("stopped_at", hist.get("aborted_at", MULT_ITERATIONS - 1)) + 1
+    passes = (CG_MAXIT + 2) * executed
+    what = f"10b engine over {own}"
+    if launches[own] != passes:
+        fail(f"{what}: {launches[own]} launches for {passes} LD passes")
+    moved = {k: v for k, v in launches.items() if k != own and v}
+    if moved:
+        fail(f"{what}: other band kernels were launched: {moved}")
+    best = hist["best_xhat1"]
+    if "aborted_at" in hist or hist["best_it"] < 0 or not np.all(np.isfinite(best)):
+        fail(f"{what}: non-finite state before the best iterate (best_it {hist['best_it']})")
+    align = alignment_l2(best, x0)[0]
+    if not align >= MIN_ALIGNMENT:
+        fail(f"{what}: best-iterate alignment {align:.5f} < {MIN_ALIGNMENT}")
+    return {"launches": launches[own], "passes": passes, "executed": executed,
+            "best_it": hist["best_it"], "alignment": align,
+            "alignments": [float(v) for v in hist["alignment"]],
+            "s_per_iteration": total_s / executed}
 
 
 def small_engine(device, seed=3):
@@ -1791,16 +1845,23 @@ def multi_cohort_path(work: str, dev) -> dict:
     float32 blocks, the same way, with the wrapper's tiles
     (ops/band_kernel.py::_float_tiles, which must cut the diagonals there)
     and with the runs alone (DIAG_RUN_ROWS block rows, every diagonal),
-    torch.matmul over the dense panel in the block type; and the streamed
-    slab kernel over the bfloat16 blocks against its plain version, timed
-    beside it (measured, not changed)."""
+    torch.matmul over the dense panel in the block type; the streamed slab
+    kernel over the same blocks the same way, with the wrapper's tiles
+    (ops/band_kernel.py::_slab_tiles, which must cut the diagonals there)
+    and with the runs of SLAB_RUN_ROWS block rows over every diagonal that
+    it took before them; and the engine over the panel in bfloat16 blocks
+    (each cohort's own), in diag and slab layout with the same probes
+    (mult_engine_run), whose best-iterate alignments must agree within
+    0.005."""
     import torch
 
     from sgvamp_torch.cli import simulate as cli_simulate
     from sgvamp_torch.data import loaders
-    from sgvamp_torch.ops.band_kernel import (DIAG_RUN_ROWS, SymBandedLD, _float_tiles,
-                                              _int8_tiles, _sm_count, band_kernel_of)
-    from sgvamp_torch.utils.kernel_diag import forced_float_tiles, forced_int8_tiles
+    from sgvamp_torch.ops.band_kernel import (DIAG_RUN_ROWS, SLAB_RUN_ROWS, SymBandedLD,
+                                              _float_tiles, _int8_tiles, _slab_tiles, _sm_count,
+                                              band_kernel_of)
+    from sgvamp_torch.utils.kernel_diag import (forced_float_tiles, forced_int8_tiles,
+                                                forced_slab_tiles)
 
     N, M = MULT_N, MULT_M
     pre = os.path.join(work, "mult")
@@ -1867,9 +1928,11 @@ def multi_cohort_path(work: str, dev) -> dict:
     del R, xm
     torch.cuda.empty_cache()
     # the float diag kernel over the same panel, with its tiles and with the
-    # runs alone; the slab streamed kernel over the bfloat16 blocks
-    floats, slab = {}, None
+    # runs alone; the slab streamed kernel over the same blocks, with its
+    # tiles and with the runs of 8 it took before them
+    floats, slabs = {}, {}
     float_runs = (DIAG_RUN_ROWS, hb + 1)
+    slab_runs = (SLAB_RUN_ROWS, hb + 1)
     for storage in ("bfloat16", "float32"):
         opf = dataclasses.replace(SymBandedLD.from_band(band, block_size=B_FULL, K=2,
                                                         dtype=storage, device=dev),
@@ -1906,23 +1969,69 @@ def multi_cohort_path(work: str, dev) -> dict:
                            "runs_alone": {"tiles": list(float_runs), "ms": f_old_ms,
                                           "tiles_ms": f_new_ms, "max_abs_err": fo_abs,
                                           "scaled_err": fo_rel}}
-        if storage == "bfloat16":
-            ops = with_flavor(opf, "slab-streamed")
-            del opf
-            s_abs, s_rel = kernel_vs_plain(ops, 2, 12, f"slab-streamed at M={M}, nb={nb}, "
-                                                       f"hb={hb}, K=2")
-            ks, ps, as_, _ = band_kernel_of(ops, 2)
-            s_ms, s_plain_ms = kernel_and_plain_ms(lambda: ks(*as_, xf), lambda: ps(*as_, xf),
-                                                   n_kernel=20)
-            s_bound, s_bound_by, s_bytes = bound_ms(ops, 2, storage)
-            slab = {"kernel": ks.__name__, "nb": nb, "hb": hb, "K": 2, "S": 2,
-                    "max_abs_err": s_abs, "scaled_err": s_rel, "ms": s_ms,
-                    "plain_ms": s_plain_ms, "bound_ms": s_bound, "bound_by": s_bound_by,
-                    "bytes": s_bytes, "library_ms": library_ms[storage],
-                    "library_call": "torch.matmul, dense bfloat16 panel"}
-            del ops, as_
-        del af, xf
+        del af
+        ops = with_flavor(opf, "slab-streamed")
+        del opf
+        stiles = _slab_tiles(nb, hb, sms, 2, B_FULL, ops.upper.element_size())
+        if stiles == slab_runs:
+            fail(f"10b: the slab wrapper keeps the runs of {SLAB_RUN_ROWS} on the whole "
+                 f"triangle")
+        s_abs, s_rel = kernel_vs_plain(ops, 2, 12, f"slab-streamed {storage} at M={M}, "
+                                                   f"nb={nb}, hb={hb}, K=2")
+        ks, ps, as_, _ = band_kernel_of(ops, 2)
+        ys = ks(*as_, xf)
+        if not torch.equal(ys, ks(*as_, xf)):
+            fail(f"10b: the {storage} slab kernel with tiles {stiles} gives other bits on a "
+                 f"repeat")
+        del ys
+        with forced_slab_tiles(*slab_runs):
+            so_abs, so_rel = kernel_vs_plain(ops, 2, 12, f"slab-streamed {storage} at nb={nb}, "
+                                                         f"hb={hb}, runs of {SLAB_RUN_ROWS}")
+        s_ms, s_plain_ms = kernel_and_plain_ms(lambda: ks(*as_, xf), lambda: ps(*as_, xf))
+
+        def slab_old_split():
+            with forced_slab_tiles(*slab_runs):
+                ks(*as_, xf)
+
+        # the runs of 8 in the plain version's place: runs, tiles, tiles, runs
+        s_new_ms, s_old_ms = kernel_and_plain_ms(lambda: ks(*as_, xf), slab_old_split,
+                                                 n_plain=20)
+        s_bound, s_bound_by, s_bytes = bound_ms(ops, 2, storage)
+        slabs[storage] = {"kernel": ks.__name__, "nb": nb, "hb": hb, "K": 2, "S": 2,
+                          "tiles": list(stiles), "max_abs_err": s_abs, "scaled_err": s_rel,
+                          "ms": s_ms, "plain_ms": s_plain_ms, "bound_ms": s_bound,
+                          "bound_by": s_bound_by, "bytes": s_bytes,
+                          "library_ms": library_ms[storage],
+                          "library_call": f"torch.matmul, dense {storage} panel",
+                          "runs_of_8": {"tiles": list(slab_runs), "ms": s_old_ms,
+                                        "tiles_ms": s_new_ms, "max_abs_err": so_abs,
+                                        "scaled_err": so_rel}}
+        del ops, as_, xf
         torch.cuda.empty_cache()
+    # the engine over the panel in bfloat16, each cohort's own blocks, in diag
+    # and slab layout, with the same probes
+    t1 = time.perf_counter()
+    band1 = loaders.csr_to_band(np.load(pre + "_1_R.npy"), None)[0]
+    uppers = [SymBandedLD.from_band(b, block_size=B_FULL, dtype="bfloat16", device=dev).upper
+              for b in (band, band1)]
+    del band1
+    ope = SymBandedLD(upper=torch.cat(uppers), mode="streamed")
+    del uppers
+    pack_s = time.perf_counter() - t1
+    rs = np.stack([loaders.load_r(f"{pre}_{k}_r.npy", M, N) for k in range(2)])
+    x0 = loaders.load_true_signal(pre + "_bet.npy", M, N)
+    u = np.random.default_rng(17).choice(np.float32([-1.0, 1.0]),
+                                         size=(MULT_ITERATIONS, 2, ope.M))
+    engines = {"diag": mult_engine_run(ope, rs, x0, "sym_band_matvec", u)}
+    engines["slab"] = mult_engine_run(with_flavor(ope, "slab-streamed"), rs, x0,
+                                      "sym_slab_matvec_streamed", u)
+    del ope
+    torch.cuda.empty_cache()
+    engine_gap = abs(engines["slab"]["alignment"] - engines["diag"]["alignment"])
+    if not engine_gap <= 0.005:
+        fail(f"10b: the slab engine run's best-iterate alignment "
+             f"{engines['slab']['alignment']:.5f} against the diag run's "
+             f"{engines['diag']['alignment']:.5f}")
     del band
     res = {"N": N, "M": M, "gen_s": gen_s, "gap": gaps["sym"], "gap_bf16": gaps["sym bfloat16"],
            "runs": {k: {f: v[f] for f in ("alignment", "launches", "passes", "iterations",
@@ -1938,7 +2047,9 @@ def multi_cohort_path(work: str, dev) -> dict:
                                              "tiles_ms": new_ms, "max_abs_err": old_abs_err,
                                              "scaled_err": old_rel}},
            "bf16_full_band": dict(floats["bfloat16"], float32=floats["float32"]),
-           "slab_full_band": slab}
+           "slab_full_band": dict(slabs["bfloat16"], float32=slabs["float32"],
+                                  launches=engines["slab"]["launches"]),
+           "engines": dict(engines, pack_s=pack_s, gap=engine_gap)}
     sym16 = runs["sym bfloat16"]
     print(f"[10b gen-phen-mult] N={N}, M={M}, K=2: generated on the host in {gen_s:.1f} s; "
           f"best-iterate alignment dense {runs['dense']['alignment']:.5f}, sym int8 "
@@ -1965,10 +2076,25 @@ def multi_cohort_path(work: str, dev) -> dict:
               f"{tuple(ro['tiles'])}: scaled error {ro['scaled_err']:.1e}, {ro['ms']:.4f} ms "
               f"against {ro['tiles_ms']:.4f} with tiles in the same order (runs, tiles, tiles, "
               f"runs)", flush=True)
-    print(f"[10b slab-streamed whole triangle] {slab['kernel']}, bfloat16: scaled error "
-          f"{slab['scaled_err']:.1e}, {slab['ms']:.4f} ms a pass (plain {slab['plain_ms']:.4f}, "
-          f"bound {slab['bound_ms']:.4f}, {slab['bound_by']}; torch.matmul over the dense "
-          f"bfloat16 panel {slab['library_ms']:.4f})", flush=True)
+    for storage, f in slabs.items():
+        ro = f["runs_of_8"]
+        print(f"[10b slab-streamed {storage} whole triangle] {f['kernel']}, tiles (G, D) = "
+              f"{tuple(f['tiles'])}: scaled error {f['scaled_err']:.1e}, the same bits on a "
+              f"repeat, {f['ms']:.4f} ms a pass (plain {f['plain_ms']:.4f}, bound "
+              f"{f['bound_ms']:.4f}, {f['bound_by']}, {f['bytes']} bytes; torch.matmul over "
+              f"the dense {storage} panel {f['library_ms']:.4f}); runs of {SLAB_RUN_ROWS} "
+              f"{tuple(ro['tiles'])}: scaled error {ro['scaled_err']:.1e}, {ro['ms']:.4f} ms "
+              f"against {ro['tiles_ms']:.4f} with tiles in the same order (runs, tiles, tiles, "
+              f"runs)", flush=True)
+    for layout, e in engines.items():
+        print(f"[10b engine {layout} bfloat16] each cohort's own blocks (packed in "
+              f"{pack_s:.1f} s), {MULT_ITERATIONS} iterations with the same probes: "
+              f"{e['executed']} executed, {e['launches']} launches for {e['passes']} LD "
+              f"passes, other band kernels 0, {e['s_per_iteration']:.4f} s/iteration; "
+              f"alignment {[round(v, 5) for v in e['alignments']]}, best iterate "
+              f"{e['best_it']} {e['alignment']:.5f}"
+              + (f" (diag run's {engines['diag']['alignment']:.5f}, gap {engine_gap:.5f})"
+                 if layout == "slab" else ""), flush=True)
     return res
 
 
@@ -2256,8 +2382,9 @@ def main() -> None:
     from sgvamp_torch.core.operators import BandedLD
     from sgvamp_torch.data.simulate import simulate_ld_band
     from sgvamp_torch.ops import _build
-    from sgvamp_torch.ops.band_kernel import (DIAG_RUN_ROWS, SymBandedLD, _float_tiles,
-                                              _int8_runs, _int8_tiles, band_kernel_of)
+    from sgvamp_torch.ops.band_kernel import (DIAG_RUN_ROWS, SLAB_RUN_ROWS, SymBandedLD,
+                                              _float_tiles, _int8_runs, _int8_tiles,
+                                              _slab_tiles, band_kernel_of)
     from sgvamp_torch.ops.membench import (_prep, measure_read_gbps, read_max,
                                            read_max_ref)
     from sgvamp_torch.utils import kernel_bench
@@ -2437,6 +2564,13 @@ def main() -> None:
             if full[key]["tiles"] != (DIAG_RUN_ROWS, op.hb + 1):
                 fail(f"the float diag wrapper leaves the bench shape's runs of "
                      f"{DIAG_RUN_ROWS} block rows: tiles {full[key]['tiles']}")
+            counted = f", tiles (G, D) = {full[key]['tiles']}"
+        if key.startswith("slab-streamed"):
+            full[key]["tiles"] = _slab_tiles(op.nb, op.hb, torch.cuda.get_device_properties(
+                0).multi_processor_count, S, op.B, op.upper.element_size())
+            if full[key]["tiles"] != (SLAB_RUN_ROWS, op.hb + 1):
+                fail(f"the slab wrapper leaves the bench shape's runs of {SLAB_RUN_ROWS} block "
+                     f"rows: tiles {full[key]['tiles']}")
             counted = f", tiles (G, D) = {full[key]['tiles']}"
         print(f"[2 {key}] {kernel.__name__}, full shape upper {tuple(op.upper.shape)} "
               f"{str(op.upper.dtype).split('.')[-1]} ({label}), "
@@ -2939,7 +3073,9 @@ def main() -> None:
                    traced_events={k: v["kernel_events"] for k, v in traced.items()}),
         float_entry("sym_slab_matvec_streamed", "slab-streamed", csrc + "sym_slab_streamed.cu",
                     333, flavor_runs["slab-streamed"]["launches"]["sym_slab_matvec_streamed"],
-                    **read_once, full_band=mult["slab_full_band"],
+                    **float_once(*full["slab-streamed bfloat16"]["tiles"]),
+                    full_band=dict(mult["slab_full_band"],
+                                   **float_once(*mult["slab_full_band"]["tiles"])),
                     ab_matrix_launches=ab["launches"]["sym_slab_matvec_streamed"]),
         float_entry("sym_band_matvec_resident", "resident", csrc + "sym_band_resident.cu", 46,
                     flavor_runs["resident"]["launches"]["sym_band_matvec_resident"]),

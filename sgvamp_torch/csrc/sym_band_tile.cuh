@@ -27,9 +27,9 @@
 // sym_band_int8.cu) also share the second launch of their pass: mirror sums
 // that land outside the CTA's run of block rows are written to a scratch of
 // partial sums (`Partials`), and fold_partials adds them into y (or writes
-// them to the spill form's carry) in a fixed order of d. The streamed diag
-// kernels (sym_band_float.cu, sym_band_int8.cu) share their matvec form's
-// tiles of the band too (`Tiles`, `Scratch`, fold_tiles, launch_tiles).
+// them to the spill form's carry) in a fixed order of d. The three share
+// their matvec form's tiles of the band too (`Tiles`, `Scratch`, fold_tiles,
+// launch_tiles).
 
 #pragma once
 
@@ -423,7 +423,7 @@ struct Args {
   cudaStream_t stream;
   void* carry = nullptr;     // the spill form's second output (the streamed kernels)
   void* partials = nullptr;  // the streamed kernels' scratch (Partials)
-  int D = 0;                 // diagonals a tile (the streamed diag kernels' launch_tiles)
+  int D = 0;                 // diagonals a tile (the streamed kernels' launch_tiles)
 };
 
 template <template <typename, int, int> class Launch, typename T, int B>
@@ -508,13 +508,13 @@ int launch_streamed(Kernel kernel, const Args& a, int B, int S, size_t smem) {
 }
 
 // ---------------------------------------------------------------------------
-// Tiles of the band: the matvec form of the streamed diag kernels
-// (sym_band_int8.cu, sym_band_float.cu). A CTA takes the tile of run c (G
-// consecutive block rows r0 = c G .. r0 + G - 1, one warp a block row) and
-// diagonal range j (diagonals d0 = j D .. d0 + D - 1, at most hb): the band's
-// J = ceil((hb + 1) / D) ranges. The grid holds only the tiles that hold
-// data (Tiles, in the kernel's parameters), and a CTA finds its (j, c) by a
-// binary search of it (tile_range). Which mirror sums leave a CTA depends on
+// Tiles of the band: the matvec form of the streamed kernels
+// (sym_band_int8.cu, sym_band_float.cu, sym_slab_streamed.cu). A CTA takes
+// the tile of run c (G consecutive block rows r0 = c G .. r0 + G - 1, one
+// warp a block row) and diagonal range j (diagonals d0 = j D .. d0 + D - 1,
+// at most hb): the band's J = ceil((hb + 1) / D) ranges. The grid holds only
+// the tiles that hold data (Tiles, in the kernel's parameters), and a CTA
+// finds its (j, c) by a binary search of it (tile_range). Which mirror sums leave a CTA depends on
 // its run only, so they take Partials' slots whatever D is. With J > 1 no
 // tile holds a whole row sum: each stores its run's row sums and in-run
 // mirror sums to a second part of the scratch (Scratch), and fold_tiles
@@ -522,7 +522,7 @@ int launch_streamed(Kernel kernel, const Args& a, int B, int S, size_t smem) {
 // the partial slots, as without tiles.
 // ---------------------------------------------------------------------------
 
-// the most diagonal ranges a pass may cut the band into: the wrapper's
+// the most diagonal ranges a pass may cut the band into: the wrappers'
 // MAX_RANGES (ops/band_kernel.py)
 constexpr int kMaxRanges = 128;
 
@@ -665,7 +665,7 @@ fold_tiles_kernel(const A* __restrict__ part, A* __restrict__ y, int nb, int hb,
   }
 }
 
-// A pass of a streamed diag kernel over tiles of a.G block rows and D
+// A pass of a streamed kernel over tiles of a.G block rows and D
 // diagonals: `untiled` where one range holds every diagonal (J = 1), else
 // `tiled`, over the tiles that hold data x K CTAs of a.G warps with `smem`
 // bytes of dynamic shared memory, given the kernel's inputs `in...`, then

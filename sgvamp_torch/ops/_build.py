@@ -60,8 +60,8 @@ ENTRY_POINTS = {
     # diagonals a CTA, dtype code, stream
     "sym_band_float": {"sgv_sym_band_float_matvec": _STREAMED_TILES,
                        "sgv_sym_band_float_spill": _spill(_STREAMED_TILES, 2)},
-    # the same without the diagonals a CTA
-    "sym_slab_streamed": {"sgv_sym_slab_streamed_matvec": _STREAMED,
+    # the same; the spill form without the diagonals a CTA (every one)
+    "sym_slab_streamed": {"sgv_sym_slab_streamed_matvec": _STREAMED_TILES,
                           "sgv_sym_slab_streamed_spill": _spill(_STREAMED, 2)},
     # upper, x, y, K, nb, hb, B, S, block rows a CTA, dtype code, stream
     "sym_band_resident": {"sgv_sym_band_resident_matvec": _ROWS},

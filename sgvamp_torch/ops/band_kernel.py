@@ -28,9 +28,9 @@ mirror sums that cross into the next run to a second, short launch through
 a scratch of partial sums, so it takes any band; the int8 kernel does the
 same (int4 and hybrid gather: one CTA an output block row, which reads
 every off-diagonal slot twice). Where the runs alone would put few warps
-on the card (a band of few block rows and many diagonals), the float and
-int8 diag kernels cut it into tiles of G block rows and D diagonals
-(_float_tiles, _int8_tiles). "resident" keeps the x
+on the card (a band of few block rows and many diagonals), the int8 and
+the float streamed kernels cut it into tiles of G block rows and D
+diagonals (_int8_tiles, _float_tiles, _slab_tiles). "resident" keeps the x
 and y of a run of block rows in a CTA's shared memory, reads the
 neighbour's last blocks again for the mirror terms that cross into its
 run, and is limited by that shared memory
@@ -241,8 +241,9 @@ def sym_slab_matvec_streamed_ref(upper: Tensor, rows_per_step: int, x: Tensor) -
     for f64 slabs). The row part is one product of T_i with the
     (hb+1)*B window of x (blocks past the matrix end are zeros by
     from_band's invariant); the mirror part contracts both operands over
-    their last axis. rows_per_step is checked and otherwise unused."""
-    _gather_rows(upper, x.shape[1], rows_per_step)
+    their last axis. rows_per_step is checked as the JAX package checks it
+    (_check_chunk) and otherwise unused."""
+    _check_chunk(upper, rows_per_step)
     return _slab_ref(upper, x)
 
 
@@ -251,8 +252,9 @@ def sym_slab_matvec_streamed_spill_ref(upper: Tensor, rows_per_step: int, x: Ten
     shard's (y_l, carry) from its nb slabs and x (K, S, (nb+hb)*B or longer)
     in the block dtype, halo included. The window of the last hb block rows
     reaches into the halo; the mirror terms past the local end are the
-    carry (K, S, max(hb, 1)*B)."""
-    _gather_rows(upper, x.shape[1], rows_per_step)
+    carry (K, S, max(hb, 1)*B). rows_per_step as for
+    sym_slab_matvec_streamed_ref."""
+    _check_chunk(upper, rows_per_step)
     return _slab_ref(upper, x, spill=True)
 
 
@@ -665,6 +667,12 @@ DIAG_RUN_ROWS = 8
 FLOAT_MIN_WARPS_PER_SM = 6
 
 
+# the longest run of block rows a CTA of the streamed slab kernel's matvec
+# form takes (csrc/sym_slab_streamed.cu: the instances of 8 warps; the spill
+# form's runs of 16 take every diagonal)
+SLAB_RUN_ROWS = 8
+
+
 # the int8 kernel's longest run of block rows, one warp each
 # (csrc/sym_band_int8.cu kMaxRunRows)
 INT8_MAX_RUN_ROWS = 8
@@ -815,23 +823,70 @@ def _resident_rows(upper: Tensor, S: int, rows_per_step: int) -> int:
     return SymBandedLD.resident_rows(hb, B, S, nbytes)
 
 
-def _gather_rows(upper: Tensor, S: int, rows_per_step: int) -> int:
-    """Block rows (warps) a CTA of the streamed slab kernel takes.
-    rows_per_step is checked as the JAX package checks its chunk (it must
-    divide nb and be >= hb); mirror sums that cross a run go through the
-    scratch of partial sums, so any count up to MAX_ROWS_PER_CTA whose x
-    window fits will do (the kernel needs S B (2 G + hb) accumulator words,
-    within the S B (2 G + 2 hb) checked here)."""
-    _, nb, hb, B = _geometry(upper)
+def _check_chunk(upper: Tensor, rows_per_step: int) -> None:
+    """rows_per_step of a streamed slab kernel, checked as the JAX package
+    checks its chunk, with its message: where it is given it must divide nb
+    and be >= hb. The card's shared memory does not enter: the port's plain
+    versions compute wherever the JAX kernel does."""
+    _, nb, hb, _ = _geometry(upper)
     G = rows_per_step
     if G and (nb % G or G < hb):
         raise ValueError(f"rows_per_step={G} must divide nb={nb} and be >= hb={hb}")
-    acc = _acc_bytes(upper.element_size())
+
+
+def _slab_runs(hb: int, S: int, B: int, storage_bytes: int, rows_per_step: int = 0) -> int:
+    """G of the streamed slab kernel's spill form, which takes every
+    diagonal: the longest of 16, 8, 4, 2, 1 block rows (at most
+    rows_per_step where it is given, else 8) whose x window fits a CTA's
+    shared memory (the kernel needs S B (2 G + hb) accumulator words, within
+    the S B (2 G + 2 hb) checked here). Raises ValueError where none does:
+    on the card only."""
+    acc = _acc_bytes(storage_bytes)
     for g in (16, 8, 4, 2, 1):
-        if g <= (G or 8) and S * B * (2 * g + 2 * hb) * acc <= SHARED_MEMORY_BYTES:
+        if g <= (rows_per_step or 8) and S * B * (2 * g + 2 * hb) * acc <= SHARED_MEMORY_BYTES:
             return g
     raise ValueError(f"hb={hb}, B={B}, S={S}: the x window of one block row does not fit "
                      f"{SHARED_MEMORY_BYTES} bytes of shared memory")
+
+
+def _slab_shared_bytes(G: int, D: int, S: int, B: int, storage_bytes: int) -> int:
+    """Shared memory of a streamed slab kernel's CTA over a tile of G block
+    rows and D diagonals: its x window of G + D - 1 block rows and the run's
+    mirror sums, S lanes each (csrc/sym_slab_streamed.cu)."""
+    return S * B * (2 * G + D - 1) * _acc_bytes(storage_bytes)
+
+
+def _slab_tiles(nb: int, hb: int, sms: int, S: int, B: int, storage_bytes: int,
+                rows_per_step: int = 0) -> tuple:
+    """(G, D): the streamed slab kernel's tiles for the matvec form. Runs of
+    SLAB_RUN_ROWS (at most rows_per_step where it is given) over every
+    diagonal, the schedule before tiles, where their nb warps are
+    FLOAT_MIN_WARPS_PER_SM an SM and their window fits: the bench shape
+    (nb=4096, hb=2) and nb=1024, hb=2, where runs of 4 were 0.4-1.0% slower
+    on an H100. Else G from _runs and D by the float diag kernel's rule
+    (_diagonals), then cut into more even ranges, up to MAX_RANGES, until
+    the tile's x window and mirror sums fit a CTA's shared memory
+    (_slab_shared_bytes): (1, 2) on a dense M=8192 panel's whole triangle
+    (nb=64, hb=64). Raises ValueError, with the sizes, where no D within
+    MAX_RANGES fits: on the card only."""
+    longest = min(SLAB_RUN_ROWS, rows_per_step or SLAB_RUN_ROWS)
+    warps = FLOAT_MIN_WARPS_PER_SM * sms
+    if nb >= warps and _slab_shared_bytes(longest, hb + 1, S, B,
+                                          storage_bytes) <= SHARED_MEMORY_BYTES:
+        return longest, hb + 1
+    G = _runs(nb, sms, longest)
+    J = -(-(hb + 1) // _diagonals(nb, hb, G, warps))
+    # the most diagonals whose window fits beside the run's mirror sums
+    fit = SHARED_MEMORY_BYTES // (S * B * _acc_bytes(storage_bytes)) - 2 * G + 1
+    if fit >= 1:
+        J = max(J, -(-(hb + 1) // fit))
+    if fit < 1 or J > MAX_RANGES:
+        raise ValueError(
+            f"the streamed slab kernel has no tile for nb={nb}, hb={hb}, B={B}, S={S}, "
+            f"{storage_bytes}-byte slabs: runs of G={G} leave room for {max(fit, 0)} diagonals "
+            f"a tile in {SHARED_MEMORY_BYTES} bytes of shared memory, and {hb + 1} diagonals "
+            f"need more than {MAX_RANGES} ranges of them")
+    return G, -(-(hb + 1) // J)
 
 
 def _check_float(upper: Tensor, x: Tensor, slab: bool, spill: bool = False) -> Tensor:
@@ -857,17 +912,25 @@ def _launch_rows(wrapper, library: str, upper: Tensor, x: Tensor, G: int):
 
 
 def _slab_streamed(wrapper, plain, upper: Tensor, rows_per_step: int, x: Tensor, spill: bool):
-    """As _int8, for the streamed slab wrappers."""
+    """As _int8, for the streamed slab wrappers: the matvec form over the
+    tiles of _slab_tiles, the spill form in runs of _slab_runs over every
+    diagonal. rows_per_step is checked as in the JAX package; the card's
+    shared memory enters only the launch."""
     x = _check_float(upper, x, slab=True, spill=spill)
-    G = _gather_rows(upper, x.shape[1], rows_per_step)
+    _check_chunk(upper, rows_per_step)
     if x.device.type == "cpu":
         return plain(upper, rows_per_step, x)
     K, nb, hb, B = _geometry(upper)
-    S = x.shape[1]
-    return _launch(wrapper, "sym_slab_streamed", x, (upper, x),
-                   (K, nb, hb, B, S, G, _FLOAT_CODES[upper.dtype]), B,
+    S, nbytes, code = x.shape[1], upper.element_size(), _FLOAT_CODES[upper.dtype]
+    if spill:
+        G, D = _slab_runs(hb, S, B, nbytes, rows_per_step), hb + 1
+        dims = (K, nb, hb, B, S, G, code)
+    else:
+        G, D = _slab_tiles(nb, hb, _sm_count(x.device), S, B, nbytes, rows_per_step)
+        dims = (K, nb, hb, B, S, G, D, code)
+    return _launch(wrapper, "sym_slab_streamed", x, (upper, x), dims, B,
                    torch.promote_types(upper.dtype, torch.float32), hb if spill else None,
-                   partials=_partials_shape(K, S, nb, hb, G, B, spill))
+                   partials=_partials_shape(K, S, nb, hb, G, B, spill, D))
 
 
 def sym_slab_matvec_streamed(upper: Tensor, rows_per_step: int, x: Tensor) -> Tensor:

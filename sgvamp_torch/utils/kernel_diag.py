@@ -4,6 +4,7 @@
         [--storages int8,int4,hybrid,bfloat16,float32] [--hb 0,1,2]
         [--bench-hb 2] [--tile-shapes 64:64:2,4096:2:1,64:1:1:2:256]
         [--int8-tiles 1:2,1:all,8:3] [--float-tiles 1:2,8:all]
+        [--slab-tiles 1:2,8:all]
 
 For each storage of SymBandedLD (int8, int4, hybrid, bfloat16, float32) the
 streamed diag kernel, and for the two float storages also the streamed
@@ -34,13 +35,14 @@ streamed kernels every block once (plus their partial sums), the resident
 ones once plus hb/(2G) of them at the run boundaries. `--tile-shapes`
 (nb:hb:K, nb:hb:K:S or nb:hb:K:S:B, S=2 and B=128 by default; 64:64:2 is a
 dense M=8192 panel's whole triangle over two cohorts, 4096:2:1 the bench
-shape) also times the int8 kernel and the float diag kernel (those of
-`--storages` among int8, bfloat16 and float32) over random bands of those
-shapes, with the wrapper's own tiles and with each tile G:D of
-`--int8-tiles` / `--float-tiles` (G block rows and D diagonals; all: every
+shape) also times the int8 kernel and the float streamed kernels (those
+of `--storages` among int8, bfloat16 and float32; for float blocks the
+diag and the slab kernel) over random bands of those shapes, with the
+wrapper's own tiles and with each tile G:D of `--int8-tiles` /
+`--float-tiles` / `--slab-tiles` (G block rows and D diagonals; all: every
 diagonal) in place of its choice (ops/band_kernel.py::_int8_tiles,
-_float_tiles); for int8, where the tile takes every diagonal, the spill
-form on one shard of four too, with runs of G
+_float_tiles, _slab_tiles); for int8, where the tile takes every diagonal,
+the spill form on one shard of four too, with runs of G
 (ops/band_kernel.py::_int8_runs). `--storages` times only
 the storages that a change touches (the whole run takes minutes). Run from
 another checkout's root with this file's path, the script times that
@@ -150,16 +152,34 @@ def forced_float_tiles(G: int, D: Optional[int] = None):
         bk._float_tiles = rule
 
 
+@contextlib.contextmanager
+def forced_slab_tiles(G: int, D: Optional[int] = None):
+    """Within the block the streamed slab wrappers take runs of G block
+    rows in place of ops/band_kernel.py's rules: the matvec form in tiles of
+    D diagonals (None: every diagonal; at most hb + 1) in place of
+    _slab_tiles', the spill form, which takes every diagonal, in place of
+    _slab_runs'. The card refuses a tile whose x window does not fit a CTA
+    (the wrapper raises RuntimeError)."""
+    rules = bk._slab_tiles, bk._slab_runs
+    bk._slab_tiles = lambda nb, hb, sms, S, B, storage_bytes, rows_per_step=0: (
+        G, hb + 1 if D is None else min(D, hb + 1))
+    bk._slab_runs = lambda hb, S, B, storage_bytes, rows_per_step=0: G
+    try:
+        yield
+    finally:
+        bk._slab_tiles, bk._slab_runs = rules
+
+
 def _flat(out) -> torch.Tensor:
     return torch.cat([t.flatten() for t in (out if isinstance(out, tuple) else (out,))])
 
 
 def _tile_lines(smi: str, device, storage: str, nb: int, hb: int, K: int, S: int, Bs: int,
-                tiles: list) -> list:
-    """A streamed diag kernel (int8, or float blocks in bfloat16 / float32)
-    over random blocks (zero past the matrix's end) of nb block rows, hb
-    diagonals past the first, K cohorts, S lanes and block size Bs: the
-    matvec form with the wrapper's own tiles and with each of `tiles` ((G,
+                tiles: list, layout: str = "diag") -> list:
+    """A streamed kernel (int8, or float blocks in bfloat16 / float32, in
+    diag or slab `layout`) over random blocks (zero past the matrix's end)
+    of nb block rows, hb diagonals past the first, K cohorts, S lanes and
+    block size Bs: the matvec form with the wrapper's own tiles and with each of `tiles` ((G,
     D), D None for every diagonal); for int8, where D is every diagonal (and
     for the wrapper's own), the spill form too over an interior shard of
     BENCH_SHARDS when one holds more than hb block rows. Each form's cases
@@ -170,8 +190,9 @@ def _tile_lines(smi: str, device, storage: str, nb: int, hb: int, K: int, S: int
     (torch.profiler over PROFILED_PASSES passes: each launch's own span,
     without the gaps; a fold_tiles launched as the kernel's programmatic
     dependent starts while the kernel's last CTAs run, and its span holds
-    that wait). A checkout from before the float kernel's tiles times its
-    own schedule only (runs of DIAG_RUN_ROWS, every diagonal)."""
+    that wait). A checkout from before the float kernels' tiles times its
+    own schedule only (runs of DIAG_RUN_ROWS, every diagonal; the slab
+    kernel: runs of its _gather_rows)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -198,6 +219,15 @@ def _tile_lines(smi: str, device, storage: str, nb: int, hb: int, K: int, S: int
         forms = [("whole", bk.sym_band_matvec_int8, bk.sym_band_matvec_int8_ref, (up, sc, x),
                   held, own)]
         force, names = forced_int8_tiles, ("sym_band_int8_kernel", "fold_")
+    elif layout == "slab":
+        up = up.transpose(-1, -2).reshape(K, nb, (hb + 1) * Bs, Bs).contiguous()
+        tiled = hasattr(bk, "_slab_tiles")
+        own = (bk._slab_tiles(nb, hb, sms, S, Bs, up.element_size()) if tiled
+               else (bk._gather_rows(up, S, 0), hb + 1))
+        forms = [("whole", bk.sym_slab_matvec_streamed, bk.sym_slab_matvec_streamed_ref,
+                  (up, 0, x), held, own)]
+        force, names = forced_slab_tiles, ("sym_slab_streamed_kernel", "fold_")
+        tiles = tiles if tiled else []
     else:
         tiled = hasattr(bk, "_float_tiles")
         own = bk._float_tiles(nb, hb, sms) if tiled else (bk.DIAG_RUN_ROWS, hb + 1)
@@ -229,7 +259,8 @@ def _tile_lines(smi: str, device, storage: str, nb: int, hb: int, K: int, S: int
             ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
             us = {name: sum(e.device_time_total for e in ev if pat in e.key) / PROFILED_PASSES
                   for name, pat in zip(("kernel_us", "fold_us"), names)}
-            lines.append({"card": smi, "storage": storage, "shape": "tiles", "form": form,
+            lines.append({"card": smi, "storage": storage, "layout": layout,
+                          "shape": "tiles", "form": form,
                           "nb": nb if form == "whole" else nb_l, "hb": hb, "K": K, "S": S,
                           "B": Bs, "G": G, "D": D, "chosen": tile is None, "ms": ms,
                           "scaled_err": err, "held_block_bytes": n_held * Bs * Bs * elem,
@@ -259,6 +290,8 @@ def main(argv=None) -> int:
                          "the int8 kernel over the --tile-shapes bands")
     ap.add_argument("--float-tiles", default="",
                     help="the same for the float diag kernel (bfloat16, float32)")
+    ap.add_argument("--slab-tiles", default="",
+                    help="the same for the streamed slab kernel (bfloat16, float32)")
     args = ap.parse_args(argv)
     storages = [v for v in args.storages.split(",") if v]
     hbs = [int(v) for v in args.hb.split(",") if v]
@@ -311,13 +344,16 @@ def main(argv=None) -> int:
         return [(int(G), None if D == "all" else int(D))
                 for G, D in (v.split(":") for v in spec.split(",") if v)]
 
-    tiles = {"int8": forced(args.int8_tiles), "bfloat16": forced(args.float_tiles),
-             "float32": forced(args.float_tiles)}
+    tiles = {("int8", "diag"): forced(args.int8_tiles)}
+    for layout, spec in (("diag", args.float_tiles), ("slab", args.slab_tiles)):
+        tiles.update({(st, layout): forced(spec) for st in ("bfloat16", "float32")})
     for shape in [v for v in args.tile_shapes.split(",") if v]:
         dims = [int(v) for v in shape.split(":")]
         nb, hb, K, S, Bs = dims + [BENCH_S, B][len(dims) - 3:]
-        for storage in [st for st in storages if st in tiles]:
-            lines += _tile_lines(smi, device, storage, nb, hb, K, S, Bs, tiles[storage])
+        for (storage, layout), forced_tiles in tiles.items():
+            if storage in storages:
+                lines += _tile_lines(smi, device, storage, nb, hb, K, S, Bs, forced_tiles,
+                                     layout)
     bench = [(st, "streamed", hb) for hb in bench_hbs for st in storages]
     bench += [(st, "slab-streamed", hb) for hb in bench_hbs for st in ("bfloat16", "float32")
               if st in storages]

@@ -416,7 +416,7 @@ def _streamed_args(layout, upper, G=0):
     (64, 15, 40, 1, 2, 0),     # wide: "auto" takes the streamed kernel
     (64, 16, 37, 2, 1, 0),     # wide, ragged nb: the last run is short
     (128, 15, 32, 1, 4, 0),
-    (128, 16, 48, 1, 2, 16),   # slab: runs of 16 block rows
+    (128, 16, 48, 1, 2, 16),   # slab: rows_per_step=16, runs of 8 at most (the tiles' rule)
     (128, 0, 9, 2, 3, 0),      # hb=0: no mirror blocks, no partials
     (256, 3, 11, 1, 2, 0),
     (256, 1, 5, 1, 4, 0),      # fewer block rows than a run
@@ -992,6 +992,151 @@ def test_float_tiled_kernel_refuses_unaligned_upper(cuda, force_float_tiles, dty
     with pytest.raises(RuntimeError, match=r"\(error 716\)"):
         sym_band_matvec(off, x)
     assert sym_band_matvec.launches == before
+
+
+# The streamed slab kernel over tiles of the band (csrc/sym_slab_streamed.cu's
+# matvec form, whose (G, D) ops/band_kernel.py::_slab_tiles picks): whole
+# triangles and a ragged band, at the rule's own tiles and at forced ones
+# (utils/kernel_diag.py::forced_slab_tiles), in bfloat16, float32 and float64
+# slabs, against the plain version (f64: 1e-12), the same bits on a repeat.
+@pytest.fixture
+def force_slab_tiles():
+    """force(tiles): until the test ends the streamed slab wrappers take
+    tiles (G, D) (D None: every diagonal), or their own choice for None."""
+    from sgvamp_torch.utils.kernel_diag import forced_slab_tiles
+
+    with contextlib.ExitStack() as stack:
+        yield lambda tiles: tiles is None or stack.enter_context(forced_slab_tiles(*tiles))
+
+
+def _slab_pass(upper, x, rows_per_step=0):
+    """One counted pass of the streamed slab matvec kernel, its scaled error
+    against the plain version, and a second pass that must give its bits."""
+    before = [w.launches for w in BAND_KERNELS]
+    y = sym_slab_matvec_streamed(upper, rows_per_step, x)
+    torch.cuda.synchronize()
+    after = [w.launches for w in BAND_KERNELS]
+    assert sum(after) == sum(before) + 1   # the kernel and its fold, counted once
+    assert sym_slab_matvec_streamed.launches == before[
+        BAND_KERNELS.index(sym_slab_matvec_streamed)] + 1
+    want = sym_slab_matvec_streamed_ref(upper, rows_per_step, x)
+    assert y.dtype == want.dtype and y.shape == want.shape
+    assert torch.equal(y, sym_slab_matvec_streamed(upper, rows_per_step, x))  # no atomics
+    return float((y - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("S", range(1, 5))
+@pytest.mark.parametrize("nb", [16, 64])
+@pytest.mark.parametrize("B", [64, 128, 256])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_slab_kernel_on_whole_triangle_matches_plain(cuda, force_slab_tiles, dtype, B, nb, S):
+    """A whole triangle (hb = nb - 1 or nb as S is odd or even), K 1 or 2,
+    with tiles that vary with the case: the rule's own, one diagonal a tile,
+    every diagonal where the window fits (nb=16)."""
+    tiles = [None, (1, 1), (2, 3), (8, 2), (3, None) if nb == 16 else (4, 5)]
+    force_slab_tiles(tiles[(B // 64 + S + nb) % 5])
+    hb, K = nb - S % 2, 1 + (S % 2 if nb == 16 else 0)
+    upper = _random_blocks("slab", dtype, K, nb, hb, B, B + nb + hb + S, cuda)
+    x = torch.from_numpy(np.random.default_rng(nb + S).normal(size=(K, S, nb * B))).to(
+        cuda, upper.dtype)
+    err = _slab_pass(upper, x)
+    assert err <= FLOAT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("tiles", [None, (1, 1), (1, None), (8, 1), (8, 3), (3, 2), (5, 7),
+                                   (2, None), (4, 2)], ids=_tiles_id)
+@pytest.mark.parametrize("B,hb,nb,K,S", [
+    (64, 15, 16, 2, 1),     # whole triangles
+    (128, 13, 13, 1, 2),
+    (256, 9, 9, 2, 3),
+    (128, 16, 37, 2, 4),    # a band, ragged: the last run is short
+    (64, 2, 11, 3, 2),      # K=3
+    (128, 0, 9, 2, 2),      # hb=0: one range whatever is forced
+])
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_slab_kernel_forced_tiles_match_plain(cuda, force_slab_tiles, dtype, tiles, B, hb, nb,
+                                              K, S):
+    force_slab_tiles(tiles)
+    upper = _random_blocks("slab", dtype, K, nb, hb, B, B + 3 * hb + nb, cuda)
+    x = torch.from_numpy(np.random.default_rng(hb + S).normal(size=(K, S, nb * B))).to(
+        cuda, upper.dtype)
+    err = _slab_pass(upper, x)
+    assert err <= FLOAT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32", "float64"])
+def test_slab_kernel_on_a_dense_panel_triangle_matches_plain(cuda, dtype):
+    """Row 2g's shape, a dense M=8192 panel's whole triangle at B=128 (nb=64,
+    hb=64, K=2, S=2), with the rule's own tiles, (1, 2) on an H100. Before
+    tiles the wrapper refused float64 slabs there: one block row's x window
+    did not fit a CTA."""
+    from sgvamp_torch.ops.band_kernel import _slab_tiles, _sm_count
+
+    nb = hb = 64
+    if _sm_count(cuda) == 132:
+        nbytes = {"bfloat16": 2, "float32": 4, "float64": 8}[dtype]
+        assert _slab_tiles(nb, hb, 132, 2, 128, nbytes) == (1, 2)
+    upper = _random_blocks("slab", dtype, 2, nb, hb, 128, 64, cuda)
+    x = torch.from_numpy(np.random.default_rng(64).normal(size=(2, 2, nb * 128))).to(
+        cuda, upper.dtype)
+    err = _slab_pass(upper, x)
+    assert err <= FLOAT_TOL[dtype], err
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_slab_spill_kernel_in_runs_of_16_matches_plain(cuda, dtype):
+    """rows_per_step=16 gives the spill form runs of 16 block rows (the
+    kernel's 16-warp instance; the matvec form's runs stay within 8): two
+    shards of 32 block rows, each against its plain version, composed
+    against the whole operator, the same bits on a repeat."""
+    from sgvamp_torch.ops.band_kernel import _slab_runs
+
+    B, hb, nb, S = 128, 3, 64, 2
+    assert _slab_runs(hb, S, B, 8 if dtype == "float64" else 2, 16) == 16
+    upper = _random_blocks("slab", dtype, 1, nb, hb, B, 16, cuda)
+    x = torch.from_numpy(np.random.default_rng(16).normal(size=(1, S, nb * B))).to(
+        cuda, upper.dtype)
+    want = sym_slab_matvec_streamed_ref(upper, 16, x)
+    scale, tol = float(want.abs().max()), FLOAT_TOL[dtype]
+    nb_l, hbB = nb // 2, hb * B
+    xpad = torch.cat([x, x.new_zeros(1, S, hbB)], dim=2)
+    ys, carry = [], None
+    for j in range(2):
+        piece = upper[:, j * nb_l:(j + 1) * nb_l].contiguous()
+        x_ext = xpad[:, :, j * nb_l * B:((j + 1) * nb_l + hb) * B].contiguous()
+        before = sym_slab_matvec_streamed_spill.launches
+        y_l, spilled = sym_slab_matvec_streamed_spill(piece, 16, x_ext)
+        torch.cuda.synchronize()
+        assert sym_slab_matvec_streamed_spill.launches == before + 1
+        py, pc = sym_slab_matvec_streamed_spill_ref(piece, 16, x_ext)
+        assert float((y_l - py).abs().max()) / scale <= tol
+        assert float((spilled - pc).abs().max()) / scale <= tol
+        y2, c2 = sym_slab_matvec_streamed_spill(piece, 16, x_ext)
+        assert torch.equal(y_l, y2) and torch.equal(spilled, c2)
+        if j:
+            y_l[:, :, :hbB] += carry
+        carry = spilled
+        ys.append(y_l)
+    assert float(carry.abs().max()) == 0.0
+    assert float((torch.cat(ys, dim=2) - want).abs().max()) / scale <= tol
+
+
+@pytest.mark.parametrize("tiles", [(1, 1), (1, None)], ids=_tiles_id)
+@pytest.mark.parametrize("dtype", ["bfloat16", "float64"])
+def test_slab_tiled_kernel_refuses_unaligned_upper(cuda, force_slab_tiles, dtype, tiles):
+    """Slabs that start off a 16-byte boundary are refused with
+    cudaErrorMisalignedAddress (716), nothing launched, whether the tiles cut
+    the diagonals (J = 2) or not."""
+    force_slab_tiles(tiles)
+    upper = _random_blocks("slab", dtype, 1, 4, 1, 64, 0, cuda)
+    off = torch.empty(upper.numel() + 1, dtype=upper.dtype, device=cuda)[1:].view(upper.shape)
+    off.copy_(upper)
+    assert off.is_contiguous() and off.data_ptr() % 16
+    x = torch.zeros((1, 2, 4 * 64), dtype=upper.dtype, device=cuda)
+    before = sym_slab_matvec_streamed.launches
+    with pytest.raises(RuntimeError, match=r"\(error 716\)"):
+        sym_slab_matvec_streamed(off, 0, x)
+    assert sym_slab_matvec_streamed.launches == before
 
 
 @pytest.mark.parametrize("spill", [False, True], ids=["matvec", "spill"])

@@ -46,6 +46,7 @@ MODULES = [
     "sgvamp_torch.utils.kernel_bench",
     "sgvamp_torch.utils.kernel_diag",
     "sgvamp_torch.utils.profiling",
+    "sgvamp_torch.utils.sass_diff",
 ]
 
 
