@@ -745,6 +745,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     from sgvamp_torch.cli import main as cli_main
     from sgvamp_torch.core.vamp import alignment_l2
     from sgvamp_torch.io.writers import read_bin
+    from sgvamp_torch.utils import profiling
 
     name = f"bb_{operator}_{ld_dtype}{tag}"
     lam, h2 = prior
@@ -762,12 +763,16 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
             "--cg-precond-block", "64", "--cg-precond-dtype", "bfloat16",
             "--lmmse-damp", "1", "--rho", "0.5", "--stop-on-divergence", "1", *extra]
     reset_launches()
+    profiling.reset()
     t0 = time.perf_counter()
     with LogCapture() as log:
         rc = cli_main.main(argv)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     counts = band_launches()
+    snap = profiling.snapshot()
+    spent = {k: v["seconds"] for k, v in snap["totals"].items()}
+    steps = snap["totals"].get("sgv.step", {"calls": 0})["calls"]
     flags = "".join(f" {e}" for e in extra)
     what = f"cli.main --operator {operator} --ld-dtype {ld_dtype}{flags} at M={M}"
     if rc != 0:
@@ -776,22 +781,17 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
                  f"{name}_xhat_best.bin"):
         if not os.path.exists(os.path.join(out_dir, need)):
             fail(f"{what}: output file {need} missing (have {sorted(os.listdir(out_dir))})")
-    fused = [json.loads(ln[len("[fused] "):]) for ln in log.lines if ln.startswith("[fused] ")]
+    # the tracer's counters: a fused run replays its pieces from graphs
+    # ("replays.<piece>"), each run once eagerly (its warm-up) before its
+    # capture, so its LD passes are the replays'
+    fused = {k: v for k, v in snap["counts"].items()
+             if k.startswith(("replays.", "reads.", "graph_launches."))} or None
     warm_up = {}
     if fused:
-        # a fused run (one [fused] line a chunk): each piece of the step runs
-        # once eagerly (its warm-up) before its capture; the LD passes are
-        # the replays'
-        warm_up, counts = {k: v for k, v in counts.items() if v}, {}
-        for f in fused:
-            for k, v in f["graph_launches"].items():
-                counts[k] = counts.get(k, 0) + v
-        passes = [sum(f["ld_passes"] for f in fused)]
-        step_s = [sum(f["seconds"] for f in fused) / max(sum(f["steps"] for f in fused), 1)] * 2
-    else:
-        passes = [int(v) for v in
-                  log.floats(r"\[roofline\] iteration \d+: [0-9.]+s, (\d+) LD passes")]
-        step_s = log.floats(r"\[roofline\] iteration \d+: ([0-9.]+)s")
+        warm_up = {k: v for k, v in counts.items() if v}
+        counts = {k[len("graph_launches."):]: v for k, v in fused.items()
+                  if k.startswith("graph_launches.")}
+    passes = [snap["counts"].get("ld_passes", 0)]
     if sum(passes) == 0:
         fail(f"{what}: the run logged no LD pass")
     if own is not None and counts.get(own, 0) != per_pass * sum(passes):
@@ -826,11 +826,12 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
     res = {"operator": operator, "ld_dtype": ld_dtype, "M": M, "K": K, "flags": list(extra),
            "launches": counts.get(own, 0) if own else 0, "iterations": len(rows),
            "stopped_at": early[0] if early else None, "best_it": chosen[0] if chosen else None,
-           "name": name, "fused": fused[0] if fused else None, "warm_up_launches": warm_up,
-           "passes": passes, "ingest_s": sum(log.floats(r"\[timer\] load/R: ([0-9.]+)s")),
-           "precond_eig_s": sum(log.floats(r"\[timer\] precond/eig: ([0-9.]+)s")),
-           "infer_s": sum(log.floats(r"\[timer\] infer: ([0-9.]+)s")),
-           "s_per_iteration": float(np.median(step_s[1:])) if len(step_s) > 1 else float("nan"),
+           "name": name, "fused": fused, "warm_up_launches": warm_up,
+           "passes": passes, "ingest_s": spent.get("cli.load.R", 0.0),
+           "precond_eig_s": spent.get("cli.precond.eig", 0.0),
+           "infer_s": spent.get("cli.infer", 0.0),
+           "s_per_iteration": (spent["sgv.fit" if fused else "sgv.step"] / steps
+                               if steps else float("nan")),
            "total_s": total_s, "alignment": align, "routes": routes,
            "stop": stopped[0] if stopped else "ran all iterations",
            "checkpoint_bytes": [int(v) for v in log.floats(r"\[checkpoint\] .*: (\d+) bytes")],
@@ -846,7 +847,7 @@ def cli_run(prefix: str, out_dir: str, M: int, ld_dtype: str, own, extra=(),
           f"ingestion (load/R) {res['ingest_s']:.2f} s, "
           f"preconditioner eigendecomposition {res['precond_eig_s']:.2f} s, inference "
           f"{res['infer_s']:.2f} s = {res['s_per_iteration']:.4f} s/iteration "
-          f"({'the fused run mean' if fused else 'median after the first'}); "
+          f"({'the fused fits over their steps' if fused else 'the host loop steps mean'}); "
           f"{len(rows)} iterations, LD passes {passes}, "
           f"{own or 'band kernel'} launches {res['launches']}"
           f"{f' by graph replays (and {warm_up} in the warm-ups)' if fused else ''}, other "

@@ -37,7 +37,6 @@ import argparse
 import logging
 import os
 import sys
-import time
 from typing import List, Optional
 
 import numpy as np
@@ -283,7 +282,8 @@ def _run(args, log, device, multi: bool) -> int:
     from sgvamp_torch.io.writers import OutputWriter, write_bin
     from sgvamp_torch.ops.band_kernel import SymBandedLD
     from sgvamp_torch.parallel import multihost
-    from sgvamp_torch.utils.profiling import PhaseTimers, device_trace
+    from sgvamp_torch.utils import profiling
+    from sgvamp_torch.utils.profiling import device_trace, span
 
     owns_output = multihost.process_index() == 0
     if args.compile_cache_dir:
@@ -302,8 +302,6 @@ def _run(args, log, device, multi: bool) -> int:
                  "not reach tolerance under 16-level quantization on "
                  "ill-conditioned LD; use --ld-dtype hybrid (int8 diagonal "
                  "blocks, int4 far blocks) for production solves\n")
-
-    timers = PhaseTimers()
 
     # -- parse values with reference semantics --
     for flag, val in [("--ld-files", args.ld_files), ("--r-files", args.r_files),
@@ -382,156 +380,150 @@ def _run(args, log, device, multi: bool) -> int:
         log.info(f"Running on mesh {mesh.shape}")
 
     # -- harmonization: the reference panel of the cohorts' markers --
-    ts = time.time()
-    timers.start("load/bim")
-    if args.bim_files:
-        bim_paths = args.bim_files.split(",")
-        out_bim = os.path.join(args.out_dir, args.out_name + ".bim") if args.out_dir else None
-        if out_bim:
-            os.makedirs(args.out_dir, exist_ok=True)
-        panel = hz.harmonize(bim_paths, N_list, out_bim if owns_output else None)
-    else:
-        if len(set(M_list)) != 1:
-            raise SystemExit("Without --bim-files all cohorts must share the same M")
-        panel = hz.identity_panel(M_list[0], K)
-    M = panel.M
-    log.info(f"Total number of markers in reference is {M}")
-    timers.stop("load/bim")
-    log.debug(f"Handling .bim files took {time.time() - ts:.3f} seconds\n")
+    with span("cli.load.bim") as sp:
+        if args.bim_files:
+            bim_paths = args.bim_files.split(",")
+            out_bim = os.path.join(args.out_dir, args.out_name + ".bim") if args.out_dir else None
+            if out_bim:
+                os.makedirs(args.out_dir, exist_ok=True)
+            panel = hz.harmonize(bim_paths, N_list, out_bim if owns_output else None)
+        else:
+            if len(set(M_list)) != 1:
+                raise SystemExit("Without --bim-files all cohorts must share the same M")
+            panel = hz.identity_panel(M_list[0], K)
+        M = panel.M
+        log.info(f"Total number of markers in reference is {M}")
+    log.debug(f"Handling .bim files took {sp.seconds:.3f} seconds\n")
 
     # -- r vectors --
-    ts = time.time()
-    timers.start("load/r")
-    rs = []
-    for k in range(K):
-        r_local = loaders.load_r(r_paths[k], M_list[k], N_list[k])
-        rs.append(loaders.scatter_to_reference(r_local, panel.i_maps[k], M))
-    timers.stop("load/r")
-    log.debug(f"Loading r vectors took {time.time() - ts:.3f} seconds\n")
+    with span("cli.load.r") as sp:
+        rs = []
+        for k in range(K):
+            r_local = loaders.load_r(r_paths[k], M_list[k], N_list[k])
+            rs.append(loaders.scatter_to_reference(r_local, panel.i_maps[k], M))
+    log.debug(f"Loading r vectors took {sp.seconds:.3f} seconds\n")
 
     # -- LD matrices --
-    ts = time.time()
-    timers.start("load/R")
-    B = args.block_size
+    with span("cli.load.R") as sp:
+        B = args.block_size
 
-    def cat_sym(ops):
-        if len(ops) == 1:
-            return ops[0]
-        return SymBandedLD(
-            upper=torch.cat([o.upper for o in ops], dim=0),
-            scales=(torch.cat([o.scales for o in ops], dim=0)
-                    if ops[0].scales is not None else None),
-            packed=ops[0].packed, hybrid=ops[0].hybrid, s=s)
+        def cat_sym(ops):
+            if len(ops) == 1:
+                return ops[0]
+            return SymBandedLD(
+                upper=torch.cat([o.upper for o in ops], dim=0),
+                scales=(torch.cat([o.scales for o in ops], dim=0)
+                        if ops[0].scales is not None else None),
+                packed=ops[0].packed, hybrid=ops[0].hybrid, s=s)
 
-    # the quantized and bf16 storages round at block-pack time; the staged
-    # band arrays stay float
-    band_dtype = np.dtype(np.float64 if ld_dtype == "float64" else np.float32)
-    all_ld_tables = all(p.endswith(".ld") for p in ld_paths)
-    all_sparse = all(p.endswith((".ld", ".npz")) for p in ld_paths)
-    if args.operator in ("banded", "sym") and all_sparse:
-        # Band-direct ingestion: .ld triplets or sparse .npz -> symmetric
-        # band storage -> block-banded operator, never materializing MxM.
-        if all_ld_tables:
-            bands, rs, bw, dropped = loaders.ld_files_to_bands(
-                ld_paths, rs, panel, args.bandwidth, dtype=band_dtype)
-            band_views = list(bands)
-            # the cross-cohort missing-SNP fill can make bands differ per
-            # cohort even for identical paths: never share packs here
-            pack_keys = list(range(K))
-        else:
-            # Each UNIQUE path is loaded, converted and block-packed once:
-            # the shared-panel meta-analysis workflow lists one file once
-            # per cohort.
-            uniq = {}
-            for p in ld_paths:
-                if p not in uniq:
-                    log.info(f"LD file {p}:")
-                    uniq[p] = loaders.csr_to_band(
-                        loaders.load_R(p), args.bandwidth, dtype=band_dtype)
-            dropped = sum(d for _, _, d in uniq.values())
-            bw = max(w for _, w, _ in uniq.values())
-            band_views = [uniq[p][0] for p in ld_paths]
-            pack_keys = list(ld_paths)
-            del uniq
-        rs = np.stack(rs)
-        if dropped:
-            log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
-        ctor = SymBandedLD.from_band if args.operator == "sym" else BandedLD.from_band
-        pack_cache = {}
-        for k in range(own.start, own.stop):
-            if pack_keys[k] not in pack_cache:
-                pack_cache[pack_keys[k]] = ctor(_pad_band(band_views[k], bw), block_size=B,
-                                                s=s, dtype=ld_dtype, device=device)
-        del band_views
-        ops = [pack_cache[key] for key in pack_keys[own]]
-        del pack_cache
-        if args.operator == "sym":
-            op = cat_sym(ops)
-        else:
-            op = ops[0] if len(ops) == 1 else BandedLD(
-                blocks=torch.cat([o.blocks for o in ops], dim=0), s=s,
-                accum_dtype=ops[0].accum_dtype)
-        del ops
-        Mp = op.M
-        pad = Mp - M
-    else:
-        vindex = {rs_: i for i, rs_ in enumerate(panel.variants)}
-        Rs = []
-        for p in ld_paths:
-            log.info(f"LD file {p}:")
-            Rs.append(loaders.load_R(p, vindex))
-        if any(p.endswith(".ld") for p in ld_paths) and K > 1:
-            # sparse-level fill: never materializes K M x M dense matrices
-            Rs, rs = loaders.fill_missing_csr(Rs, rs, panel)
-        rs = np.stack(rs)
-        if args.operator == "blocksparse":
-            # built from the CSRs directly: every entry of any sparsity
-            # pattern is kept, without materializing M x M
-            op = BlockSparseLD.from_csr([loaders.as_csr(R, M) for R in Rs], block_size=B,
-                                        s=s, dtype=ld_dtype, M=M, device=device, cohorts=own)
-            Mp = op.M
-            pad = Mp - M
-            log.info(f"Block-sparse LD: {op.nnzb} of {op.nb * op.nb} "
-                     f"({op.B}x{op.B}) blocks stored")
-        elif args.operator == "sym":
-            # dense .npy (or mixed) inputs go through CSR, one per cohort: the
-            # dense stack is never needed on this path
-            bands, dropped = [], 0
-            for R in Rs:
-                band_k, _, d_k = loaders.csr_to_band(R, args.bandwidth, dtype=band_dtype)
-                bands.append(band_k)
-                dropped += d_k
-            bw = max((b.shape[1] - 1) // 2 for b in bands)
+        # the quantized and bf16 storages round at block-pack time; the staged
+        # band arrays stay float
+        band_dtype = np.dtype(np.float64 if ld_dtype == "float64" else np.float32)
+        all_ld_tables = all(p.endswith(".ld") for p in ld_paths)
+        all_sparse = all(p.endswith((".ld", ".npz")) for p in ld_paths)
+        if args.operator in ("banded", "sym") and all_sparse:
+            # Band-direct ingestion: .ld triplets or sparse .npz -> symmetric
+            # band storage -> block-banded operator, never materializing MxM.
+            if all_ld_tables:
+                bands, rs, bw, dropped = loaders.ld_files_to_bands(
+                    ld_paths, rs, panel, args.bandwidth, dtype=band_dtype)
+                band_views = list(bands)
+                # the cross-cohort missing-SNP fill can make bands differ per
+                # cohort even for identical paths: never share packs here
+                pack_keys = list(range(K))
+            else:
+                # Each UNIQUE path is loaded, converted and block-packed once:
+                # the shared-panel meta-analysis workflow lists one file once
+                # per cohort.
+                uniq = {}
+                for p in ld_paths:
+                    if p not in uniq:
+                        log.info(f"LD file {p}:")
+                        uniq[p] = loaders.csr_to_band(
+                            loaders.load_R(p), args.bandwidth, dtype=band_dtype)
+                dropped = sum(d for _, _, d in uniq.values())
+                bw = max(w for _, w, _ in uniq.values())
+                band_views = [uniq[p][0] for p in ld_paths]
+                pack_keys = list(ld_paths)
+                del uniq
+            rs = np.stack(rs)
             if dropped:
                 log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
-            op = cat_sym([SymBandedLD.from_band(_pad_band(b, bw), block_size=B, s=s,
-                                                dtype=ld_dtype, device=device)
-                          for b in bands[own]])
-            del bands
+            ctor = SymBandedLD.from_band if args.operator == "sym" else BandedLD.from_band
+            pack_cache = {}
+            for k in range(own.start, own.stop):
+                if pack_keys[k] not in pack_cache:
+                    pack_cache[pack_keys[k]] = ctor(_pad_band(band_views[k], bw), block_size=B,
+                                                    s=s, dtype=ld_dtype, device=device)
+            del band_views
+            ops = [pack_cache[key] for key in pack_keys[own]]
+            del pack_cache
+            if args.operator == "sym":
+                op = cat_sym(ops)
+            else:
+                op = ops[0] if len(ops) == 1 else BandedLD(
+                    blocks=torch.cat([o.blocks for o in ops], dim=0), s=s,
+                    accum_dtype=ops[0].accum_dtype)
+            del ops
             Mp = op.M
             pad = Mp - M
-        elif args.operator == "banded":
-            dense = loaders.to_dense_stack(Rs[own], M)
-            bw = args.bandwidth
-            if bw is None:
-                bw = max(loaders.estimate_bandwidth(R) for R in Rs)
-            pad = (-M) % B
-            if pad:
-                dense = np.pad(dense, ((0, 0), (0, pad), (0, pad)))
-                for i in range(pad):  # keep padded diagonal SPD
-                    dense[:, M + i, M + i] = 1.0
-            hb = -(-(bw + B - 1) // B)
-            op = BandedLD.from_dense(dense, block_size=B, bandwidth_blocks=hb, s=s,
-                                     dtype=ld_dtype, device=device)
-            Mp = dense.shape[-1]
         else:
-            dense = loaders.to_dense_stack(Rs[own], M)
-            op = DenseLD(mats=torch.as_tensor(dense).to(device=device, dtype=_DTYPES[ld_dtype]),
-                         s=s)
-            pad, Mp = 0, M
-    log.info(f"Loaded {K} LD matrices of shape ({M}, {M})")
-    timers.stop("load/R")
-    log.debug(f"Loading R matrices took {time.time() - ts:.3f} seconds\n")
+            vindex = {rs_: i for i, rs_ in enumerate(panel.variants)}
+            Rs = []
+            for p in ld_paths:
+                log.info(f"LD file {p}:")
+                Rs.append(loaders.load_R(p, vindex))
+            if any(p.endswith(".ld") for p in ld_paths) and K > 1:
+                # sparse-level fill: never materializes K M x M dense matrices
+                Rs, rs = loaders.fill_missing_csr(Rs, rs, panel)
+            rs = np.stack(rs)
+            if args.operator == "blocksparse":
+                # built from the CSRs directly: every entry of any sparsity
+                # pattern is kept, without materializing M x M
+                op = BlockSparseLD.from_csr([loaders.as_csr(R, M) for R in Rs], block_size=B,
+                                            s=s, dtype=ld_dtype, M=M, device=device, cohorts=own)
+                Mp = op.M
+                pad = Mp - M
+                log.info(f"Block-sparse LD: {op.nnzb} of {op.nb * op.nb} "
+                         f"({op.B}x{op.B}) blocks stored")
+            elif args.operator == "sym":
+                # dense .npy (or mixed) inputs go through CSR, one per cohort: the
+                # dense stack is never needed on this path
+                bands, dropped = [], 0
+                for R in Rs:
+                    band_k, _, d_k = loaders.csr_to_band(R, args.bandwidth, dtype=band_dtype)
+                    bands.append(band_k)
+                    dropped += d_k
+                bw = max((b.shape[1] - 1) // 2 for b in bands)
+                if dropped:
+                    log.info(f"WARNING: {dropped} LD entries outside bandwidth {bw} dropped")
+                op = cat_sym([SymBandedLD.from_band(_pad_band(b, bw), block_size=B, s=s,
+                                                    dtype=ld_dtype, device=device)
+                              for b in bands[own]])
+                del bands
+                Mp = op.M
+                pad = Mp - M
+            elif args.operator == "banded":
+                dense = loaders.to_dense_stack(Rs[own], M)
+                bw = args.bandwidth
+                if bw is None:
+                    bw = max(loaders.estimate_bandwidth(R) for R in Rs)
+                pad = (-M) % B
+                if pad:
+                    dense = np.pad(dense, ((0, 0), (0, pad), (0, pad)))
+                    for i in range(pad):  # keep padded diagonal SPD
+                        dense[:, M + i, M + i] = 1.0
+                hb = -(-(bw + B - 1) // B)
+                op = BandedLD.from_dense(dense, block_size=B, bandwidth_blocks=hb, s=s,
+                                         dtype=ld_dtype, device=device)
+                Mp = dense.shape[-1]
+            else:
+                dense = loaders.to_dense_stack(Rs[own], M)
+                op = DenseLD(mats=torch.as_tensor(dense).to(device=device, dtype=_DTYPES[ld_dtype]),
+                             s=s)
+                pad, Mp = 0, M
+        log.info(f"Loaded {K} LD matrices of shape ({M}, {M})")
+    log.debug(f"Loading R matrices took {sp.seconds:.3f} seconds\n")
 
     # -- true signal (scaled by the first cohort's N) --
     x0 = None
@@ -570,7 +562,7 @@ def _run(args, log, device, multi: bool) -> int:
         N=dev(N_list),
         mask=mask,
     )
-    with timers.phase("precond/eig"):
+    with span("cli.precond.eig"):
         engine = VampEngine(inputs, cfg, prior, gamw=gamw, gam1=gam1, mesh=mesh)
 
     ckpt = None
@@ -592,8 +584,7 @@ def _run(args, log, device, multi: bool) -> int:
     stop_tol = float(args.stop_tol)
     stop_drop = (float(args.stop_gam1_drop)
                  if bool(int(args.stop_on_divergence)) else 0.0)
-    ts = time.time()
-    with device_trace(args.profile_dir, device), timers.phase("infer"):
+    with device_trace(args.profile_dir, device), span("cli.infer") as sp:
         if bool(int(args.fused)):
             history = _fused_run(engine, iterations, writer, x0, Nt, M, args.seed,
                                  stop_tol, stop_drop, ckpt=ckpt, every=args.checkpoint_every,
@@ -605,8 +596,8 @@ def _run(args, log, device, multi: bool) -> int:
                 seed=args.seed, callback=cb, M_out=M, it0=start_it,
                 stop_tol=stop_tol, stop_gam1_drop=stop_drop,
             )
-    log.info(f"sgVAMP inference running time: {time.time() - ts:0.4f}s\n")
-    log.debug(timers.report())
+    log.info(f"sgVAMP inference running time: {sp.seconds:0.4f}s\n")
+    log.debug(profiling.report())
     if history.get("stopped_at") is not None:
         log.info(f"Early stop at iteration {history['stopped_at']} "
                  f"({history['stop_reason']}); best iterate: "

@@ -21,6 +21,8 @@ from typing import Callable, NamedTuple, Optional
 import torch
 from torch import Tensor
 
+from sgvamp_torch.utils.profiling import span
+
 # iterations between two host reads of the active lanes: a converged solve
 # runs at most CG_CHUNK - 1 masked iterations (one LD pass each) past its
 # last update, and the production solves converge in a few iterations a
@@ -157,8 +159,11 @@ def cg_batched(
     c = cg_init(matvec, b, x0, rtol, atol, force_maxiter, precond)
     done = 0
     while done < maxiter:
-        if not force_maxiter and not bool(c.active.any()):   # the host read of a chunk
-            break
+        if not force_maxiter:
+            with span("sgv.read", blocking=True, kind="cg"):   # the host read of a chunk
+                live = bool(c.active.any())
+            if not live:
+                break
         steps = min(CG_CHUNK, maxiter - done)
         c = cg_chunk(matvec, c, steps, maxiter, force_maxiter, precond,
                      masked=not force_maxiter)

@@ -17,6 +17,7 @@ import torch
 from torch import Tensor
 
 from sgvamp_torch import resolve_device
+from sgvamp_torch.utils.profiling import span
 
 # sweeps between two host reads of the stopping flag: the bench's prior
 # runs at most 5 sweeps a step (one read), and a loop that stops within a
@@ -170,7 +171,9 @@ def em_loop(
     c = em_init(lam, omegas)
     while True:
         c = em_chunk(c, r1s, gam1s, a, sigmas, maxit, rel_tol, EM_CHUNK, mask=mask)
-        if bool(em_finished(c, maxit)):   # the host read of a chunk
+        with span("sgv.read", blocking=True, kind="em"):   # the host read of a chunk
+            done = bool(em_finished(c, maxit))
+        if done:
             return em_result(c)
 
 
@@ -396,5 +399,7 @@ def mle_update(
     pb, c = mle_init(r1s, gam1s, a, prior, mask)
     while True:
         c = mle_chunk(c, pb, maxit, tol, MLE_CHUNK)
-        if bool(mle_finished(c, maxit)):   # the host read of a chunk
+        with span("sgv.read", blocking=True, kind="mle"):   # the host read of a chunk
+            done = bool(mle_finished(c, maxit))
+        if done:
             return mle_result(pb, c, prior)

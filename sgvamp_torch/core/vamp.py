@@ -34,9 +34,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import json
 import logging
-import time
 from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -54,6 +52,7 @@ from sgvamp_torch.core.precond import (apply_block_jacobi, block_jacobi_eig,
 from sgvamp_torch.core.prior import (EM_CHUNK, MLE_CHUNK, PriorState, em_chunk,
                                      em_finished, em_init, em_loop, em_result, mle_chunk,
                                      mle_finished, mle_init, mle_result, mle_update)
+from sgvamp_torch.utils.profiling import anchor, count, span
 
 logger = logging.getLogger("sgvamp")
 
@@ -338,6 +337,14 @@ def draw_probe(gen: torch.Generator, K: int, M: int, device, dtype) -> Tensor:
     # several holds some of the rows)
     return (torch.randint(0, 2, (M, K), generator=g, device=device).T.to(dtype) * 2
             - 1).contiguous()
+
+
+def _upload_probe(row, device) -> Tensor:
+    """A row of fixed_u (host memory) on `device`. On a CUDA device the copy
+    from pageable memory waits for the stream to drain: a blocking span."""
+    row = np.asarray(row)
+    with span("sgv.probe", blocking=device.type == "cuda", bytes=row.nbytes):
+        return torch.as_tensor(row, device=device)
 
 
 class _Mid(NamedTuple):
@@ -645,14 +652,14 @@ class _FusedStep:
     replayed until its device flag says done; the part before CG, from the
     update's result, with CG's first residual; CG chunks of CG_CHUNK
     iterations, replayed until no lane is active or maxiter iterations have
-    run; the part after CG with stop_state_update and the state's update
-    (the prior's fields included). Under
-    cg_force_maxiter the last three are one piece of exactly maxiter CG
-    iterations. Each piece reads the engine's inputs, the static state S
-    and the outputs of the pieces before it, and updates its carry (and the
-    last one S) in place, so that on a CUDA device each is captured once
-    into a torch.cuda.CUDAGraph (one memory pool for all) and replayed; on
-    the CPU the same pieces run eagerly. A failure to capture or replay
+    run (under cg_force_maxiter one piece, "cg", of exactly maxiter
+    unmasked iterations, whose output stays a static buffer of the pool);
+    the part after CG with stop_state_update and the state's update (the
+    prior's fields included). Each piece reads the engine's inputs, the
+    static state S and the outputs of the pieces before it, and updates its
+    carry (and the last one S) in place, so that on a CUDA device each is
+    captured once into a torch.cuda.CUDAGraph (one memory pool for all) and
+    replayed; on the CPU the same pieces run eagerly. A failure to capture or replay
     raises: there is no eager step on a CUDA device.
 
     The host branches of the step (it > 0, the prior update from
@@ -666,6 +673,12 @@ class _FusedStep:
     replays (no graph holds a collective), and one more piece, "merge",
     unpacks the gathered values into S and the aux and then updates the
     stop monitor.
+
+    Spans (utils/profiling.py): each piece's replays run inside a span
+    sgv.piece.{prior, pre_cg, cg, post_cg, merge} that marks them as its
+    device work, each host read of a device flag inside a blocking
+    sgv.read, the exchange inside a blocking sgv.exchange and each capture
+    inside sgv.capture (counter "captures").
     """
 
     def __init__(self, cfg: VampConfig, inputs: VampInputs, mesh, state: VampState) -> None:
@@ -722,17 +735,25 @@ class _FusedStep:
                 out[name] = out.get(name, 0) + per * n
         return out
 
-    def _run(self, key: tuple, piece: str, fn, mutates=lambda: ()) -> None:
-        """Run one piece: captured at its first use on a CUDA device, then
+    def _run(self, sp: span, key: tuple, piece: str, fn, mutates=lambda: ()) -> None:
+        """Run one piece inside the span sp, which marks the replay as its
+        device work: captured at its first use on a CUDA device, then
         replayed; called as it is on the CPU."""
         k = (key, piece)
         self.replays[k] = self.replays.get(k, 0) + 1
+        count("replays." + piece)
         if not self.graphs:
             fn()
             return
         if k not in self.captured:
-            self.captured[k] = self._capture(k, fn, list(mutates()))
+            with span("sgv.capture", piece=piece):
+                self.captured[k] = self._capture(k, fn, list(mutates()))
+            count("captures")
+        sp.device_begin()
         self.captured[k].replay()
+        sp.device_end()
+        for name, n in self.graph_launches[k].items():
+            count("graph_launches." + name, n)
 
     def _capture(self, k: tuple, fn, mutates: list):
         """fn warmed up on a side stream (kernels built and loaded, lazy
@@ -776,12 +797,23 @@ class _FusedStep:
         self.rho[1].fill_(1 - rho)
         return self.rho
 
+    def _read(self, kind: str, flag: Tensor) -> bool:
+        """The host read of a device flag (blocking: the host waits for the
+        stream to drain, so the stream is anchored to the host's clock
+        there)."""
+        self.reads[kind] += 1
+        count("reads." + kind)
+        with span("sgv.read", blocking=True, kind=kind):
+            done = bool(flag)
+            anchor(self.dev)
+        return done
+
     def step(self, it: int, u: Tensor, stop: Optional[Tuple[float, float]]) -> StepAux:
         """Iteration `it` from S into S with the probe u (from draw_probe, or
         a row of fixed_u); stop: the thresholds (tol, gam1_drop) of
         stop_state_update on the monitor, None for none.
         Returns the step's aux (static tensors, valid until the next
-        step)."""
+        step). Counts the step's LD passes ("ld_passes")."""
         cfg, inputs, S = self.cfg, self.inputs, self.S
         maxit = cfg.cg_maxit
         update = _prior_update(cfg, it)
@@ -835,6 +867,9 @@ class _FusedStep:
             _assign(P["cg"], iterations(CG_CHUNK, True))
             P["live"].copy_(cg_live(P["cg"], maxit))
 
+        def cg_forced():
+            P["cg_out"] = iterations(maxit, False)
+
         def after(carry):
             fields, prior, aux = _after_cg(S, inputs, cfg, P["mid"], cg_finish(carry, maxit),
                                            rho, rhoc)
@@ -879,39 +914,42 @@ class _FusedStep:
         def persistent():
             return _state_tensors(S) + list(self.mon)
 
-        if update == "em":
-            self._run(key, "em_init", em_begin)
-            while True:
-                self._run(key, "em_chunk", em_sweeps, lambda: [*P["em"], P["em_done"]])
-                self.reads["em"] += 1
-                if bool(P["em_done"]):
-                    break
-        elif update == "mle":
-            self._run(key, "mle_init", mle_begin)
-            while True:
-                self._run(key, "mle_chunk", mle_iterations, lambda: [*P["mle"], P["mle_done"]])
-                self.reads["mle"] += 1
-                if bool(P["mle_done"]):
-                    break
-        if cfg.cg_force_maxiter:
-            def whole():
-                before()
-                after(iterations(maxit, False))
-            self._run(key, "step", whole, persistent)
-        else:
-            self._run(key, "before_cg", before)
-            chunks = 0
-            while chunks * CG_CHUNK < maxit:
-                self.reads["cg"] += 1
-                if not bool(P["live"]):
-                    break
-                self._run(key, "cg_chunk", cg_iterations, lambda: [*P["cg"], P["live"]])
-                chunks += 1
-            self._run(key, "after_cg", lambda: after(P["cg"]), persistent)
+        dev = self.dev
+        if update is not None:
+            with span("sgv.piece.prior", device=dev, update=update) as sp:
+                self._run(sp, key, f"{update}_init", em_begin if update == "em" else mle_begin)
+                if update == "em":
+                    chunk, carry = em_sweeps, lambda: [*P["em"], P["em_done"]]
+                else:
+                    chunk, carry = mle_iterations, lambda: [*P["mle"], P["mle_done"]]
+                while True:
+                    self._run(sp, key, f"{update}_chunk", chunk, carry)
+                    if self._read(update, P[f"{update}_done"]):
+                        break
+        with span("sgv.piece.pre_cg", device=dev) as sp:
+            self._run(sp, key, "before_cg", before)
+        with span("sgv.piece.cg", device=dev) as sp:
+            if cfg.cg_force_maxiter:
+                self._run(sp, key, "cg", cg_forced)
+                chunks, passes, out = 1, maxit, "cg_out"
+            else:
+                chunks = 0
+                while chunks * CG_CHUNK < maxit and self._read("cg", P["live"]):
+                    self._run(sp, key, "cg_chunk", cg_iterations, lambda: [*P["cg"], P["live"]])
+                    chunks += 1
+                passes, out = chunks * CG_CHUNK, "cg"
+            sp.attrs["chunks"] = chunks
+        with span("sgv.piece.post_cg", device=dev) as sp:
+            self._run(sp, key, "after_cg", lambda: after(P[out]), persistent)
+        # CG's iterations (masked ones too), its first residual and the
+        # gamw pass
+        count("ld_passes", passes + 1 + int(cfg.learn_gamw))
         if not divided:
             return P["aux"]
-        exchange()
-        self._run(key, "merge", merge, persistent)
+        with span("sgv.exchange", blocking=True):
+            exchange()
+        with span("sgv.piece.merge", device=dev) as sp:
+            self._run(sp, key, "merge", merge, persistent)
         return P["merged"]
 
 
@@ -948,8 +986,9 @@ class VampEngine:
             # one-time factorization of the diagonal sub-blocks; every step
             # then rebuilds the shifted inverse from it. It is taken from
             # the operator before the mesh cuts it.
-            Q, lam = block_jacobi_eig(inputs.op, cfg.cg_precond_block, 2048,
-                                      cfg.precond_torch_dtype)
+            with span("sgv.precond.eig"):
+                Q, lam = block_jacobi_eig(inputs.op, cfg.cg_precond_block, 2048,
+                                          cfg.precond_torch_dtype)
             inputs = dataclasses.replace(inputs, precond_q=Q, precond_lam=lam)
         if mesh is not None:
             from sgvamp_torch.parallel.sharding import shard_inputs
@@ -1029,81 +1068,74 @@ class VampEngine:
         iterate. Under several processes every process runs the same
         loop, and each decides to stop from the same gathered values.
         """
-        fetch_full = self._fetch_full(writer, fetch_aux_full)
-        if state is None:
-            state = self.init_state(seed)
-        history: Dict[str, Any] = {
-            "xhat1": [], "alignment": [], "l2": [], "params": [],
-            "cg1_iters": [], "cg2_iters": [],
-        }
-        x0v = None if x0 is None else np.asarray(x0).squeeze()
-        monitor = StopMonitor(tol=stop_tol, gam1_drop=stop_gam1_drop)
-        bpp = getattr(self.inputs.op, "bytes_per_pass", lambda: 0)()
-        dev = self.inputs.r.device
-        for rel_it in range(iterations):
-            it = it0 + rel_it
-            logger.info(f"\n -----ITERATION {it} -----")
-            t_step = time.perf_counter()
-            u = (None if fixed_u is None
-                 else torch.as_tensor(np.asarray(fixed_u[rel_it]), device=dev))
-            state, aux_t = vamp_step(state, self.inputs, self.cfg, u)
-            aux = _host(aux_t, skip=() if fetch_full else ("r1_in",))
-            xhat1 = aux["xhat1"][:M_out]
-            dt_step = time.perf_counter() - t_step
-            # LD passes: the fused CG's iterations (masked ones too) + its
-            # initial residual + the fused gamw pass; each reads the LD
-            # blocks once for all lanes.
-            passes = int(aux["cg_passes"]) + 2
-            if bpp and dt_step > 0:
-                logger.debug(
-                    f"[roofline] iteration {it}: {dt_step:.4f}s, "
-                    f"{passes} LD passes, achieved "
-                    f"{bpp * passes / dt_step / 1e9:.1f} GB/s (incl. dispatch)")
-            r1_in = aux["r1_in"][:, :M_out] if fetch_full else None
-            self._log_iteration(it, aux)
-            stop_reason = monitor.update(it, xhat1, aux["gam1"])
-            if abort_on_nonfinite and not (
-                    np.all(np.isfinite(xhat1)) and np.all(np.isfinite(aux["gam1"]))):
+        with span("sgv.fit", steps=iterations):
+            fetch_full = self._fetch_full(writer, fetch_aux_full)
+            if state is None:
+                state = self.init_state(seed)
+            history: Dict[str, Any] = {
+                "xhat1": [], "alignment": [], "l2": [], "params": [],
+                "cg1_iters": [], "cg2_iters": [],
+            }
+            x0v = None if x0 is None else np.asarray(x0).squeeze()
+            monitor = StopMonitor(tol=stop_tol, gam1_drop=stop_gam1_drop)
+            dev = self.inputs.r.device
+            for rel_it in range(iterations):
+                it = it0 + rel_it
+                logger.info(f"\n -----ITERATION {it} -----")
+                with span("sgv.step", it=it):
+                    u = None if fixed_u is None else _upload_probe(fixed_u[rel_it], dev)
+                    state, aux_t = vamp_step(state, self.inputs, self.cfg, u)
+                    with span("sgv.read", blocking=True, kind="aux"):
+                        aux = _host(aux_t, skip=() if fetch_full else ("r1_in",))
+                # CG's iterations (masked ones too), its first residual and the
+                # gamw pass
+                count("ld_passes", int(aux["cg_passes"]) + 1 + int(self.cfg.learn_gamw))
+                xhat1 = aux["xhat1"][:M_out]
+                r1_in = aux["r1_in"][:, :M_out] if fetch_full else None
+                self._log_iteration(it, aux)
+                stop_reason = monitor.update(it, xhat1, aux["gam1"])
+                if abort_on_nonfinite and not (
+                        np.all(np.isfinite(xhat1)) and np.all(np.isfinite(aux["gam1"]))):
+                    if stop_reason is not None:
+                        logger.info(f"STOP at iteration {it} ({stop_reason}); best "
+                                    f"iterate: iteration {monitor.best_it}")
+                        history["stopped_at"] = it
+                        history["stop_reason"] = stop_reason
+                    else:
+                        logger.info(
+                            f"ERROR: non-finite state at iteration {it}; aborting run "
+                            f"(outputs up to iteration {it - 1} are on disk)")
+                        history["aborted_at"] = it
+                    break
+                history["xhat1"].append(xhat1)
+                history["cg1_iters"].append(aux["cg1_iters"])
+                history["cg2_iters"].append(aux["cg2_iters"])
+                lam = float(aux["lam"])
+                K = aux["gamw"].shape[0]
+                rows = [[it, float(aux["gamw"][k]), float(aux["gam1"][k]),
+                         float(aux["gam2"][k]), float(aux["alpha1"][k]),
+                         float(aux["alpha2"][k]), lam] for k in range(K)]
+                history["params"].append(rows)
+                if writer is not None:
+                    scale = 1.0 / np.sqrt(Nt) if Nt else 1.0
+                    writer.write_xhat(it, xhat1 * scale)
+                    for k in range(K):
+                        writer.write_r1(it, r1_in[k] * scale, k + 1)
+                        writer.write_params(rows[k], k)
+                if x0v is not None:
+                    alignment, l2 = alignment_l2(xhat1, x0v)
+                    history["alignment"].append(alignment)
+                    history["l2"].append(l2)
+                    if writer is not None:
+                        writer.write_metrics([it, alignment, l2])
+                if callback is not None:
+                    callback(it, state, aux_t)
                 if stop_reason is not None:
                     logger.info(f"STOP at iteration {it} ({stop_reason}); best "
                                 f"iterate: iteration {monitor.best_it}")
                     history["stopped_at"] = it
                     history["stop_reason"] = stop_reason
-                else:
-                    logger.info(
-                        f"ERROR: non-finite state at iteration {it}; aborting run "
-                        f"(outputs up to iteration {it - 1} are on disk)")
-                    history["aborted_at"] = it
-                break
-            history["xhat1"].append(xhat1)
-            history["cg1_iters"].append(aux["cg1_iters"])
-            history["cg2_iters"].append(aux["cg2_iters"])
-            lam = float(aux["lam"])
-            K = aux["gamw"].shape[0]
-            rows = [[it, float(aux["gamw"][k]), float(aux["gam1"][k]),
-                     float(aux["gam2"][k]), float(aux["alpha1"][k]),
-                     float(aux["alpha2"][k]), lam] for k in range(K)]
-            history["params"].append(rows)
-            if writer is not None:
-                scale = 1.0 / np.sqrt(Nt) if Nt else 1.0
-                writer.write_xhat(it, xhat1 * scale)
-                for k in range(K):
-                    writer.write_r1(it, r1_in[k] * scale, k + 1)
-                    writer.write_params(rows[k], k)
-            if x0v is not None:
-                alignment, l2 = alignment_l2(xhat1, x0v)
-                history["alignment"].append(alignment)
-                history["l2"].append(l2)
-                if writer is not None:
-                    writer.write_metrics([it, alignment, l2])
-            if callback is not None:
-                callback(it, state, aux_t)
-            if stop_reason is not None:
-                logger.info(f"STOP at iteration {it} ({stop_reason}); best "
-                            f"iterate: iteration {monitor.best_it}")
-                history["stopped_at"] = it
-                history["stop_reason"] = stop_reason
-                break
+                    break
         history["state"] = state
         history["best_it"] = monitor.best_it
         history["best_xhat1"] = monitor.best_xhat1
@@ -1142,56 +1174,47 @@ class VampEngine:
                           (float(stop_tol), float(stop_gam1_drop)), stop_state)
 
     def _scan(self, iterations, state, seed, fixed_u, stop, stop_state):
-        if state is None:
-            state = self.init_state(seed)
-        K, M = state.r1.shape
-        dev, dtype = state.r1.device, self.cfg.torch_dtype
-        if self.fused is None:
-            self.fused = _FusedStep(self.cfg, self.inputs, self.cells, state)
-        F = self.fused
-        if stop is not None and stop_state is None:
-            stop_state = StopState.create(M, dtype, dev)
-        F.load(state, stop_state)
-        F.reset_stats()
-        shapes = {"xhat1": (M,), "r1_in": (K, M), "lam": (), "em_sweeps": (), "em_rel_err": (),
-                  "mle_ok": (), "cg_passes": ()}
-        kinds = {"cg1_converged": torch.bool, "cg2_converged": torch.bool,
-                 "mle_ok": torch.bool, "cg1_iters": torch.int32, "cg2_iters": torch.int32,
-                 "em_sweeps": torch.int32, "cg_passes": torch.int32}
-        rows = StepAux(**{f: torch.zeros((iterations, *shapes.get(f, (K,))),
-                                         dtype=kinds.get(f, dtype), device=dev)
-                          for f in StepAux._fields})
-        it = state.it
-        ran = 0
-        live = stop is None or not bool(stop_state.done)
-        t0 = time.perf_counter()
-        for rel_it in range(iterations if live else 0):
-            u = (draw_probe(state.gen, K, M, dev, dtype) if fixed_u is None
-                 else torch.as_tensor(np.asarray(fixed_u[rel_it]), device=dev))
-            aux = F.step(it, u, stop)
-            for row, v in zip(rows, aux):
-                row[rel_it].copy_(v)
-            it += 1
-            ran += 1
-            if stop is not None:
-                F.reads["stop"] += 1
-                if bool(F.mon.done):   # the host read of a step
-                    break
-        if dev.type == "cuda":
-            torch.cuda.synchronize(dev)
-        seconds = time.perf_counter() - t0
-        replays: Dict[str, int] = {}
-        for (_, piece), n in F.replays.items():
-            replays[piece] = replays.get(piece, 0) + n
-        # LD passes: CG's iterations (masked ones too), its first residual
-        # and the gamw pass of every step that ran
-        logger.debug("[fused] " + json.dumps({
-            "steps": ran, "seconds": seconds,
-            "ld_passes": int(rows.cg_passes[:ran].sum()) + 2 * ran,
-            "graph_launches": F.launches(), "host_reads": F.reads,
-            "replays": replays}))
-        out = F.export(it, state.gen)
-        return out, rows, (F.stop_state() if stop is not None else None)
+        with span("sgv.fit", steps=iterations):
+            if state is None:
+                state = self.init_state(seed)
+            K, M = state.r1.shape
+            dev, dtype = state.r1.device, self.cfg.torch_dtype
+            if self.fused is None:
+                self.fused = _FusedStep(self.cfg, self.inputs, self.cells, state)
+            F = self.fused
+            if stop is not None and stop_state is None:
+                stop_state = StopState.create(M, dtype, dev)
+            F.load(state, stop_state)
+            F.reset_stats()
+            shapes = {"xhat1": (M,), "r1_in": (K, M), "lam": (), "em_sweeps": (),
+                      "em_rel_err": (), "mle_ok": (), "cg_passes": ()}
+            kinds = {"cg1_converged": torch.bool, "cg2_converged": torch.bool,
+                     "mle_ok": torch.bool, "cg1_iters": torch.int32, "cg2_iters": torch.int32,
+                     "em_sweeps": torch.int32, "cg_passes": torch.int32}
+            rows = StepAux(**{f: torch.zeros((iterations, *shapes.get(f, (K,))),
+                                             dtype=kinds.get(f, dtype), device=dev)
+                              for f in StepAux._fields})
+            it = state.it
+            live = stop is None or not F._read("stop", stop_state.done)
+            for rel_it in range(iterations if live else 0):
+                with span("sgv.step", it=it):
+                    if fixed_u is None:
+                        with span("sgv.probe"):
+                            u = draw_probe(state.gen, K, M, dev, dtype)
+                    else:
+                        u = _upload_probe(fixed_u[rel_it], dev)
+                    aux = F.step(it, u, stop)
+                    for row, v in zip(rows, aux):
+                        row[rel_it].copy_(v)
+                    it += 1
+                    if stop is not None and F._read("stop", F.mon.done):
+                        break
+            if dev.type == "cuda":
+                with span("sgv.sync", blocking=True):
+                    torch.cuda.synchronize(dev)
+                    anchor(dev)
+            out = F.export(it, state.gen)
+            return out, rows, (F.stop_state() if stop is not None else None)
 
     def write_scan_outputs(
         self,

@@ -17,7 +17,6 @@ from __future__ import annotations
 
 import logging
 import struct
-import time
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -25,6 +24,7 @@ import scipy.sparse
 
 from sgvamp_torch import native
 from sgvamp_torch.data.harmonize import HarmonizedPanel, typed_column
+from sgvamp_torch.utils.profiling import span
 
 logger = logging.getLogger("sgvamp")
 
@@ -109,13 +109,14 @@ def load_ld_table(path: str, variant_index: dict) -> Tuple[np.ndarray, np.ndarra
     keys of `variant_index` (insertion-ordered, built from the harmonized
     list), as in the JAX package's native path."""
     keys = list(variant_index.keys())
-    t0 = time.perf_counter()
-    got = native.parse_ld(path, keys)
-    route = "native"
-    if got is None:
-        got, route = parse_ld_numpy(path, keys), "numpy"
+    with span("sgv.load.ld_parse") as sp:
+        got = native.parse_ld(path, keys)
+        route = "native"
+        if got is None:
+            got, route = parse_ld_numpy(path, keys), "numpy"
+        sp.attrs.update(route=route, pairs=len(got[0]))
     logger.info(f"{path}: {len(got[0])} LD pairs parsed through the {route} path "
-                f"in {time.perf_counter() - t0:.3f} s")
+                f"in {sp.seconds:.3f} s")
     return got
 
 

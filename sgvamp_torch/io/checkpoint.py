@@ -24,11 +24,12 @@ import json
 import logging
 import os
 import re
-import time
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from sgvamp_torch.utils.profiling import span
 
 logger = logging.getLogger("sgvamp")
 
@@ -100,18 +101,20 @@ class CheckpointManager:
 
         from sgvamp_torch.parallel.multihost import process_index
 
-        t0 = time.perf_counter()
-        fields = _fields(_whole(state))
-        path = self._path(it)
-        if process_index() == 0:
-            arrays = {name: _to_numpy(t) for name, t in fields.items()}
-            arrays["__structure__"] = np.asarray(_structure(fields))
-            tmp = path + ".tmp.npz"
-            np.savez(tmp, **arrays)
-            os.replace(tmp, path)
-            self._gc()
+        writes = process_index() == 0
+        with span("sgv.checkpoint.save", it=it) as sp:
+            fields = _fields(_whole(state))
+            path = self._path(it)
+            if writes:
+                arrays = {name: _to_numpy(t) for name, t in fields.items()}
+                arrays["__structure__"] = np.asarray(_structure(fields))
+                tmp = path + ".tmp.npz"
+                np.savez(tmp, **arrays)
+                os.replace(tmp, path)
+                self._gc()
+        if writes:
             logger.debug(f"[checkpoint] {path}: {os.path.getsize(path)} bytes in "
-                         f"{time.perf_counter() - t0:.4f} s")
+                         f"{sp.seconds:.4f} s")
         if dist.is_initialized():
             dist.barrier()
         return path

@@ -84,6 +84,7 @@ import torch
 from torch import Tensor
 
 from sgvamp_torch import native, resolve_device
+from sgvamp_torch.utils.profiling import span
 
 logger = logging.getLogger("sgvamp")
 _FLOAT_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
@@ -1300,35 +1301,40 @@ class SymBandedLD:
             raise ValueError("quantization supports the diag layout only")
         device = resolve_device(device)
         scales = None
-        if name in ("int8", "int4", "hybrid"):
-            # a float32 band packs int8 and hybrid blocks through the native
-            # one-pass packer where it builds (the same bits as the numpy one)
-            got = None
-            if band.dtype == np.float32 and name != "int4":
-                got = (native.band_pack_i8 if name == "int8"
-                       else native.band_pack_hybrid)(band, block_size)
-                logger.info(f"{name} blocks packed through the "
-                            f"{'numpy' if got is None else 'native'} path")
-            if got is None:
-                got = {"int8": pack_int8, "int4": pack_int4, "hybrid": pack_hybrid}[name](
-                    band, block_size)
-            upper, scales = got
-        else:
-            # bfloat16 is rounded to nearest even from the f32 blocks, below
-            upper = pack_blocks(band, block_size,
-                                np.float32 if name == "bfloat16" else np.dtype(name))
-        if layout == "slab":
-            nb, nslot, B, _ = upper.shape
-            upper = np.ascontiguousarray(upper.transpose(0, 1, 3, 2)).reshape(nb, nslot * B, B)
-        upper_t = torch.from_numpy(upper)
-        if name == "bfloat16":
-            upper_t = upper_t.to(torch.bfloat16)
+        with span("sgv.ingest.pack", storage=name):
+            if name in ("int8", "int4", "hybrid"):
+                # a float32 band packs int8 and hybrid blocks through the native
+                # one-pass packer where it builds (the same bits as the numpy one)
+                got = None
+                if band.dtype == np.float32 and name != "int4":
+                    got = (native.band_pack_i8 if name == "int8"
+                           else native.band_pack_hybrid)(band, block_size)
+                    logger.info(f"{name} blocks packed through the "
+                                f"{'numpy' if got is None else 'native'} path")
+                if got is None:
+                    got = {"int8": pack_int8, "int4": pack_int4, "hybrid": pack_hybrid}[name](
+                        band, block_size)
+                upper, scales = got
+            else:
+                # bfloat16 is rounded to nearest even from the f32 blocks, below
+                upper = pack_blocks(band, block_size,
+                                    np.float32 if name == "bfloat16" else np.dtype(name))
+            if layout == "slab":
+                nb, nslot, B, _ = upper.shape
+                upper = np.ascontiguousarray(upper.transpose(0, 1, 3, 2)).reshape(
+                    nb, nslot * B, B)
+            upper_t = torch.from_numpy(upper)
+            if name == "bfloat16":
+                upper_t = upper_t.to(torch.bfloat16)
 
         def stack(t):   # one copy per cohort, made on the device
             return t.to(device)[None].repeat(K, *([1] * t.dim())).contiguous()
 
-        return SymBandedLD(upper=stack(upper_t),
-                           scales=None if scales is None else stack(torch.from_numpy(scales)),
+        host = [upper_t] + ([] if scales is None else [torch.from_numpy(scales)])
+        with span("sgv.ingest.copy", blocking=device.type == "cuda", storage=name,
+                  bytes=sum(t.numel() * t.element_size() for t in host)):
+            upper_d, *scales_d = [stack(t) for t in host]
+        return SymBandedLD(upper=upper_d, scales=scales_d[0] if scales_d else None,
                            packed=name == "int4", hybrid=name == "hybrid", s=s,
                            layout=layout)
 

@@ -35,6 +35,7 @@ from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel
                                           sym_slab_matvec_streamed_spill,
                                           sym_slab_matvec_streamed_spill_ref)
 from sgvamp_torch.ops.membench import measure_read_gbps, read_max, read_max_ref
+from sgvamp_torch.utils import profiling
 from sgvamp_torch.utils.profiling import TRACE_PAD_S
 from torch_packed_slots import packed_slots, term_magnitudes, worst_termwise_error
 
@@ -1233,7 +1234,8 @@ def test_fused_replay_matches_eager_steps_bit_for_bit(cuda, force, mesh):
 
 def test_fused_step_refuses_a_host_read_during_capture(cuda, monkeypatch):
     """A host read inside the step cannot be captured: the run raises, and
-    no step runs eagerly in its place."""
+    no step runs eagerly in its place (the piece that reads, the part after
+    CG, has no graph; the pieces before it were captured)."""
     from sgvamp_torch.core import vamp
 
     engine = _fused_engine(cuda, True, False)
@@ -1245,7 +1247,7 @@ def test_fused_step_refuses_a_host_read_during_capture(cuda, monkeypatch):
     monkeypatch.setattr(vamp, "rowdot", reads_the_host)
     with pytest.raises(RuntimeError):
         engine.run_scan(2)
-    assert not engine.fused.captured
+    assert sorted(p for _, p in engine.fused.captured) == ["before_cg", "cg"]
 
 
 @pytest.mark.parametrize("force", [True, False], ids=["fixed-budget", "solve"])
@@ -1493,12 +1495,13 @@ TRACED = {"hybrid": ("sym_band_matvec_hybrid", {"hybrid": 1}),
 
 @pytest.mark.parametrize("ld_dtype", ["hybrid", "int8"])
 @pytest.mark.parametrize("fused", ["0", "1"])
-def test_profile_dir_traces_every_launch(cuda, tmp_path, fused, ld_dtype, caplog):
+def test_profile_dir_traces_every_launch(cuda, tmp_path, fused, ld_dtype):
     """cli.main --profile-dir on the card: one trace, whose kernel events of
     the storage's kernel equal the run's launches (the wrappers' eager
     counts, a fused run's warm-ups included, plus its graph replays from the
-    [fused] log line; an int8 pass is the kernel and its fold), no other
-    band kernel; the files equal the run's without the flag."""
+    tracer's counter "graph_launches.<wrapper>"; an int8 pass is the kernel
+    and its fold), no other band kernel; the files equal the run's without
+    the flag."""
     import glob
     import json
     import os
@@ -1522,12 +1525,10 @@ def test_profile_dir_traces_every_launch(cuda, tmp_path, fused, ld_dtype, caplog
     wrapper = next(w for w in BAND_KERNELS if w.__name__ == TRACED[ld_dtype][0])
     plain = run(tmp_path / "plain")
     before = wrapper.launches
-    with caplog.at_level("DEBUG", logger="sgvamp"):
-        traced = run(tmp_path / "traced", "--profile-dir", str(tmp_path / "prof"))
-    launches = wrapper.launches - before
-    for m in caplog.messages:
-        if m.startswith("[fused] "):
-            launches += json.loads(m[len("[fused] "):])["graph_launches"].get(wrapper.__name__, 0)
+    profiling.reset()
+    traced = run(tmp_path / "traced", "--profile-dir", str(tmp_path / "prof"))
+    launches = (wrapper.launches - before
+                + profiling.snapshot()["counts"].get(f"graph_launches.{wrapper.__name__}", 0))
     assert traced == plain and launches > 0
     (trace,) = glob.glob(str(tmp_path / "prof" / "process0.*.pt.trace.json"))
     with open(trace) as f:
@@ -1556,6 +1557,125 @@ def test_profile_dir_traces_every_launch(cuda, tmp_path, fused, ld_dtype, caplog
     assert min(offsets) > -TRACE_PAD_S * 1e6
     if fused == "0":   # a capture's launches run no kernel; eager ones each run one
         assert unmatched == 0
+
+
+# the tracer's spans on the card (sgvamp_torch/utils/profiling.py): a fused
+# run traced by torch.profiler after an untraced one that captured the
+# graphs, the probes handed in as numpy rows (their copy from pageable memory
+# blocks) and EM from step 1 (a blocking read of its flag a chunk)
+RUNTIME = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cudaGraphLaunch", "cudaMemcpyAsync",
+           "cudaMemsetAsync")
+
+
+def _traced_fused_run(cuda, steps=4):
+    """(the tracer's snapshot, the device operations as (start ns, end ns,
+    name, host ns of their launch)) of a traced run_scan."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = _fused_engine(cuda, True, False)
+    u = np.where(np.random.default_rng(7).random((steps, 1, engine.inputs.r.shape[1])) < 0.5,
+                 -1.0, 1.0).astype(np.float32)
+    engine.run_scan(steps, fixed_u=u)
+    torch.cuda.synchronize()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_PAD_S)
+        engine.run_scan(steps, fixed_u=u)
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+    snap = profiling.snapshot()
+    launched, ops = {}, []
+    events = prof.profiler.kineto_results.events()
+    for e in events:
+        if e.device_type() == torch.autograd.DeviceType.CPU and e.name() in RUNTIME:
+            launched[e.correlation_id()] = e.start_ns()
+    for e in events:
+        if e.device_type() != torch.autograd.DeviceType.CPU and not e.is_user_annotation():
+            ops.append((e.start_ns(), e.start_ns() + e.duration_ns(), e.name(),
+                        launched.get(e.correlation_id())))
+    assert ops and all(op[3] is not None for op in ops), [op for op in ops if op[3] is None][:5]
+    return snap, sorted(ops)
+
+
+def _busy_ns(ops):
+    busy, edge = 0, None
+    for s, t, *_ in sorted(ops):
+        if edge is None or s > edge:
+            busy, edge = busy + t - s, t
+        elif t > edge:
+            busy, edge = busy + t - edge, t
+    return busy
+
+
+def test_traced_fused_pieces_add_up_to_the_busy_time(cuda):
+    """The four pieces' device ms (benchmark/metrics: the busy time of the
+    trace's device operations inside each piece's device interval, its CUDA
+    events placed on the host's clock) and the work outside the pieces (the
+    probes' copies, the aux rows, the fit's loads) add up to the run's busy
+    time; the operations launched inside a piece's span lie inside its
+    device interval, up to the placement's error (printed)."""
+    from benchmark import harness
+
+    steps = 4
+    snap, ops = _traced_fused_run(cuda, steps)
+    pieces = [s for s in snap["spans"] if s["name"].startswith("sgv.piece.")]
+    assert sorted({s["name"] for s in pieces}) == [
+        "sgv.piece.cg", "sgv.piece.post_cg", "sgv.piece.pre_cg", "sgv.piece.prior"]
+    inside, out_by = set(), 0
+    for s in pieces:
+        mine = [op for op in ops if s["start_ns"] <= op[3] <= s["end_ns"]]
+        assert mine and s["device_end_ns"] is not None, s
+        out_by = max(out_by, s["device_start_ns"] - min(op[0] for op in mine),
+                     max(op[1] for op in mine) - s["device_end_ns"])
+        inside.update(mine)
+    r = {"trace": {"ops": [op[:3] for op in ops], "steps": steps}}
+    piece_ms = {m: harness.reader(m)(r) for m in ("prior_ms", "pre_cg_ms", "cg_ms", "post_cg_ms")}
+    outside = [op for op in ops if op not in inside]
+    names = {}
+    for op in outside:
+        names[op[2][:40]] = names.get(op[2][:40], 0) + (op[1] - op[0]) / 1e6
+    busy_ms, outside_ms = _busy_ns(ops) / 1e6, _busy_ns(outside) / 1e6
+    total_ms = sum(piece_ms.values()) * steps
+    print(f"[spans] pieces a step {piece_ms} ms: {total_ms:.4f} ms in {steps} steps; busy "
+          f"{busy_ms:.4f} ms, outside the pieces {outside_ms:.4f} ({names}); an operation "
+          f"outside its piece's device interval by at most {out_by / 1e3:.1f} us")
+    assert out_by < 200e3
+    assert abs(total_ms + outside_ms - busy_ms) <= 0.03 * busy_ms
+
+
+def test_second_run_scan_makes_no_capture(cuda):
+    """The first fused run captures each piece once (sgv.capture, counter
+    "captures"); a second on the same engine captures nothing."""
+    engine = _fused_engine(cuda, True, False)
+    profiling.reset()
+    engine.run_scan(3, seed=1)
+    first = profiling.snapshot()
+    assert first["counts"]["captures"] == len(engine.fused.captured) >= 4
+    assert first["totals"]["sgv.capture"]["calls"] == len(engine.fused.captured)
+    profiling.reset()
+    engine.run_scan(3, seed=1)
+    again = profiling.snapshot()
+    assert "sgv.capture" not in again["totals"] and "captures" not in again["counts"]
+    assert again["totals"]["sgv.step"]["calls"] == 3
+
+
+def test_blocking_spans_end_after_the_operations_they_wait_for(cuda):
+    """Each sgv.read and sgv.sync span ends after the device operations
+    launched before its end; the largest excess of an operation's end over
+    the span's is the offset between the card's stamps and the host's
+    clock, held inside TRACE_PAD_S."""
+    snap, ops = _traced_fused_run(cuda)
+    blocking = [s for s in snap["spans"] if s["name"] in ("sgv.read", "sgv.sync")]
+    assert {s["name"] for s in blocking} == {"sgv.read", "sgv.sync"}
+    excess = []
+    for s in blocking:
+        waited = max(op[1] for op in ops if op[3] <= s["end_ns"])
+        excess.append(waited - s["end_ns"])
+    print(f"[spans] {len(blocking)} blocking spans: device end - span end max "
+          f"{max(excess) / 1e3:.1f} us, min {min(excess) / 1e3:.1f} us")
+    assert max(excess) < TRACE_PAD_S * 1e9
 
 
 @pytest.fixture
