@@ -26,7 +26,11 @@ Phases, a few lines of output each (and fail on the first that fails):
      kernel forced onto it (runs of 8 block rows), each against its plain
      version and timed. At the bench shape the int8 and float diag
      wrappers must keep the runs with every diagonal in one range
-     (ops/band_kernel.py::_int8_tiles, _float_tiles). The Triton read
+     (ops/band_kernel.py::_int8_tiles, _float_tiles). The int8 kernel's
+     lanes form (the engine's LD pass) at the bench shape and over its
+     blocks for K=8, with and without A's shift: against its plain
+     version, bit for bit against the copied route, timed beside both.
+     The Triton read
      probe against its plain version, exactly. A small engine run on the
      GPU against the same run on the CPU (plain versions).
   3. the engine's library path: with the kernels' launch counts at zero,
@@ -376,14 +380,17 @@ def held_blocks(nb: int, hb: int) -> int:
     return nb + sum(max(nb - d, 0) for d in range(1, hb + 1))
 
 
-def bound_ms(op, S: int, storage: str) -> tuple:
+def bound_ms(op, S: int, storage: str, x_bytes: int = 0) -> tuple:
     """The least time the card could take for one matvec of `op` with S
     lanes: (ms, "bytes" or "operations", bytes moved). Bytes: the blocks
     that hold data and their scales (every slot of the storage has the same
     bytes), x read once, y written once, over the HBM rate; operations: two
     per stored element and lane for each block product the band holds (row
-    and mirror), over the peak rate of the storage's type."""
+    and mirror), over the peak rate of the storage's type. x_bytes: the
+    bytes of an element of x where the pass reads another type than the
+    storage's kernel does (4: the int8 lanes form reads f32 lanes)."""
     xb, yb = {"float32": (4, 4), "float64": (8, 8)}.get(storage, (2, 4))
+    xb = x_bytes or xb
     held = held_blocks(op.nb, op.hb)
     nbytes = (op.bytes_per_pass() * held // (op.nb * (op.hb + 1))
               + op.K * S * op.M * (xb + yb))
@@ -2385,7 +2392,9 @@ def main() -> None:
     from sgvamp_torch.ops import _build
     from sgvamp_torch.ops.band_kernel import (DIAG_RUN_ROWS, SLAB_RUN_ROWS, SymBandedLD,
                                               _float_tiles, _int8_runs, _int8_tiles,
-                                              _slab_tiles, band_kernel_of)
+                                              _slab_tiles, band_kernel_of, sym_band_matvec_int8,
+                                              sym_band_matvec_int8_lanes,
+                                              sym_band_matvec_int8_lanes_ref)
     from sgvamp_torch.ops.membench import (_prep, measure_read_gbps, read_max,
                                            read_max_ref)
     from sgvamp_torch.utils import kernel_bench
@@ -2583,6 +2592,66 @@ def main() -> None:
               f"plain {ms_plain:.4f} ms/pass, bound {b_ms:.4f} ms ({b_by} at "
               f"{HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
 
+    lanes_rows = {}   # the int8 kernel's lanes form, the engine's LD pass
+
+    def measure_lanes(op):
+        """[2 int8 lanes] the lanes form, which takes every LD pass of the
+        int8 engine on one card (CG's shifted A p and the plain gamw pass):
+        at the bench shape (K=1) and over its blocks repeated for K=8
+        cohorts, S lanes a cohort of f32 x, with and without the shift.
+        Held against its plain version (the int8 plain version over x's bf16
+        copy, the shift in torch) at SCALED_TOL, and bit for bit against
+        the copied route (the bf16 matvec kernel over x's (K, S, M) copy, y
+        transposed back, the shift in torch); one launch counted a pass.
+        Timed beside its bound: the blocks that hold data, x read once as
+        f32, y written once (the shift needs no other bytes)."""
+        M = op.M
+        for K in (1, 8):
+            opk = dataclasses.replace(op, upper=op.upper.expand(K, *op.upper.shape[1:])
+                                      .contiguous(), scales=op.scales.expand(
+                                          K, *op.scales.shape[1:]).contiguous())
+            g = torch.Generator(dev).manual_seed(K)
+            x = torch.randn((S * K, M), generator=g, device=dev)
+            gamw = torch.rand(S * K, generator=g, device=dev) + 0.5
+            gam2 = 40 * torch.rand(S * K, generator=g, device=dev)
+            for shift in ((), (gamw, gam2)):
+                key = f"K={K}{', shifted' if shift else ''}"
+
+                def run():
+                    return sym_band_matvec_int8_lanes(opk.upper, opk.scales, x, *shift)
+
+                def copied():
+                    xs = x.reshape(S, K, M).transpose(0, 1).to(torch.bfloat16).contiguous()
+                    y = sym_band_matvec_int8(opk.upper, opk.scales, xs).transpose(0, 1)
+                    y = y.reshape(x.shape)
+                    return gamw[:, None] * y + gam2[:, None] * x if shift else y
+
+                reset_launches()
+                y = run()
+                torch.cuda.synchronize()
+                counted = {k: v for k, v in band_launches().items() if v}
+                if counted != {"sym_band_matvec_int8": 1}:
+                    fail(f"int8 lanes form, {key}: one pass counted {counted}")
+                abs_err, rel = scaled_err(
+                    y, sym_band_matvec_int8_lanes_ref(opk.upper, opk.scales, x, *shift))
+                if not rel <= SCALED_TOL:
+                    fail(f"int8 lanes form, {key}: scaled error {rel:.3e} > {SCALED_TOL}")
+                if not torch.equal(y, copied()):
+                    fail(f"int8 lanes form, {key}: not the copied route's bits")
+                ms_lanes, ms_copied = kernel_and_plain_ms(run, copied, 50, 50)
+                b_ms, b_by, nbytes = bound_ms(opk, S, "int8", x_bytes=4)
+                lanes_rows[key] = {"abs_err": abs_err, "rel_err": rel, "ms": ms_lanes,
+                              "copied_ms": ms_copied, "bound_ms": b_ms, "bound_by": b_by,
+                              "bytes": nbytes}
+                print(f"[2 int8 lanes {key}] sym_band_matvec_int8_lanes, upper "
+                      f"{tuple(opk.upper.shape)}, x {tuple(x.shape)} f32: scaled error "
+                      f"{rel:.2e} (max abs {abs_err:.3e}, tol {SCALED_TOL}) against its plain "
+                      f"version, the copied route's bits; {ms_lanes:.4f} ms/pass, the copied "
+                      f"route {ms_copied:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {nbytes} bytes "
+                      f"at {HBM_BYTES_PER_S / 1e12} TB/s)", flush=True)
+            del opk, x
+            torch.cuda.empty_cache()
+
     spill = {}     # the same for the spill forms: one shard of MESH_SHARDS
 
     def measure_spill(op, key, storage):
@@ -2629,6 +2698,7 @@ def main() -> None:
         measure_spill(op, storage, storage)
         if storage == "int8":
             op_int8 = op
+            measure_lanes(op)
         if storage in ("bfloat16", "float32"):
             for flavor in FLAVORS:
                 measure(with_flavor(op, flavor), f"{flavor} {storage}", storage,
@@ -2963,7 +3033,7 @@ def main() -> None:
                       "cli": list(cli.values()) + list(mesh_cli.values()),
                       "ingestion": ingestion, "precond_eig": eig_profile, "ld_path": ld_path,
                       "kernel_bench": list(bench_rows.values()),
-                      "wide_band": wide,
+                      "wide_band": wide, "int8_lanes": lanes_rows,
                       "engine_paths": {
                           "int8": {k: int8_run[k] for k in ("executed", "s_per_iteration",
                                                             "alignment")},

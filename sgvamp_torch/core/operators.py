@@ -47,8 +47,19 @@ def _regularize_diag(D: Tensor, s: float) -> Tensor:
     return (1.0 - s) * D + s * eye
 
 
+class LDOperator:
+    """What every LD operator gives besides its matvec: shifted_matvec, A's
+    product in CG (core/vamp.py::_amatvec). SymBandedLD computes it in its
+    own pass, with the same bits."""
+
+    def shifted_matvec(self, x: Tensor, gamw: Tensor, gam2: Tensor) -> Tensor:
+        """gamw[:, None] * self.matvec(x) + gam2[:, None] * x; gamw, gam2
+        (S*K,)."""
+        return gamw[:, None] * self.matvec(x) + gam2[:, None] * x
+
+
 @dataclasses.dataclass(frozen=True)
-class DenseLD:
+class DenseLD(LDOperator):
     """Dense stacked LD operator: mats (K, M, M), one matrix per cohort."""
 
     mats: Tensor
@@ -105,7 +116,7 @@ def _block_dtype(dtype, fallback) -> tuple:
 
 
 @dataclasses.dataclass(frozen=True)
-class BandedLD:
+class BandedLD(LDOperator):
     """Block-banded LD operator over full-band storage.
 
     For each of nb = M/B block rows the 2*hb + 1 diagonal-adjacent (B, B)
@@ -309,7 +320,7 @@ _WIDEN_TILES = 1024
 
 
 @dataclasses.dataclass(frozen=True)
-class BlockSparseLD:
+class BlockSparseLD(LDOperator):
     """Block-sparse LD operator: (B, B) tiles at arbitrary block coordinates.
 
     It keeps every entry of any sparsity pattern, long-range LD far off the

@@ -366,7 +366,7 @@ class _Mid(NamedTuple):
 def _amatvec(inputs: VampInputs, mid: _Mid):
     def amatvec2(x: Tensor) -> Tensor:
         # A @ x = gamw * (R @ x) + gam2 * x, never materializing A
-        return mid.gamw2[:, None] * inputs.op.matvec(x) + mid.gam22[:, None] * x
+        return inputs.op.shifted_matvec(x, mid.gamw2, mid.gam22)
     return amatvec2
 
 

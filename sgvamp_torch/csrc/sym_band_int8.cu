@@ -84,6 +84,19 @@
 //    kernel's last ones (about 1.5 µs a pass at nb = 64, hb = 64). No
 //    atomics (but the counting build's, below), no CTA waits on another
 //    of its grid: the same bits on every run.
+//  * The caller's lanes (sgv_sym_band_int8_lanes; the kernel's and the
+//    folds' instances with LANES true, the others unchanged). CG holds its
+//    2K lanes as f32 (S, K, M) and wants A p = gamw R p + gam2 p. The pass
+//    reads those lanes where they lie (lane stride K M), rounds each x value
+//    to bfloat16 as it loads it (__float2bfloat16_rn, what torch's
+//    .to(torch.bfloat16) does on the card: the same products as over a cast
+//    and transposed copy), writes y in the same layout, and, given gamw and
+//    gam2, stores gamw y + gam2 x (x unrounded; __fmul_rn, __fadd_rn, so no
+//    FMA contracts them: torch's bits) where a row's sum becomes final: in
+//    the kernel for the rows of a run that no partial slot reaches, in
+//    fold_partials for the first min(hb, G), in fold_tiles for every row
+//    when J > 1. The run's x is kept unrounded in shared memory for that
+//    (one more S G B floats).
 //
 // Spill form (one shard of a sharded operator; `carry` is not null): x
 // carries the next shard's first hb blocks after the shard's own nb (the
@@ -95,13 +108,16 @@
 //
 // Shared memory: the warps' rings (kStages x 2 KB a warp), x of the run,
 // its row sums and its mirror sums (3 G S B floats): 72 KB at G = 8,
-// B = 128, S = 2 (two CTAs an SM; registers bound it), whatever D is.
+// B = 128, S = 2 (two CTAs an SM; registers bound it), whatever D is; over
+// the caller's lanes 4 G S B floats, 80 KB.
 //
 // Built with -DSGV_COUNT_BLOCK_BYTES (ops/_build.py's library
 // sym_band_int8_counted), each warp also adds the bytes of every chunk of
 // blocks it copies to a counter on the device, which
 // sgv_sym_band_int8_block_bytes reads: what a pass reads of the blocks,
 // counted by the kernel itself. The default build has no counter.
+
+#include <type_traits>
 
 #include "sym_band_tile.cuh"
 
@@ -247,16 +263,23 @@ __device__ __forceinline__ void walk_stream(const Stream<B>& st, int n, int lane
   }
 }
 
+// x as a pass takes it: bf16 words in the parent's lanes, f32 rounded as it
+// is loaded in the caller's
+template <bool LANES>
+using XOf = std::conditional_t<LANES, f32_bf16, bf16_t>;
+
 // TILED: the band is cut into J > 1 ranges (tl). Without it the CTA takes
 // run blockIdx.x over every diagonal and writes y: the kernel before tiles,
 // whose code a band that is not cut keeps (on an H100 with a few warps an
-// SM, the tile search's instructions slowed each warp by 7-8%).
-template <int B, int S, bool TILED>
+// SM, the tile search's instructions slowed each warp by 7-8%). LANES: the
+// caller's lanes (sym_band_tile.cuh::Lanes); the run's x is also kept
+// unrounded (xu) for the shift of the rows the kernel writes last.
+template <int B, int S, bool TILED, bool LANES = false>
 __global__ void __launch_bounds__(32 * kMaxRunRows, S <= 2 ? 2 : 1)
 sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__ scales,
-                     const bf16_t* __restrict__ x, float* __restrict__ y,
+                     const XOf<LANES>* __restrict__ x, float* __restrict__ y,
                      float* __restrict__ part, int nb, int hb, int G, bool spill,
-                     const __grid_constant__ Tiles tl) {
+                     const __grid_constant__ Tiles tl, const Lanes<LANES> io) {
   using L = Tile<int8_t, B>;
   using St = Stream<B>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -266,6 +289,7 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
   float* xs = reinterpret_cast<float*>(smem_raw + static_cast<size_t>(G) * St::BYTES);
   float* yr = xs + S * gstride;                     // S x G x B: row sums (xs: x of the run)
   float* ym = yr + S * gstride;                     // S x G x B: mirror sums from the run
+  float* xu = ym + S * gstride;                     // S x G x B with LANES: x unrounded
 
   // the tile: range j (the last whose first tile is at most blockIdx.x),
   // run c of it
@@ -278,7 +302,9 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
   const size_t Mx = static_cast<size_t>(nx) * B;
   const int8_t* uk = upper + static_cast<size_t>(k) * nb * (hb + 1) * B * B;
   const float* sk = scales + static_cast<size_t>(k) * nb * (hb + 1);
-  const bf16_t* xk = x + static_cast<size_t>(k) * S * Mx;
+  // between x's lanes: Mx in the parent's, K Mx in the caller's
+  const size_t xls = LANES ? static_cast<size_t>(gridDim.y) * Mx : Mx;
+  const XOf<LANES>* xk = x + static_cast<size_t>(k) * (LANES ? 1 : S) * Mx;
   const Scratch scr(nb, hb, G, spill, TILED ? tl.J : 1);
   const Partials& pp = scr.pp;
   const size_t pstride = scr.rows * B;              // between right-hand sides
@@ -300,7 +326,8 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
     const int p = w % B;
     const size_t m = static_cast<size_t>(r0) * B + w;
     xs[s * gstride + (w - p) + (p % L::R) * L::NRG + p / L::R] =
-        m < Mx ? to_acc(xk[s * Mx + m]) : 0.0f;
+        m < Mx ? to_acc(xk[s * xls + m]) : 0.0f;
+    if constexpr (LANES && !TILED) xu[e] = m < Mx ? xk[s * xls + m].v : 0.0f;
   }
   for (int e = threadIdx.x; e < 2 * S * gstride; e += blockDim.x) yr[e] = 0.0f;
   __syncthreads();
@@ -317,7 +344,8 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
       for (int s = 0; s < S; ++s)
 #pragma unroll
         for (int c = 0; c < L::CV; ++c) cacc[s][c] = 0.0f;
-      load_cols_global<int8_t, B, S, bf16_t>(xk + static_cast<size_t>(t) * B, Mx, lane, xc);
+      load_cols_global<int8_t, B, S, XOf<LANES>>(xk + static_cast<size_t>(t) * B, xls, lane,
+                                                 xc);
       if (d == 0) {
         walk_stream<B, S, false>(st, 0, lane, xc, nullptr, yr + warp * B, gstride, cacc, sc);
       } else {
@@ -341,48 +369,63 @@ sym_band_int8_kernel(const int8_t* __restrict__ upper, const float* __restrict__
   __syncthreads();
 
   // the run's row sums + the mirror sums from inside the run: y with one
-  // range, else the tile's rows of the scratch
+  // range, else the tile's rows of the scratch. With LANES and one range the
+  // rows no partial slot reaches (block row w / B >= H of the run) are final
+  // here and take the shift; fold_partials shifts the others.
   const size_t M = static_cast<size_t>(nb) * B;
-  float* out = !TILED ? y + static_cast<size_t>(k) * S * M + static_cast<size_t>(r0) * B
+  float* out = !TILED ? y + static_cast<size_t>(k) * (LANES ? 1 : S) * M +
+                            static_cast<size_t>(r0) * B
                       : pk + (static_cast<size_t>(pp.F) * hb + static_cast<size_t>(j) * nb +
                               r0) * B;
-  const size_t ostride = !TILED ? M : pstride;
+  const size_t ostride = !TILED ? (LANES ? static_cast<size_t>(gridDim.y) * M : M) : pstride;
   for (int e = threadIdx.x; e < S * gstride; e += blockDim.x) {
     const int s = e / gstride;
     const int w = e - s * gstride;   // (block row of the run) * B + column
     if (r0 + w / B >= nb) continue;
-    out[s * ostride + w] = yr[e] + ym[e];
+    float v = yr[e] + ym[e];
+    if constexpr (LANES && !TILED) {
+      if (io.gamw && w / B >= pp.H) v = shifted(io, s * gridDim.y + k, v, xu[e]);
+    }
+    out[s * ostride + w] = v;
   }
 }
 
-template <int B, int S>
+template <int B, int S, bool LANES>
 int launch(const Args& a, const float* scales) {
   if (a.G < 1 || a.G > kMaxRunRows) return -1;
   const size_t smem = static_cast<size_t>(a.G) * Stream<B>::BYTES +
-                      static_cast<size_t>(3) * S * B * a.G * sizeof(float);
-  return launch_tiles<float, B, S>(sym_band_int8_kernel<B, S, false>,
-                                   sym_band_int8_kernel<B, S, true>, a, a.D, smem,
-                                   static_cast<const int8_t*>(a.upper), scales,
-                                   static_cast<const bf16_t*>(a.x));
+                      static_cast<size_t>(LANES ? 4 : 3) * S * B * a.G * sizeof(float);
+  Lanes<LANES> io{};
+  if constexpr (LANES) io = a.lanes;
+  using Kernel = decltype(&sym_band_int8_kernel<B, S, false, LANES>);
+  return launch_tiles_by<float, B, S, LANES>(
+      sym_band_int8_kernel<B, S, false, LANES>, sym_band_int8_kernel<B, S, true, LANES>, a, a.D,
+      smem, [&](Kernel kernel, dim3 grid, bool spill, const Tiles& tl) {
+        kernel<<<grid, 32 * a.G, smem, a.stream>>>(
+            static_cast<const int8_t*>(a.upper), scales,
+            static_cast<const XOf<LANES>*>(a.x), static_cast<float*>(a.y),
+            static_cast<float*>(a.partials), a.nb, a.hb, a.G, spill, tl, io);
+      });
 }
 
-template <int B>
+template <int B, bool LANES>
 int launch_s(const Args& a, const float* scales, int S) {
   switch (S) {
-    case 1: return launch<B, 1>(a, scales);
-    case 2: return launch<B, 2>(a, scales);
-    case 3: return launch<B, 3>(a, scales);
-    case 4: return launch<B, 4>(a, scales);
+    case 1: return launch<B, 1, LANES>(a, scales);
+    case 2: return launch<B, 2, LANES>(a, scales);
+    case 3: return launch<B, 3, LANES>(a, scales);
+    case 4: return launch<B, 4, LANES>(a, scales);
     default: return -1;
   }
 }
 
+template <bool LANES = false>
 int matvec(const Args& a, const void* scales, int B, int S) {
   const auto* sc = static_cast<const float*>(scales);
   switch (B) {
-    case 64: return launch_s<64>(a, sc, S);
-    case 128: return launch_s<128>(a, sc, S);
-    case 256: return launch_s<256>(a, sc, S);
+    case 64: return launch_s<64, LANES>(a, sc, S);
+    case 128: return launch_s<128, LANES>(a, sc, S);
+    case 256: return launch_s<256, LANES>(a, sc, S);
     default: return -1;
   }
 }
@@ -421,6 +464,24 @@ extern "C" int sgv_sym_band_int8_spill(const void* upper, const void* scales,
   const sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), carry,
                     partials, D};
   return matvec(a, scales, B, S);
+}
+
+// The matvec form over the caller's lanes: x (S, K, nb*B) f32, rounded to
+// bfloat16 (to nearest even) as the kernel loads it, y (S, K, nb*B) f32,
+// lane s K + k of cohort k; gamw and gam2 null, or S K f32 each, and then y
+// = gamw y + gam2 x with x unrounded, each product and the sum rounded as
+// torch's gamw[:, None] * y + gam2[:, None] * x. x 16-byte aligned; the
+// rest as sgv_sym_band_int8_matvec. Returns as above.
+extern "C" int sgv_sym_band_int8_lanes(const void* upper, const void* scales, const void* x,
+                                       void* y, void* partials, const void* gamw,
+                                       const void* gam2, int K, int nb, int hb, int B, int S,
+                                       int G, int D, void* stream) {
+  if ((gamw == nullptr) != (gam2 == nullptr) || (reinterpret_cast<uintptr_t>(x) & 15))
+    return -1;
+  sgv::Args a{upper, x, y, K, nb, hb, G, static_cast<cudaStream_t>(stream), nullptr, partials, D};
+  a.lanes = {static_cast<const float*>(x), static_cast<const float*>(gamw),
+             static_cast<const float*>(gam2)};
+  return matvec<true>(a, scales, B, S);
 }
 
 #ifdef SGV_COUNT_BLOCK_BYTES

@@ -30,12 +30,21 @@
 // them to the spill form's carry) in a fixed order of d. The three share
 // their matvec form's tiles of the band too (`Tiles`, `Scratch`, fold_tiles,
 // launch_tiles).
+//
+// The int8 kernel's matvec form has a second instance (LANES true) that
+// works on the caller's lanes: x f32 in (S, K, M), rounded to bfloat16 as
+// it is loaded (f32_bf16), y f32 in (S, K, M), and optionally A's shift
+// y = gamw y + gam2 x applied where each row's sum becomes final (Lanes,
+// shifted): in the kernel, fold_partials or fold_tiles, whichever writes
+// the row last. The instances with LANES false are the parent's.
 
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <type_traits>
 
 namespace sgv {
 
@@ -51,6 +60,18 @@ __device__ __forceinline__ float to_acc(bf16_t v) {
   return __uint_as_float(static_cast<uint32_t>(v.bits) << 16);
 }
 __device__ __forceinline__ float to_acc(float v) { return v; }
+// an f32 x that the int8 kernel takes as bfloat16: rounded to nearest even
+// as it is loaded, as torch's .to(torch.bfloat16) rounds it on the card
+struct f32_bf16 { float v; };
+__device__ __forceinline__ float to_acc(f32_bf16 v) {
+  return __bfloat162float(__float2bfloat16_rn(v.v));
+}
+// two of them at once (one conversion of a pair, the same rounding)
+__device__ __forceinline__ void to_acc2(float a, float b, float& ra, float& rb) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  ra = __low2float(h);
+  rb = __high2float(h);
+}
 __device__ __forceinline__ double to_acc(double v) { return v; }
 
 __device__ __forceinline__ float fma_acc(float a, float b, float c) { return fmaf(a, b, c); }
@@ -173,20 +194,37 @@ __device__ __forceinline__ void add_cols(typename AccOf<T>::type* dst, int strid
 
 // xc[s][..] = src[s * stride + the lane's columns], read from device memory
 // in x's type X: the block type, or bfloat16 for int8 blocks (the streamed
-// diag kernels' x_{i+d}).
+// diag kernels' x_{i+d}), or f32 rounded to it (f32_bf16: 16 bytes a load,
+// src and stride on 4 values).
 template <typename T, int B, int S, typename X = T>
 __device__ __forceinline__ void load_cols_global(const X* __restrict__ src, size_t stride,
                                                  int lane,
                                                  typename AccOf<T>::type (&xc)[S][Tile<T, B>::CV]) {
   using L = Tile<T, B>;
   const int col0 = (lane % L::LPR) * L::V;
+  if constexpr (std::is_same_v<X, f32_bf16>) {
+    static_assert(L::V % 4 == 0, "a lane's columns come in float4s");
 #pragma unroll
-  for (int s = 0; s < S; ++s)
+    for (int s = 0; s < S; ++s)
 #pragma unroll
-    for (int c = 0; c < L::C; ++c)
+      for (int c = 0; c < L::C; ++c)
 #pragma unroll
-      for (int v = 0; v < L::V; ++v)
-        xc[s][c * L::V + v] = to_acc(src[s * stride + c * L::TILE + col0 + v]);
+        for (int v = 0; v < L::V; v += 4) {
+          const float4 q = *reinterpret_cast<const float4*>(
+              &src[s * stride + c * L::TILE + col0 + v].v);
+          const int j = c * L::V + v;
+          to_acc2(q.x, q.y, xc[s][j], xc[s][j + 1]);
+          to_acc2(q.z, q.w, xc[s][j + 2], xc[s][j + 3]);
+        }
+  } else {
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int c = 0; c < L::C; ++c)
+#pragma unroll
+        for (int v = 0; v < L::V; ++v)
+          xc[s][c * L::V + v] = to_acc(src[s * stride + c * L::TILE + col0 + v]);
+  }
 }
 
 // dst[s * stride + the lane's columns] = cacc, by the lanes of row position 0
@@ -374,14 +412,33 @@ struct Partials {
   __device__ int row(int t) const { return t >= nb ? C * H + t - nb : (t / G) * H + t % G; }
 };
 
+// Where a pass finds its lanes. Lanes<false>: x (K, S, Mx) and y (K, S, M),
+// the parent's layout, nothing more. Lanes<true> (the int8 matvec form
+// over the caller's lanes): x and y f32 (S, K, M), lane s K + k of cohort
+// k; with gamw and gam2 (S K values, or null) the pass stores gamw y +
+// gam2 x, x unrounded.
+template <bool LANES> struct Lanes {};
+template <> struct Lanes<true> {
+  const float* x;
+  const float* gamw;
+  const float* gam2;
+};
+
+// gamw y + gam2 x as torch computes gamw[:, None] * y + gam2[:, None] * x:
+// two products and their sum, each rounded to nearest (no FMA)
+__device__ __forceinline__ float shifted(const Lanes<true>& io, int lane, float y, float x) {
+  return __fadd_rn(__fmul_rn(io.gamw[lane], y), __fmul_rn(io.gam2[lane], x));
+}
+
 // The second launch of a streamed pass: CTA (f, k) takes scratch row f of
 // cohort k. A row of a run, t = c G + o: y_t += the partials of d = o + 1 ..
 // min(hb, t) in that order. A carry row nb + j: carry_j = the partials of
-// d = j + 1 .. hb in that order.
-template <typename A>
+// d = j + 1 .. hb in that order. LANES (float, the matvec form): y in the
+// caller's lanes, and the shift after the adds.
+template <typename A, bool LANES = false>
 __global__ void __launch_bounds__(128)
 fold_partials_kernel(const A* __restrict__ part, A* __restrict__ y, A* __restrict__ carry,
-                     int nb, int hb, int G, int B, int S) {
+                     int nb, int hb, int G, int B, int S, const Lanes<LANES> io) {
   const Partials pp(nb, hb, G, carry != nullptr);
   const int f = blockIdx.x;
   const int k = blockIdx.y;
@@ -392,8 +449,13 @@ fold_partials_kernel(const A* __restrict__ part, A* __restrict__ y, A* __restric
     t = (f / pp.H) * G + f % pp.H;
     if (t >= nb) return;
     dlo = f % pp.H + 1;
-    ostride = static_cast<size_t>(nb) * B;
-    out = y + static_cast<size_t>(k) * S * ostride + static_cast<size_t>(t) * B;
+    if constexpr (LANES) {
+      ostride = static_cast<size_t>(gridDim.y) * nb * B;
+      out = y + (static_cast<size_t>(k) * nb + t) * B;
+    } else {
+      ostride = static_cast<size_t>(nb) * B;
+      out = y + static_cast<size_t>(k) * S * ostride + static_cast<size_t>(t) * B;
+    }
   } else {
     const int j = f - pp.C * pp.H;
     t = nb + j;
@@ -409,6 +471,9 @@ fold_partials_kernel(const A* __restrict__ part, A* __restrict__ y, A* __restric
     const A* src = part + ((static_cast<size_t>(k) * S + s) * pp.F + f) * hb * B + c;
     A v = add ? out[s * ostride + c] : A(0);
     for (int d = dlo; d <= dhi; ++d) v += src[static_cast<size_t>(d - 1) * B];
+    if constexpr (LANES) {
+      if (io.gamw) v = shifted(io, s * gridDim.y + k, v, io.x[(out - y) + s * ostride + c]);
+    }
     out[s * ostride + c] = v;
   }
 }
@@ -424,6 +489,7 @@ struct Args {
   void* carry = nullptr;     // the spill form's second output (the streamed kernels)
   void* partials = nullptr;  // the streamed kernels' scratch (Partials)
   int D = 0;                 // diagonals a tile (the streamed kernels' launch_tiles)
+  Lanes<true> lanes{};       // the int8 matvec form over the caller's lanes
 };
 
 template <template <typename, int, int> class Launch, typename T, int B>
@@ -479,14 +545,16 @@ int reserve_shared(Kernel kernel, size_t smem) {
 // stream: fold_partials over the scratch of runs of a.G block rows. 0 or the
 // first error (the kernel's launch included); nothing to do when hb = 0 (no
 // mirror terms; the spill form's carry is then the caller's zeros).
-template <typename A>
+template <typename A, bool LANES = false>
 int launch_fold(const Args& a, int B, int S) {
   if (const int err = static_cast<int>(cudaGetLastError())) return err;
   if (a.hb == 0) return 0;
   const Partials pp(a.nb, a.hb, a.G, a.carry != nullptr);
-  fold_partials_kernel<A><<<dim3(pp.F, a.K), 128, 0, a.stream>>>(
+  Lanes<LANES> io{};
+  if constexpr (LANES) io = a.lanes;
+  fold_partials_kernel<A, LANES><<<dim3(pp.F, a.K), 128, 0, a.stream>>>(
       static_cast<const A*>(a.partials), static_cast<A*>(a.y), static_cast<A*>(a.carry), a.nb,
-      a.hb, a.G, B, S);
+      a.hb, a.G, B, S, io);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -614,11 +682,11 @@ struct FoldShape {
 // attribute cudaLaunchAttributeProgrammaticStreamSerialization): its CTAs
 // may start on the SMs the kernel's last CTAs leave, and wait
 // (griddepcontrol.wait) until the kernel's grid has finished and its writes
-// are visible.
-template <typename A, int B, int S>
+// are visible. LANES (float): y in the caller's lanes, and the shift.
+template <typename A, int B, int S, bool LANES = false>
 __global__ void __launch_bounds__(FoldShape<A, B, S>::THREADS)
 fold_tiles_kernel(const A* __restrict__ part, A* __restrict__ y, int nb, int hb, int G, int D,
-                  int J) {
+                  int J, const Lanes<LANES> io) {
   using W = Vec16<A>;
   using V = typename W::type;
   constexpr int NV = FoldShape<A, B, S>::NV;
@@ -660,23 +728,36 @@ fold_tiles_kernel(const A* __restrict__ part, A* __restrict__ y, int nb, int hb,
   if (g == 0) {
     V tot = sums[0][v];
     for (int h = 1; h < P; ++h) W::add(tot, sums[h][v]);
-    *reinterpret_cast<V*>(y + (static_cast<size_t>(k) * S + s) * nb * B +
-                          static_cast<size_t>(t) * B + (v % BV) * W::N) = tot;
+    if constexpr (LANES) {
+      const int lane = s * gridDim.y + k;
+      const size_t at = (static_cast<size_t>(lane) * nb + t) * B + (v % BV) * W::N;
+      if (io.gamw) {
+        const float4 xv = *reinterpret_cast<const float4*>(io.x + at);
+        tot.x = shifted(io, lane, tot.x, xv.x);
+        tot.y = shifted(io, lane, tot.y, xv.y);
+        tot.z = shifted(io, lane, tot.z, xv.z);
+        tot.w = shifted(io, lane, tot.w, xv.w);
+      }
+      *reinterpret_cast<V*>(y + at) = tot;
+    } else {
+      *reinterpret_cast<V*>(y + (static_cast<size_t>(k) * S + s) * nb * B +
+                            static_cast<size_t>(t) * B + (v % BV) * W::N) = tot;
+    }
   }
 }
 
 // A pass of a streamed kernel over tiles of a.G block rows and D
 // diagonals: `untiled` where one range holds every diagonal (J = 1), else
 // `tiled`, over the tiles that hold data x K CTAs of a.G warps with `smem`
-// bytes of dynamic shared memory, given the kernel's inputs `in...`, then
-// y, the scratch, nb, hb, G, spill and the Tiles; then the second launch on
-// the same stream: fold_partials with one range, else fold_tiles as the
-// kernel's programmatic dependent. The spill form takes one range. 0 or the
+// bytes of dynamic shared memory, launched by go(kernel, grid, spill, tiles)
+// on a.stream; then the second launch on the same stream: fold_partials with
+// one range, else fold_tiles as the kernel's programmatic dependent, both
+// over the lanes that LANES says. The spill form takes one range. 0 or the
 // first error (cudaGetLastError() after each launch); -1 for a D the pass
 // cannot take; cudaErrorMisalignedAddress (716) with nothing launched when
 // upper does not start on a 16-byte boundary (the walkers read 16 bytes).
-template <typename A, int B, int S, typename Kernel, typename... In>
-int launch_tiles(Kernel untiled, Kernel tiled, const Args& a, int D, size_t smem, In... in) {
+template <typename A, int B, int S, bool LANES, typename Kernel, typename Go>
+int launch_tiles_by(Kernel untiled, Kernel tiled, const Args& a, int D, size_t smem, Go go) {
   const bool spill = a.carry != nullptr;
   if (D < 1 || D > a.hb + 1 || (a.hb + D) / D > kMaxRanges || (spill && D != a.hb + 1))
     return -1;
@@ -685,9 +766,8 @@ int launch_tiles(Kernel untiled, Kernel tiled, const Args& a, int D, size_t smem
   const Tiles tl = tiles_of(a.nb, spill ? a.nb + a.hb : a.nb, a.hb, a.G, D);
   Kernel kernel = tl.J > 1 ? tiled : untiled;
   if (const int err = reserve_shared(kernel, smem)) return err;
-  kernel<<<dim3(tl.start[tl.J], a.K), 32 * a.G, smem, a.stream>>>(
-      in..., static_cast<A*>(a.y), static_cast<A*>(a.partials), a.nb, a.hb, a.G, spill, tl);
-  if (tl.J == 1) return launch_fold<A>(a, B, S);
+  go(kernel, dim3(tl.start[tl.J], a.K), spill, tl);
+  if (tl.J == 1) return launch_fold<A, LANES>(a, B, S);
   if (const int err = static_cast<int>(cudaGetLastError())) return err;
   cudaLaunchAttribute pdl[1];
   pdl[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
@@ -698,9 +778,23 @@ int launch_tiles(Kernel untiled, Kernel tiled, const Args& a, int D, size_t smem
   cfg.stream = a.stream;
   cfg.attrs = pdl;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, fold_tiles_kernel<A, B, S>,
+  Lanes<LANES> io{};
+  if constexpr (LANES) io = a.lanes;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, fold_tiles_kernel<A, B, S, LANES>,
                                              static_cast<const A*>(a.partials),
-                                             static_cast<A*>(a.y), a.nb, a.hb, a.G, D, tl.J));
+                                             static_cast<A*>(a.y), a.nb, a.hb, a.G, D, tl.J, io));
+}
+
+// launch_tiles_by for a kernel that takes its inputs `in...`, then y, the
+// scratch, nb, hb, G, spill and the Tiles, over the parent's lanes.
+template <typename A, int B, int S, typename Kernel, typename... In>
+int launch_tiles(Kernel untiled, Kernel tiled, const Args& a, int D, size_t smem, In... in) {
+  return launch_tiles_by<A, B, S, false>(
+      untiled, tiled, a, D, smem, [&](Kernel kernel, dim3 grid, bool spill, const Tiles& tl) {
+        kernel<<<grid, 32 * a.G, smem, a.stream>>>(in..., static_cast<A*>(a.y),
+                                                   static_cast<A*>(a.partials), a.nb, a.hb,
+                                                   a.G, spill, tl);
+      });
 }
 
 // Launches `kernel` with G warps a CTA over (ceil(nb / G), K) CTAs and

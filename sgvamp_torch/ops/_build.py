@@ -30,6 +30,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _QUANT = [_P] * 4 + [_I] * 5 + [_P]
 _QUANT_TILES = [_P] * 5 + [_I] * 7 + [_P]
+_QUANT_LANES = [_P] * 7 + [_I] * 7 + [_P]
 _ROWS = [_P] * 3 + [_I] * 7 + [_P]
 _STREAMED = [_P] * 4 + [_I] * 7 + [_P]
 _STREAMED_TILES = [_P] * 4 + [_I] * 8 + [_P]
@@ -44,12 +45,15 @@ def _spill(argtypes: list, n_in: int) -> list:
 # last) as c_void_p, or ctypes passes them as 32-bit ints
 ENTRY_POINTS = {
     # upper, scales, x, y, [carry,] partials, K, nb, hb, B, S, block rows and
-    # diagonals a CTA, stream
+    # diagonals a CTA, stream; the lanes form: upper, scales, x, y, partials,
+    # gamw, gam2, then the same
     "sym_band_int8": {"sgv_sym_band_int8_matvec": _QUANT_TILES,
-                      "sgv_sym_band_int8_spill": _spill(_QUANT_TILES, 3)},
+                      "sgv_sym_band_int8_spill": _spill(_QUANT_TILES, 3),
+                      "sgv_sym_band_int8_lanes": _QUANT_LANES},
     # the same, and (count out, reset): the block bytes its warps copied
     "sym_band_int8_counted": {"sgv_sym_band_int8_matvec": _QUANT_TILES,
                               "sgv_sym_band_int8_spill": _spill(_QUANT_TILES, 3),
+                              "sgv_sym_band_int8_lanes": _QUANT_LANES,
                               "sgv_sym_band_int8_block_bytes": [_P, _I]},
     # upper, scales, x, y, [carry,] K, nb, hb, B, S, stream
     "sym_band_int4": {"sgv_sym_band_int4_matvec": _QUANT,

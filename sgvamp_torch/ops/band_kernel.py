@@ -44,6 +44,7 @@ sgvamp_tpu/ops/band_kernel.py; see the sources' headers for their design.
 
   wrapper                     source                      replaces
   sym_band_matvec_int8        csrc/sym_band_int8.cu       _sym_band_kernel_streamed, int8
+  sym_band_matvec_int8_lanes  csrc/sym_band_int8.cu       same, over the caller's f32 lanes
   sym_band_matvec             csrc/sym_band_float.cu      same, float blocks
   sym_band_matvec_int4        csrc/sym_band_int4.cu       same, packed4
   sym_band_matvec_hybrid      csrc/sym_band_hybrid.cu     same, hybrid
@@ -84,7 +85,7 @@ import torch
 from torch import Tensor
 
 from sgvamp_torch import native, resolve_device
-from sgvamp_torch.utils.profiling import span
+from sgvamp_torch.utils.profiling import count, span
 
 logger = logging.getLogger("sgvamp")
 _FLOAT_CODES = {torch.bfloat16: 0, torch.float32: 1, torch.float64: 2}
@@ -163,6 +164,21 @@ def sym_band_matvec_int8_ref(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor
     scaled, as in the kernel.
     """
     return _int8_ref(upper, scales, x, spill=False)
+
+
+def sym_band_matvec_int8_lanes_ref(upper: Tensor, scales: Tensor, x: Tensor,
+                                   gamw: Optional[Tensor] = None,
+                                   gam2: Optional[Tensor] = None) -> Tensor:
+    """Plain PyTorch version of the int8 kernel's lanes form. x (S*K, nb*B)
+    f32, lane s*K + k on cohort k; gamw, gam2 (S*K,) f32, both or neither.
+    sym_band_matvec_int8_ref over x's bf16 copy in (K, S, nb*B), y back in
+    x's layout, and with gamw and gam2 gamw[:, None] * y + gam2[:, None] * x
+    (x unrounded)."""
+    K, M = upper.shape[0], x.shape[1]
+    S = x.shape[0] // K
+    xs = x.reshape(S, K, M).transpose(0, 1).to(torch.bfloat16).contiguous()
+    y = sym_band_matvec_int8_ref(upper, scales, xs).transpose(0, 1).reshape(x.shape)
+    return y if gamw is None else gamw[:, None] * y + gam2[:, None] * x
 
 
 def sym_band_matvec_int8_spill_ref(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
@@ -426,19 +442,22 @@ def _check_quantized(upper: Tensor, scales: Tensor, x: Tensor,
 
 def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
             out_dtype: torch.dtype, spill_hb: Optional[int] = None,
-            partials: Optional[tuple] = None):
+            partials: Optional[tuple] = None, shift: Optional[tuple] = None):
     """Run one band kernel's pass on x's CUDA device and count it on
     `wrapper`. tensors: the device arrays before y in the C signature;
-    dims: the ints after the outputs. spill_hb None: the library's
-    `matvec` entry, returns y shaped as x. spill_hb = hb: its `spill`
-    entry over a halo-extended x, returns (y_l, carry). partials: the shape
-    of the streamed kernels' scratch (_partials_shape), allocated here in
-    y's type and passed after the outputs."""
+    dims: the ints after the outputs, S (lanes a cohort) the fifth. spill_hb
+    None: the library's `matvec` entry, returns y shaped as x. spill_hb =
+    hb: its `spill` entry over a halo-extended x, returns (y_l, carry).
+    shift: the int8 library's `lanes` entry instead, over x in the caller's
+    (S*K, M) layout, returns y shaped as x; the pair (gamw, gam2), tensors
+    or both None, is passed after the scratch. partials: the shape of the
+    streamed kernels' scratch (_partials_shape), allocated here in y's type
+    and passed after the outputs."""
     if x.device.type != "cuda":
         raise ValueError(f"no band kernel for device {x.device}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("upper, scales and x must be contiguous")
-    K, S, Mx = x.shape
+    S = dims[4]
     if B not in (64, 128, 256) or not 1 <= S <= 4:
         raise ValueError(f"the band kernels take B in (64, 128, 256) and "
                          f"S in 1..4, got B={B}, S={S}")
@@ -446,10 +465,11 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
 
     stem = VARIANTS.get(library, (library,))[0]   # the source's entry names
     if spill_hb is None:
-        entry = f"sgv_{stem}_matvec"
+        entry = f"sgv_{stem}_{'matvec' if shift is None else 'lanes'}"
         outs = (torch.empty(x.shape, dtype=out_dtype, device=x.device),)
     else:
         entry = f"sgv_{stem}_spill"
+        K, _, Mx = x.shape
         y = torch.empty((K, S, Mx - spill_hb * B), dtype=out_dtype, device=x.device)
         # the kernel writes all of the carry, except that hb = 0 has none
         carry = (torch.empty((K, S, spill_hb * B), dtype=out_dtype, device=x.device)
@@ -457,35 +477,62 @@ def _launch(wrapper, library: str, x: Tensor, tensors, dims, B: int,
         outs = (y, carry)
     if partials is not None:
         outs += (torch.empty(partials, dtype=out_dtype, device=x.device),)
+    after = [] if shift is None else [None if v is None else v.data_ptr() for v in shift]
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = getattr(load_library(library), entry)(
-            *[t.data_ptr() for t in tensors], *[o.data_ptr() for o in outs], *dims, stream)
+            *[t.data_ptr() for t in tensors], *[o.data_ptr() for o in outs], *after, *dims,
+            stream)
     if err != 0:
         raise RuntimeError(f"{entry}: kernel launch failed (error {err})")
     wrapper.launches += 1
     return outs[0] if spill_hb is None else outs[:2]
 
 
-def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool):
+def _int8(wrapper, plain, upper: Tensor, scales: Tensor, x: Tensor, spill: bool,
+          lanes: Optional[tuple] = None):
     """The int8 wrappers' body: `plain` on CPU tensors, else the kernel (a
     pass of the read-once kernel over tiles of G block rows and D diagonals,
     and its fold of the partial sums, counted once), counted on `wrapper`.
     The matvec form takes the tiles of _int8_tiles, the spill form runs of
-    _int8_runs with every diagonal (D = hb + 1)."""
+    _int8_runs with every diagonal (D = hb + 1). lanes: the pair (gamw,
+    gam2), tensors or both None, for the lanes form over x (S*K, nb*B) f32
+    in the caller's layout, with the matvec form's tiles."""
     _check_quantized(upper, scales, x, lambda u: u.shape[-1] == u.shape[-2],
                      lambda u: tuple(u.shape[:3]), "(K, nb, hb+1, B, B)")
     K, nb, nslot, B, _ = upper.shape
     hb = nslot - 1
-    x = _check_x(x, K, nb, hb, B, torch.bfloat16, spill)
+    if lanes is None:
+        x = _check_x(x, K, nb, hb, B, torch.bfloat16, spill)
+        S = x.shape[1]
+    else:
+        S = _check_lanes(x, K, nb * B, *lanes)
     if x.device.type == "cpu":
-        return plain(upper, scales, x)
-    S = x.shape[1]
+        return plain(upper, scales, x, *(lanes or ()))
+    if lanes is not None:
+        lanes = tuple(v if v is None else v.contiguous() for v in lanes)
+        x = x.contiguous()
+        if x.data_ptr() % 16:   # the kernel and its folds read x 16 bytes at a time
+            x = x.clone()
     sms = _sm_count(x.device)
     G, D = (_int8_runs(nb, sms), hb + 1) if spill else _int8_tiles(nb, hb, sms)
     return _launch(wrapper, _int8_library, x, (upper, scales, x),
                    (K, nb, hb, B, S, G, D), B, torch.float32, hb if spill else None,
-                   partials=_partials_shape(K, S, nb, hb, G, B, spill, D))
+                   partials=_partials_shape(K, S, nb, hb, G, B, spill, D), shift=lanes)
+
+
+def _check_lanes(x: Tensor, K: int, M: int, gamw: Optional[Tensor],
+                 gam2: Optional[Tensor]) -> int:
+    """S, after checking the lanes form's x (S*K, M) f32 and its shift."""
+    if x.dtype != torch.float32 or x.dim() != 2 or x.shape[0] % K or x.shape[1] != M:
+        raise ValueError(f"x must be (S*{K}, {M}) float32")
+    n = x.shape[0]
+    if (gamw is None) != (gam2 is None) or any(
+            v.dtype != torch.float32 or tuple(v.shape) != (n,) or v.device != x.device
+            for v in (gamw, gam2) if v is not None):
+        raise ValueError(f"gamw and gam2 must both be ({n},) float32 on x's device, "
+                         "or both None")
+    return n // K
 
 
 # the library the int8 wrappers launch: its build that counts block bytes
@@ -524,6 +571,22 @@ def sym_band_matvec_int8(upper: Tensor, scales: Tensor, x: Tensor) -> Tensor:
     launches.
     """
     return _int8(sym_band_matvec_int8, sym_band_matvec_int8_ref, upper, scales, x, False)
+
+
+def sym_band_matvec_int8_lanes(upper: Tensor, scales: Tensor, x: Tensor,
+                               gamw: Optional[Tensor] = None,
+                               gam2: Optional[Tensor] = None) -> Tensor:
+    """R x over the caller's lanes, and with gamw and gam2 A x = gamw[:, None]
+    * R x + gam2[:, None] * x; arguments as for sym_band_matvec_int8_lanes_ref,
+    whose bits it gives.
+
+    On the card it is one pass of the int8 kernel's lanes form: the kernel
+    reads x where it lies, rounds it to bf16 as it loads it, writes y in x's
+    layout and applies the shift where each row's sum is final. CPU tensors
+    go through the plain version. Counted on `sym_band_matvec_int8.launches`.
+    """
+    return _int8(sym_band_matvec_int8, sym_band_matvec_int8_lanes_ref, upper, scales, x,
+                 False, (gamw, gam2))
 
 
 def sym_band_matvec_int8_spill(upper: Tensor, scales: Tensor, x: Tensor) -> tuple:
@@ -1185,7 +1248,35 @@ class SymBandedLD:
                                               self.upper.element_size())
 
     def matvec(self, x: Tensor) -> Tensor:
+        return self._pass(x)
+
+    def shifted_matvec(self, x: Tensor, gamw: Tensor, gam2: Tensor) -> Tensor:
+        """gamw[:, None] * self.matvec(x) + gam2[:, None] * x, bit for bit: A's
+        product in CG (core/vamp.py::_amatvec); gamw, gam2 (S*K,)."""
+        return self._pass(x, gamw, gam2)
+
+    def _pass(self, x: Tensor, gamw: Optional[Tensor] = None,
+              gam2: Optional[Tensor] = None) -> Tensor:
+        """One LD pass over x (S*K, M), shifted by gamw and gam2 when given.
+
+        An unsharded operator routes through band_kernel_of, which refuses
+        what the operator cannot run. Where that gives the int8 kernel, on
+        the card, with s = 0, over f32 lanes, the pass takes the kernel's
+        lanes form (counter `ld_passes.in_place`): the lane copies, the bf16
+        cast and the shift happen inside the pass. Every other pass
+        (`ld_passes.copied`) casts and transposes x to (K, S, M), runs the
+        kernel or its plain version, transposes y back and adds s and the
+        shift as tensor ops. The two give the same bits.
+        """
         S = x.shape[0] // self.K
+        if self.mesh is None:
+            kernel, _, args, _ = band_kernel_of(self, S)
+            if (kernel is sym_band_matvec_int8 and self.s == 0.0 and x.is_cuda
+                    and all(t.dtype == torch.float32 for t in (x, gamw, gam2)
+                            if t is not None)):
+                count("ld_passes.in_place")
+                return sym_band_matvec_int8_lanes(*args, x, gamw, gam2)
+        count("ld_passes.copied")
         # (K, S, M) lanes in bf16 for the quantized storages, in the block
         # dtype for float blocks; the caller's x stays unrounded for the
         # regularization term below.
@@ -1194,12 +1285,11 @@ class SymBandedLD:
         if self.mesh is not None:
             y = self._matvec_sharded(xs)
         else:
-            kernel, _, args, _ = band_kernel_of(self, S)
             y = kernel(*args, xs.contiguous())
         y = y.transpose(0, 1).reshape(x.shape).to(x.dtype)
         if self.s != 0.0:
             y = (1.0 - self.s) * y + self.s * x
-        return y
+        return y if gamw is None else gamw[:, None] * y + gam2[:, None] * x
 
     def _matvec_sharded(self, xs: Tensor) -> Tensor:
         """y (K, S, M) from xs (K, S, M) over the mesh's pieces.

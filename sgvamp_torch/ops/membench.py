@@ -140,9 +140,14 @@ def measure_read_gbps(u: Tensor, n: int = 32, reps: int = 4):
     """Measured device-memory read rate over u's probed bytes.
 
     Times chains of n and 2n passes with CUDA events, the minimum of
-    `reps` runs each, and differences them. Needs a CUDA tensor: there is
-    no CPU number to give. Returns (GB/s, seconds per pass).
+    `reps` runs each, and differences them. Each timed chain waits behind a
+    device sleep of twice its enqueue time (utils/kernel_bench.py::_once),
+    so that the events time the card's reads back to back, not the host's
+    launches (at a few MB a pass those are the slower). Needs a CUDA tensor:
+    there is no CPU number to give. Returns (GB/s, seconds per pass).
     """
+    from sgvamp_torch.utils.kernel_bench import _enqueue_s, _once
+
     flat = _prep(u)
     _check_cuda(flat)
     nbytes = flat.numel() * flat.element_size()
@@ -157,17 +162,10 @@ def measure_read_gbps(u: Tensor, n: int = 32, reps: int = 4):
         return part
 
     def timed(k):
-        chain(k)  # warm-up (and Triton's compile on the first call)
-        best = float("inf")
-        for _ in range(reps):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            chain(k)
-            end.record()
-            end.synchronize()
-            best = min(best, start.elapsed_time(end) / 1e3)
-        return best
+        # _enqueue_s runs the chain twice: the warm-up (and Triton's compile
+        # on the first call), then the enqueue it times
+        sleep_s = _enqueue_s(lambda: chain(k), flat.device)
+        return min(_once(lambda: chain(k), flat.device, sleep_s) for _ in range(reps))
 
     t_n, t_2n = timed(n), timed(2 * n)
     per_pass = max((t_2n - t_n) / n, 1e-12)

@@ -36,8 +36,8 @@ import torch
 from torch import Tensor
 
 from sgvamp_torch import default_device
-from sgvamp_torch.core.operators import (BandedLD, BlockSparseLD, DenseLD, _regularize,
-                                         _regularize_diag, default_diag_block)
+from sgvamp_torch.core.operators import (BandedLD, BlockSparseLD, DenseLD, LDOperator,
+                                         _regularize, _regularize_diag, default_diag_block)
 from sgvamp_torch.ops.band_kernel import SymBandedLD
 
 COHORT_AXIS = "cohort"
@@ -134,7 +134,7 @@ def _cut(t: Tensor, c: int, j: int, n_c: int, n: int, device, axis: int = 1) -> 
 
 
 @dataclasses.dataclass(frozen=True)
-class MeshLD:
+class MeshLD(LDOperator):
     """An LD operator cut over a mesh, for every case but a SymBandedLD's
     shard axis (which SymBandedLD._matvec_sharded runs itself).
 

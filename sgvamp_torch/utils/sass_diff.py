@@ -4,10 +4,10 @@
 
 Reads each build's SASS with the CUDA toolkit's cuobjdump, keeps each
 kernel's instructions without their addresses and encodings, and compares
-the two builds kernel by kernel under the demangled name. A trailing
-`false` template argument is dropped from the name, so that a kernel that
-gained a flag which is off (the streamed kernels' TILED) is held against
-its instance from before. Prints how many kernels are the same, how many
+the two builds kernel by kernel under the demangled name. Trailing `false`
+template arguments are dropped from the name, so that a kernel that gained
+flags which are off (the streamed kernels' TILED, the int8 kernel's and
+the folds' LANES) is held against its instance from before. Prints how many kernels are the same, how many
 differ, and how many are in one build only, then the names of those that
 differ. Needs the CUDA toolkit (cuobjdump and cu++filt under torch's
 CUDA_HOME or on PATH); run it where the libraries were built
@@ -56,7 +56,9 @@ def kernels(lib: str) -> dict:
     for mangled, demangled in zip(names, plain):
         m = re.match(r"(?:void )?(.*?>)\(", demangled)
         key = re.sub(r"\(anonymous namespace\)::|<unnamed>::|sgv::", "", m[1] if m else demangled)
-        key = re.sub(r", \(bool\)0>$|, false>$", ">", key).replace("(bool)1", "true")
+        while (plain := re.sub(r", \(bool\)0>$|, false>$", ">", key)) != key:
+            key = plain
+        key = key.replace("(bool)1", "true")
         body = code[mangled]
         res[key] = (len(body), hashlib.md5("\n".join(body).encode()).hexdigest()[:12])
     return res

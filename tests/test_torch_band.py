@@ -90,6 +90,87 @@ def test_cpu_wrapper_takes_the_plain_version():
         sym_band_matvec_int8(op.upper, op.scales, x.float())
 
 
+@pytest.mark.parametrize("case", ["int8", "float32", "int8-s", "int8-mesh", "int8-lanes",
+                                  "banded"])
+def test_shifted_matvec_is_the_shift_over_matvec_bit_for_bit(case):
+    """SymBandedLD.shifted_matvec(x, gamw, gam2) is gamw[:, None] *
+    matvec(x) + gam2[:, None] * x bit for bit, and core/vamp.py's A product
+    takes it. On the CPU every pass takes the copied route, and the counters
+    say so; the lanes wrapper on the CPU is its plain version, that same
+    expression. Every other operator has shifted_matvec from LDOperator."""
+    from types import SimpleNamespace
+
+    from sgvamp_torch.core.operators import BandedLD, LDOperator
+    from sgvamp_torch.core.vamp import VampInputs, _amatvec
+    from sgvamp_torch.ops.band_kernel import (sym_band_matvec_int8_lanes,
+                                              sym_band_matvec_int8_lanes_ref)
+    from sgvamp_torch.parallel import sharding
+    from sgvamp_torch.utils import profiling
+
+    K = 2
+    if case == "banded":
+        op = BandedLD.from_band(_band(512, 100, seed=5), block_size=64, K=K, device="cpu")
+        assert isinstance(op, LDOperator)
+    else:
+        op = SymBandedLD.from_band(_band(512, 100, seed=5), block_size=64, K=K,
+                                   dtype="float32" if case == "float32" else "int8",
+                                   s=0.1 if case == "int8-s" else 0.0, device="cpu")
+    if case == "int8-mesh":
+        inputs = VampInputs(op=op, r=torch.zeros(K, op.M), a=torch.full((K,), 0.5),
+                            N=torch.full((K,), 1e4))
+        op = sharding.shard_inputs(inputs, sharding.make_mesh(
+            1, 2, devices=[torch.device("cpu")] * 2)).op
+        assert op.mesh is not None
+    g = torch.Generator().manual_seed(len(case))
+    x = torch.randn(2 * K, op.M, generator=g)
+    gamw, gam2 = torch.rand(2 * K, generator=g) + 0.5, 40 * torch.rand(2 * K, generator=g)
+    plain = op.matvec(x)
+    want = gamw[:, None] * plain + gam2[:, None] * x
+    profiling.reset()
+    if case == "int8-lanes":   # the wrapper alone: no pass of the router
+        assert torch.equal(sym_band_matvec_int8_lanes(op.upper, op.scales, x, gamw, gam2), want)
+        assert torch.equal(sym_band_matvec_int8_lanes(op.upper, op.scales, x), plain)
+        assert torch.equal(sym_band_matvec_int8_lanes_ref(op.upper, op.scales, x, gamw, gam2),
+                           want)
+        assert profiling.snapshot()["counts"] == {}
+        return
+    assert torch.equal(op.shifted_matvec(x, gamw, gam2), want)
+    amat = _amatvec(SimpleNamespace(op=op), SimpleNamespace(gamw2=gamw, gam22=gam2))
+    assert torch.equal(amat(x), want)
+    counts = profiling.snapshot()["counts"]
+    assert counts.get("ld_passes.in_place", 0) == 0
+    assert counts.get("ld_passes.copied", 0) == (0 if case == "banded" else 2)
+
+
+@pytest.mark.parametrize("how", ["resident", "rows_per_step"])
+def test_int8_operator_refusals_hold_for_shifted_matvec(how):
+    """shifted_matvec refuses what matvec refuses (band_kernel_of's checks):
+    an int8 operator has no resident kernel, and its rows_per_step must
+    divide nb and reach hb. The card's test holds the same on the card."""
+    op = SymBandedLD.from_band(_band(512, 100, seed=5), block_size=64, dtype="int8",
+                               device="cpu")
+    op = (dataclasses.replace(op, mode="resident") if how == "resident"
+          else dataclasses.replace(op, rows_per_step=3))
+    x, v = torch.zeros(2, op.M), torch.ones(2)
+    for call in (lambda: op.matvec(x), lambda: op.shifted_matvec(x, v, v)):
+        with pytest.raises(ValueError, match="resident" if how == "resident" else "divide"):
+            call()
+
+
+def test_lanes_wrapper_refuses_bad_input():
+    from sgvamp_torch.ops.band_kernel import sym_band_matvec_int8_lanes
+
+    op = SymBandedLD.from_band(_band(300, 100, seed=3), block_size=64, dtype="int8",
+                               device="cpu")
+    x, v = torch.zeros(2, op.M), torch.ones(2)
+    for args in [(x.double(),), (x[:, :-64],), (x[None],), (x, v), (x, v, v[:1]),
+                 (x, v, v.double())]:
+        with pytest.raises(ValueError):
+            sym_band_matvec_int8_lanes(op.upper, op.scales, *args)
+    with pytest.raises(ValueError, match="int8"):
+        sym_band_matvec_int8_lanes(op.upper.float(), op.scales, x)
+
+
 def test_unported_flavors_raise():
     band = _band(300, 100, seed=3)
     # the sharded matvec is ported: a mesh is pinned by shard_inputs, with the

@@ -24,6 +24,8 @@ from sgvamp_torch.ops.band_kernel import (BAND_KERNELS, SymBandedLD, band_kernel
                                           sym_band_matvec_hybrid,
                                           sym_band_matvec_int4,
                                           sym_band_matvec_int8,
+                                          sym_band_matvec_int8_lanes,
+                                          sym_band_matvec_int8_lanes_ref,
                                           sym_band_matvec_int8_ref,
                                           sym_band_matvec_int8_spill,
                                           sym_band_matvec_int8_spill_ref,
@@ -888,6 +890,157 @@ def test_int8_whole_triangle_reads_every_block_once(cuda, force_int8_tiles, tile
     assert torch.equal(got[0], sym_band_matvec_int8(upper, scales, x))
 
 
+# The int8 kernel's lanes form (sym_band_matvec_int8_lanes, the route of
+# SymBandedLD.matvec and shifted_matvec on the card): x f32 in the caller's
+# (S, K, M) lanes, rounded to bf16 as the kernel loads it, y in the same
+# layout, and A's shift gamw y + gam2 x where each row's sum becomes final
+# (the kernel, fold_partials, or fold_tiles when the band is cut into J > 1
+# ranges). Held bit for bit against the copied route over the same kernel
+# (x cast and transposed to (K, S, M), y transposed back, the shift as torch
+# ops), with x holding ties halfway between two bf16 values, subnormals,
+# +-Inf and a NaN; a NaN must stay one.
+
+
+def _copied_route(upper, scales, x, gamw=None, gam2=None):
+    """The parent's expression: the kernel over x's bf16 copy in (K, S, M)."""
+    K, M = upper.shape[0], x.shape[1]
+    S = x.shape[0] // K
+    xs = x.reshape(S, K, M).transpose(0, 1).to(torch.bfloat16).contiguous()
+    y = sym_band_matvec_int8(upper, scales, xs).transpose(0, 1).reshape(x.shape)
+    return y if gamw is None else gamw[:, None] * y + gam2[:, None] * x
+
+
+def _same_bits(a, b):
+    """NaN where the other has NaN, every other value bit for bit (the sign
+    of a zero too)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        a.masked_fill(nan, 0).view(torch.int32), b.masked_fill(nan, 0).view(torch.int32))
+
+
+def _lanes_x(S, K, M, seed, device, finite=False):
+    """x (S*K, M) f32: normal values, a quarter of them moved to a tie
+    halfway between two bf16 values, a twentieth f32 subnormals, and unless
+    `finite` a NaN in lane 0 and +-Inf in the last lane."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(S * K, M)).astype(np.float32)
+    bits = x.view(np.uint32)
+    tie = rng.random(size=x.shape) < 0.25
+    bits[tie] = (bits[tie] & 0xFFFF0000) | 0x8000
+    sub = rng.random(size=x.shape) < 0.05
+    x[sub] = rng.choice(np.array([1e-40, -2.5e-39, 5.9e-39, -1e-45], np.float32), int(sub.sum()))
+    if not finite:
+        x[0, M // 3] = np.nan
+        x[-1, M // 2], x[-1, M // 2 + 7] = np.inf, -np.inf
+    return torch.from_numpy(x).to(device)
+
+
+def _lanes_pass(upper, scales, x, *vecs):
+    """One counted pass of the lanes form, held to the copied route."""
+    before = [w.launches for w in BAND_KERNELS]
+    got = sym_band_matvec_int8_lanes(upper, scales, x, *vecs)
+    torch.cuda.synchronize()
+    after = [w.launches for w in BAND_KERNELS]
+    assert sum(after) == sum(before) + 1   # the kernel and its fold, counted once
+    assert sym_band_matvec_int8.launches == before[BAND_KERNELS.index(sym_band_matvec_int8)] + 1
+    assert got.dtype == torch.float32 and got.shape == x.shape
+    assert _same_bits(got, _copied_route(upper, scales, x, *vecs))
+    return got
+
+
+@pytest.mark.parametrize("tiles", [(3, None), (5, None), (3, 2)], ids=_tiles_id)
+@pytest.mark.parametrize("hb", [0, 2, 5])
+@pytest.mark.parametrize("S", [1, 2, 4])
+@pytest.mark.parametrize("K", [1, 3])
+def test_int8_lanes_form_equals_the_copied_route_bit_for_bit(cuda, force_int8_tiles, K, S, hb,
+                                                             tiles):
+    """nb = 13 block rows, not a multiple of G: runs of 3 (H = min(hb, 3)
+    rows of each through fold_partials, the rest shifted in the kernel) and
+    5, every diagonal in one range, or ranges of 2 (J = 2 at hb = 2, 3 at
+    hb = 5: fold_tiles shifts every row); hb = 0 has no fold at all."""
+    force_int8_tiles(tiles)
+    B, nb = [64, 128, 256][(K + S + hb) % 3], 13
+    upper, scales = _int8_blocks(K, nb, hb, B, K + S + hb, cuda)
+    x = _lanes_x(S, K, nb * B, 10 * K + S + hb, cuda)
+    g = torch.Generator(cuda).manual_seed(hb + S)
+    gamw = torch.rand(S * K, generator=g, device=cuda) * 3 + 0.1
+    gam2 = torch.rand(S * K, generator=g, device=cuda) * 50
+    for vecs in ((), (gamw, gam2)):
+        got = _lanes_pass(upper, scales, x, *vecs)
+        assert torch.isnan(got[0]).any() and not torch.isnan(got[1:-1]).any()
+        assert _same_bits(got, sym_band_matvec_int8_lanes(upper, scales, x, *vecs))  # no atomics
+
+
+@pytest.mark.parametrize("K,nb", [(1, 4096), (8, 1024)], ids=["hm3half", "k8"])
+def test_int8_lanes_form_at_the_cells_shapes(cuda, K, nb):
+    """The wrapper's own tiles at B = 128, hb = 2 and 2K lanes: one cohort
+    over M = 524288 and eight over M = 131072; the plain matvec and A's
+    product, and x as a view 4 bytes off a 16-byte boundary (the wrapper
+    copies it)."""
+    upper, scales = _int8_blocks(K, nb, 2, 128, K + nb, cuda)
+    x = _lanes_x(2, K, nb * 128, K, cuda)
+    g = torch.Generator(cuda).manual_seed(K)
+    gamw, gam2 = torch.rand(2 * K, generator=g, device=cuda), torch.rand(2 * K, generator=g,
+                                                                          device=cuda)
+    _lanes_pass(upper, scales, x)
+    _lanes_pass(upper, scales, x, gamw, gam2)
+    off = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+    assert off.data_ptr() % 16
+    _lanes_pass(upper, scales, off, gamw, gam2)
+
+
+@pytest.mark.parametrize("tiles", [None, (3, None), (3, 2)], ids=_tiles_id)
+@pytest.mark.parametrize("hb", [2, 5])
+@pytest.mark.parametrize("S", [1, 2])
+@pytest.mark.parametrize("K", [1, 3])
+def test_int8_lanes_form_matches_its_plain_version(cuda, force_int8_tiles, K, S, hb, tiles):
+    """The lanes form against sym_band_matvec_int8_lanes_ref (the plain int8
+    version over x's bf16 copy, then the shift in torch) at SCALED_TOL of
+    max|plain|, with and without the shift, over finite x: the wrapper's own
+    tiles, and forced ones with J = 1 and J > 1."""
+    force_int8_tiles(tiles)
+    B, nb = [64, 128, 256][(K + S + hb) % 3], 13
+    upper, scales = _int8_blocks(K, nb, hb, B, 7 * K + S + hb, cuda)
+    x = _lanes_x(S, K, nb * B, K + 3 * S + hb, cuda, finite=True)
+    g = torch.Generator(cuda).manual_seed(hb + S)
+    gamw = torch.rand(S * K, generator=g, device=cuda) * 3 + 0.1
+    gam2 = torch.rand(S * K, generator=g, device=cuda) * 50
+    for vecs in ((), (gamw, gam2)):
+        got = sym_band_matvec_int8_lanes(upper, scales, x, *vecs)
+        want = sym_band_matvec_int8_lanes_ref(upper, scales, x, *vecs)
+        assert got.shape == want.shape and torch.isfinite(got).all()
+        err = float((got - want).abs().max() / want.abs().max())
+        assert err <= SCALED_TOL, (vecs != (), err)
+
+
+@pytest.mark.parametrize("method", ["matvec", "shifted_matvec"])
+@pytest.mark.parametrize("how", ["resident", "rows_per_step"])
+def test_int8_operator_refusals_hold_on_the_card(cuda, how, method):
+    """On the card as on the CPU, an int8 operator has no resident kernel
+    and its rows_per_step must divide nb and reach hb: matvec and
+    shifted_matvec raise before the lanes form is chosen."""
+    rng = np.random.default_rng(4)
+    band, _, _ = simulate_ld_band(10000, 1024, 200, rng=rng)
+    op = SymBandedLD.from_band(band, block_size=128, dtype="int8", device=cuda)
+    op = (dataclasses.replace(op, mode="resident") if how == "resident"
+          else dataclasses.replace(op, rows_per_step=3))
+    x, v = torch.zeros(2, op.M, device=cuda), torch.ones(2, device=cuda)
+    before = sym_band_matvec_int8.launches
+    with pytest.raises(ValueError, match="resident" if how == "resident" else "divide"):
+        op.matvec(x) if method == "matvec" else op.shifted_matvec(x, v, v)
+    assert sym_band_matvec_int8.launches == before
+
+
+def test_int8_lanes_form_rejects_bad_input(cuda):
+    upper, scales = _int8_blocks(2, 5, 2, 64, 3, cuda)
+    x = torch.zeros(4, 5 * 64, device=cuda)
+    v = torch.ones(4, device=cuda)
+    for args in [(x.double(),), (x[:3],), (x[:, :-64],), (x, v), (x, v, v[:2]),
+                 (x, v, v.double()), (x, v, v.cpu())]:
+        with pytest.raises(ValueError):
+            sym_band_matvec_int8_lanes(upper, scales, *args)
+
+
 # The float diag kernel over tiles of the band (csrc/sym_band_float.cu's
 # matvec form, whose (G, D) ops/band_kernel.py::_float_tiles picks): whole
 # triangles and a ragged band, at the rule's own tiles and at forced ones, in
@@ -1230,6 +1383,21 @@ def test_fused_replay_matches_eager_steps_bit_for_bit(cuda, force, mesh):
     own = "sym_band_matvec_int8_spill" if mesh else "sym_band_matvec_int8"
     passes = int(aux.cg_passes.sum()) + 2 * 4
     assert engine.fused.launches() == {own: passes * (2 if mesh else 1)}
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["unsharded", "mesh"])
+def test_fused_int8_step_takes_the_lanes_form(cuda, mesh):
+    """Every LD pass of the fused int8 step over one card (CG's A p and the
+    gamw pass) takes the kernel's lanes form: ld_passes.copied reads 0 (the
+    counters count at capture); under a mesh every pass takes the spill
+    form over copied lanes."""
+    engine = _fused_engine(cuda, True, mesh)
+    profiling.reset()
+    engine.run_scan(2, seed=1)
+    counts = profiling.snapshot()["counts"]
+    taken, other = ("ld_passes.copied", "ld_passes.in_place") if mesh else (
+        "ld_passes.in_place", "ld_passes.copied")
+    assert counts.get(taken, 0) > 0 and counts.get(other, 0) == 0, counts
 
 
 def test_fused_step_refuses_a_host_read_during_capture(cuda, monkeypatch):
